@@ -17,7 +17,12 @@ Phases, each of which must pass or the script exits non-zero:
    sessions for every metering mode, ``predict`` / ``infer_with_report``,
    ``IMPACTEngine`` serving and a Poisson ``replay_trace``, with the
    launch counters showing every kernel ran on that path;
-5. times: the device's busy share while the engine serves (under
+5. the training path at paper width (N=128 states, T=96, s=8): offline
+   CoTM training on synthetic digits, programming on ideal and on
+   variable devices, the digital kernels against the software CoTM, and
+   online training (``OnlineTrainer``) interleaved with ``IMPACTEngine``
+   sweeps on one session, with its own launch counters;
+6. times: the device's busy share while the engine serves (under
    ``torch.profiler``), then each kernel, its plain version and one
    PyTorch call for the same function, in CUDA-event medians.
 
@@ -70,9 +75,43 @@ RTOL_BILLS = 1e-9         # request bills vs batch meter, float64
 # clock, so that the spread between them shows the clock's noise.
 ENGINE_WINDOWS, ENGINE_REQUESTS = 3, 65536
 
+# Training path: offline epochs of batch 32 over N_TRAIN digits, held-out
+# accuracy on N_HELD_OUT; then ONLINE_UPDATES OnlineTrainer updates of
+# ONLINE_BATCH fresh digits, each after an engine sweep over the same
+# batch; the digital kernels on DIGITAL_BATCH held-out digits.  A batched
+# update sums its samples' TA deltas, so its step grows with the batch:
+# at T = 96 from the model after one epoch, batches of 64 do not raise
+# held-out accuracy, offline or online, while batches of 16 do
+# (``python -m repro_torch.train.update_batch`` measures it), hence
+# 16-sample updates over 4096 fresh digits.
+N_TRAIN, TRAIN_EPOCHS, N_HELD_OUT = 6000, 4, 1000
+ONLINE_UPDATES, ONLINE_BATCH, DIGITAL_BATCH = 256, 16, 256
+# The reference's online benchmark updates 64 samples at a time
+# (benchmarks/impact_train.py:51): ta_feedback is also checked and timed
+# at that doubled batch.
+REFERENCE_UPDATE_ROWS = 2 * 64
+# The class tile's fine-tune band (``tiles.encode_class_tile``): on ideal
+# devices every programmed class cell lies within this many weight
+# segments of its target.
+FINETUNE_TOL_SEGMENTS = 5
+
+# (B, K, N, M) for the digital kernels: the quickstart's shape, then
+# ragged ones (K off every multiple of 32 and 128; 3000 literals take
+# three shared-memory stages).
+DIGITAL_SHAPES = [(DIGITAL_BATCH, K, N_CLAUSES, M_CLASSES), (5, 70, 33, 4),
+                  (37, 300, 77, 3), (9, 130, 129, 10),
+                  (100, 3000, N_CLAUSES, M_CLASSES)]
+# (2B, K, n) for ta_feedback: the trainer's update, then ragged ones (2B
+# off every multiple of 32, several words).
+FEEDBACK_SHAPES = [(2 * ONLINE_BATCH, K, N_CLAUSES),
+                   (REFERENCE_UPDATE_ROWS, K, N_CLAUSES), (42, 130, 129),
+                   (6, 33, 5), (100, 1000, N_CLAUSES), (300, 200, 77)]
+
 # Published peaks of one H100 SXM (NVIDIA data sheet, 700 W): f32 outside
-# the tensor cores, and HBM3 bandwidth.
+# the tensor cores, int8 on the tensor cores (dense; the 0/1 contractions
+# of the digital kernels are exact there), and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
+PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 
 
@@ -248,7 +287,83 @@ def check_kernels(device) -> dict[str, float]:
     return errs
 
 
+def digital_operands(shape, device, seed=0):
+    """Literals (mostly ones, as booleanized digits are), an include
+    matrix with a few includes a clause and some empty clauses, nonempty
+    and signed weights (N, M), on ``device``."""
+    B, K_, N, M = shape
+    rng = np.random.default_rng(seed)
+    inc = rng.random((K_, N)) < 2.0 / K_
+    inc[:, ::7] = False
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
+    return (t(rng.random((B, K_)) < 0.9).to(torch.int8), t(inc),
+            t(inc.any(axis=0)), t(rng.integers(-20, 21, (N, M))).to(
+                torch.int32))
+
+
+def feedback_operands(shape, device, seed=0):
+    """Random 0/1 operands of ``ta_feedback`` at (2B, K, n)."""
+    B2, K_, n = shape
+    rng = np.random.default_rng(seed)
+    t = lambda *s: torch.as_tensor(rng.random(s) < 0.5, device=device)
+    return (t(B2, K_).to(torch.int8), t(B2, n), t(B2, n), t(B2, n),
+            t(K_, n).to(torch.int32), t(K_, n).to(torch.int32), t(K_, n))
+
+
+def max_int_err(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """Exact equality (dtype, shape, every element): the max absolute
+    error is then 0."""
+    if got.dtype != want.dtype:
+        fail(f"{name}: dtype {got.dtype} != {want.dtype}")
+    exact(name, got, want)
+    return 0.0
+
+
+def check_training_kernels(device) -> dict[str, float]:
+    """The kernels of the training path (ta_feedback and the digital CoTM
+    family) against their plain versions on the same card tensors, exact,
+    at the path's shapes and ragged ones; returns the max absolute error
+    per kernel."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.class_sum import class_sum
+    from repro_torch.kernels.clause_eval import clause_eval
+    from repro_torch.kernels.fused_cotm import fused_cotm
+    from repro_torch.kernels.ta_feedback import ta_feedback
+    errs = dict(ta_feedback=0.0, fused_cotm=0.0, clause_eval=0.0,
+                class_sum=0.0)
+    for i, shape in enumerate(DIGITAL_SHAPES):
+        lit, inc, ne, w = digital_operands(shape, device, seed=i)
+        want_f = ref.clause_eval_ref(lit, inc, ne)
+        if not 0 < int(want_f.sum()) < want_f.numel():
+            fail(f"digital operands {shape}: no clause fires, or all do")
+        errs["clause_eval"] = max(
+            errs["clause_eval"],
+            max_int_err(f"clause_eval fired {shape}",
+                        clause_eval(lit, inc, ne), want_f),
+            max_int_err(f"clause_eval viol {shape}",
+                        clause_eval(lit, inc, ne, mode="viol"),
+                        ref.clause_viol_ref(lit, inc)))
+        cl = want_f.to(torch.int8)
+        errs["class_sum"] = max(errs["class_sum"], max_int_err(
+            f"class_sum {shape}", class_sum(cl, w),
+            ref.class_sum_ref(cl, w)))
+        errs["fused_cotm"] = max(errs["fused_cotm"], max_int_err(
+            f"fused_cotm {shape}", fused_cotm(lit, inc, w, ne),
+            ref.fused_cotm_ref(lit, inc, w, ne)))
+    for i, shape in enumerate(FEEDBACK_SHAPES):
+        ops = feedback_operands(shape, device, seed=10 + i)
+        errs["ta_feedback"] = max(errs["ta_feedback"], max_int_err(
+            f"ta_feedback {shape}", ta_feedback(*ops),
+            ref.ta_feedback_ref(*ops)))
+    torch.cuda.synchronize()
+    return errs
+
+
 # -- phase 4 --------------------------------------------------------------
+
+SERVE_KERNELS = ("fused_impact_f32", "fused_impact_metered_f32",
+                 "crossbar_mvm_f32")
+
 
 def serve_path(device) -> dict:
     """Drive the port's serving path at paper width; returns what phase 5
@@ -399,8 +514,8 @@ def serve_path(device) -> dict:
     # ideal-device check below adds launches of its own.
     torch.cuda.synchronize()
     out["launches"] = counts()
-    for sym, n in out["launches"].items():
-        if n == 0:
+    for sym in SERVE_KERNELS:
+        if out["launches"][sym] == 0:
             fail(f"{sym} was never launched on the serving path")
 
     # Ideal devices: the analog clause bits are the digital CoTM's.
@@ -429,6 +544,205 @@ def serve_path(device) -> dict:
 
 # -- phase 5 --------------------------------------------------------------
 
+TRAIN_KERNELS = ("ta_feedback_i32", "crossbar_mvm_f32", "fused_impact_f32",
+                 "fused_impact_metered_f32", "fused_cotm_i32",
+                 "clause_eval_i8", "class_sum_i32")
+
+
+def train_path(device) -> dict:
+    """Drive the port's training path at paper width: offline training,
+    programming on ideal and variable devices, the digital kernels, and
+    online training interleaved with serving on one session.  Returns
+    what the timing phase needs and the launch counts of this run."""
+    from repro_torch import kernels
+    from repro_torch import quickstart as qs
+    from repro_torch.core.cotm import (class_scores, clause_outputs,
+                                       forward, include_mask,
+                                       violation_counts)
+    from repro_torch.core.train import (FeedbackDraws, feedback_masks,
+                                        ta_draws)
+    from repro_torch.impact import IMPACTConfig, RuntimeSpec, build_system
+    from repro_torch.impact.runtime import InferenceSession
+    from repro_torch.impact.yflash import I_CSA_THRESHOLD as TH
+    from repro_torch.serve import IMPACTEngine
+    from repro_torch.train import OnlineTrainer
+
+    out: dict = {}
+    lit_tr, y_tr = qs.digit_data(N_TRAIN, 1, device)
+    lit_ho, y_ho = qs.digit_data(N_HELD_OUT, 2, device)
+    n_on = ONLINE_UPDATES * ONLINE_BATCH
+    lit_on, y_on = qs.digit_data(n_on, 3, device)
+    lit_on_np = lit_on.cpu().numpy()
+    cfg = qs.paper_config(N_CLAUSES)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+
+    # 1. Offline training.
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    init = cfg.init(gen)
+    acc0 = qs.accuracy(init, cfg, lit_ho, y_ho)
+    print(f"offline training at K={K}, n={N_CLAUSES}, m={M_CLASSES} "
+          f"(N={cfg.n_states}, T={cfg.threshold}, s={cfg.specificity}); "
+          f"held-out software acc before training {acc0:.4f}")
+    history = qs.train(init, cfg, lit_tr, y_tr, gen, TRAIN_EPOCHS,
+                       held_out=(lit_ho, y_ho))
+    params = history[-1]
+    sw_acc = qs.accuracy(params, cfg, lit_ho, y_ho)
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t0
+    print(f"offline training: {TRAIN_EPOCHS} epochs of {N_TRAIN} digits "
+          f"(batch 32) in {out['train_s']:.1f} s; held-out software acc "
+          f"{acc0:.4f} -> {sw_acc:.4f}")
+    if not sw_acc > acc0:
+        fail(f"offline training did not raise held-out accuracy "
+             f"({acc0} -> {sw_acc})")
+
+    # 2. Ideal devices: the analog clause bits are exactly the digital
+    # CoTM's; the class tile holds each weight within the fine-tune band,
+    # so an analog prediction may differ from the digital one only where
+    # the digital vote margin is within that band over the fired clauses.
+    inc = include_mask(params.ta_state, cfg.n_states)
+    ideal = build_system(params, cfg, None, IMPACTConfig(variability=False),
+                         device=device)
+    if ideal.encode_stats["weights"]["n_unconverged"]:
+        fail("ideal devices: class cells outside the fine-tune band")
+    sess_ideal = ideal.compile(RuntimeSpec(backend="cuda",
+                                           device=str(device)))
+    fired, _ = sess_ideal.backend.impact_clause_bits(
+        lit_ho.to(torch.int8), ideal.clause_i, ideal.nonempty, thresh=TH)
+    dig_fired = clause_outputs(lit_ho, inc)
+    exact("ideal devices: analog clause bits vs digital clause_outputs",
+          fired[:, :N_CLAUSES], dig_fired)
+    ana = sess_ideal.predict(lit_ho).predictions
+    _, scores = forward(params, lit_ho, cfg)
+    dig = scores.argmax(dim=-1)
+    gap = (scores.gather(1, dig[:, None])
+           - scores.gather(1, ana[:, None]))[:, 0]
+    band = 2 * FINETUNE_TOL_SEGMENTS * dig_fired.sum(dim=1)
+    outside = (ana != dig) & (gap > band)
+    if bool(outside.any()):
+        fail(f"ideal devices: {int(outside.sum())} predictions differ from "
+             f"the digital CoTM by more than the fine-tune band")
+    n_eq = int((ana == dig).sum())
+    print(f"ideal devices: clause bits equal the digital CoTM's on all "
+          f"{N_HELD_OUT} held-out digits; predictions equal on {n_eq} of "
+          f"{N_HELD_OUT} (the rest within the fine-tune band: digital "
+          f"margins {sorted(gap[ana != dig].tolist())[:12]}); hardware acc "
+          f"{float((ana == y_ho).double().mean()):.4f}")
+
+    # 3. Variable devices, a fused-metering session, the Table-4 report.
+    system = build_system(params, cfg, gen, IMPACTConfig(variability=True),
+                          device=device)
+    res = system.compile(RuntimeSpec(
+        backend="cuda", metering="fused",
+        device=str(device))).infer_with_report(lit_ho)
+    rep = res.report
+    hw_acc = float((res.predictions == y_ho).double().mean())
+    pj_cl = rep.clause_energy_j / rep.datapoints * 1e12
+    pj_cs = rep.class_energy_j / rep.datapoints * 1e12
+    if rep.datapoints != N_HELD_OUT or not (
+            0 < pj_cl < float("inf") and 0 < pj_cs < float("inf")):
+        fail(f"variable devices: bad report {rep}")
+    print(f"variable devices: software acc {sw_acc:.4f}, hardware acc "
+          f"{hw_acc:.4f} on {N_HELD_OUT} held-out digits; read energy per "
+          f"datapoint clause {pj_cl:.3f} pJ, class {pj_cs:.3f} pJ")
+    out.update(sw_acc=sw_acc, hw_acc=hw_acc, pj_clause=pj_cl,
+               pj_class=pj_cs)
+
+    # 4. The digital kernels against the software CoTM.
+    lk = lit_ho[:DIGITAL_BATCH]
+    got = qs.digital_kernels(params, cfg, lk)
+    want = class_scores(clause_outputs(lk, inc), params.weights)
+    exact("fused_cotm vs class_scores(clause_outputs)", got["fused"], want)
+    exact("class_sum(clause_eval) vs class_scores(clause_outputs)",
+          got["staged"], want)
+    exact("clause_eval fired vs clause_outputs", got["fired"],
+          clause_outputs(lk, inc))
+    exact("clause_eval viol vs violation_counts", got["viol"],
+          violation_counts(lk, inc))
+    print(f"digital kernels on {DIGITAL_BATCH} held-out digits: fused_cotm "
+          f"and class_sum(clause_eval) equal the software CoTM's scores; "
+          f"acc {float((got['fused'].argmax(-1) == y_ho[:DIGITAL_BATCH]).double().mean()):.4f}")
+
+    # 5. Online training while serving, on the model after epoch 1.
+    deployed = history[0]
+    gen_on = torch.Generator(device=device).manual_seed(SEED + 1)
+    system_on = build_system(deployed, cfg, gen_on,
+                             IMPACTConfig(variability=True), device=device)
+    spec = RuntimeSpec(backend="cuda", metering="fused", capacity=CAPACITY,
+                       device=str(device))
+    session = system_on.compile(spec)
+    trainer = OnlineTrainer(session, deployed, cfg, generator=gen_on,
+                            variability=True)
+    engine = IMPACTEngine(session, clock=time.perf_counter)
+    acc_before = trainer.evaluate(lit_ho, y_ho)
+    t0 = time.perf_counter()
+    for u in range(ONLINE_UPDATES):
+        sl = slice(u * ONLINE_BATCH, (u + 1) * ONLINE_BATCH)
+        q0 = len(engine.request_records)
+        _, stats = engine.run(lit_on_np[sl])
+        bills = sum(r.e_read_j for r in engine.request_records[q0:])
+        meter = stats["energy"].read_energy_j
+        if not abs(bills - meter) <= RTOL_BILLS * abs(meter):
+            fail(f"online update {u}: request bills {bills!r} != batch "
+                 f"meter {meter!r}")
+        trainer.update(lit_on[sl], y_on[sl])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    acc_after = trainer.evaluate(lit_ho, y_ho)
+    fold = 0.0
+    for r in trainer.records:
+        fold += r["write_energy_j"]
+    if fold != trainer.write_energy_j:
+        fail(f"write meter {trainer.write_energy_j!r} != left fold of the "
+             f"update bills {fold!r}")
+    fresh = InferenceSession(system_on, spec).predict(lit_ho)
+    cached = session.predict(lit_ho)
+    exact("online: cached session predictions vs a fresh session",
+          cached.predictions, fresh.predictions)
+    exact("online: cached session scores vs a fresh session",
+          cached.scores, fresh.scores)
+    recs = trainer.records
+    print(f"online training: {ONLINE_UPDATES} updates of {ONLINE_BATCH} "
+          f"digits, each after an engine sweep over the same batch, "
+          f"{wall:.2f} s; held-out hardware acc {acc_before:.4f} -> "
+          f"{acc_after:.4f}; flips {sum(r['n_flips'] for r in recs)}, "
+          f"pulses {sum(r['prog_pulses'] + r['erase_pulses'] for r in recs)},"
+          f" unconverged {sum(r['n_unconverged'] for r in recs)}, write "
+          f"energy {trainer.write_energy_j:.6e} J (left fold equal); the "
+          f"cached session serves what a fresh one does")
+    if not acc_after > acc_before:
+        fail(f"online training did not raise held-out accuracy "
+             f"({acc_before} -> {acc_after})")
+    out.update(acc_online=(acc_before, acc_after))
+    # The training path ends here: its launch counts are read before the
+    # timing phase adds launches of its own.
+    torch.cuda.synchronize()
+    out["launches"] = kernels.launch_counts()
+    for sym in TRAIN_KERNELS:
+        if out["launches"][sym] == 0:
+            fail(f"{sym} was never launched on the training path")
+
+    # Operands for the timing phase, at the path's shapes.
+    out["digital_ops"] = (lk.to(torch.int8).contiguous(), inc.contiguous(),
+                          inc.any(dim=0),
+                          params.weights.T.contiguous().to(torch.int32))
+    lb, yb = lit_on[-ONLINE_BATCH:], y_on[-ONLINE_BATCH:]
+    inc_t = include_mask(trainer.params.ta_state, cfg.n_states)
+    fired_t = clause_outputs(lb, inc_t, training=True)
+    draws = FeedbackDraws.sample(gen_on, ONLINE_BATCH, cfg)
+    _, _, sel, match, fired2 = feedback_masks(
+        fired_t, class_scores(fired_t, trainer.params.weights),
+        trainer.params.weights, yb, draws, cfg)
+    hi, lo = ta_draws(draws, cfg)
+    out["feedback_ops"] = (torch.cat([lb, lb]).to(torch.int8), fired2, sel,
+                           match, hi, lo, inc_t)
+    return out
+
+
+# -- phase 6 --------------------------------------------------------------
+
 def cuda_ms(fn, iters: int = 30) -> float:
     """Median device time of ``fn`` in ms: per iteration, the stream first
     sleeps so the host can enqueue the events and the work behind it, so
@@ -449,9 +763,10 @@ def cuda_ms(fn, iters: int = 30) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def bound_ms(bytes_moved: float, flops: float) -> tuple[float, str]:
+def bound_ms(bytes_moved: float, ops: float,
+             peak: float = PEAK_F32_FLOPS) -> tuple[float, str]:
     t_b = bytes_moved / PEAK_HBM_BYTES * 1e3
-    t_o = flops / PEAK_F32_FLOPS * 1e3
+    t_o = ops / peak * 1e3
     return (t_o, "operations") if t_o >= t_b else (t_b, "bytes")
 
 
@@ -550,10 +865,99 @@ def time_kernels(served: dict, errs: dict) -> list[dict]:
     for r in rows:
         r["launches"] = served["launches"][symbols[r["name"]]]
         r["max_abs_err"] = errs[r["name"]]
-    order = ("name", "route", "source", "replaces", "launches",
-             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms")
-    return [{k: r[k] for k in order} for r in rows]
+    return [{k: r[k] for k in ROW_KEYS} for r in rows]
+
+
+ROW_KEYS = ("name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+
+
+def time_training_kernels(trained: dict, errs: dict) -> list[dict]:
+    """The training path's kernels at its shapes: each kernel, its plain
+    version and one PyTorch yardstick (f32 matmuls, exact for these
+    counts), with the bound from the bytes and the 0/1 operations at the
+    int8 tensor-core rate."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.class_sum import class_sum
+    from repro_torch.kernels.clause_eval import clause_eval
+    from repro_torch.kernels.fused_cotm import fused_cotm
+    from repro_torch.kernels.ta_feedback import ta_feedback
+
+    lit, inc, ne, w = trained["digital_ops"]
+    B, Kl = lit.shape
+    N, M = w.shape
+    not_l, inc_f, w_f = 1.0 - lit.float(), inc.float(), w.float()
+    cl = ref.clause_eval_ref(lit, inc, ne).to(torch.int8)
+    cl_f = cl.float()
+
+    def lib_clause():
+        return (torch.matmul(not_l, inc_f) == 0) & ne
+
+    def lib_fused():
+        return torch.matmul(lib_clause().float(), w_f)
+
+    def lib_class():
+        return torch.matmul(cl_f, w_f)
+
+    in_clause = B * Kl + Kl * N + N
+    ops_clause, ops_class = 2.0 * B * Kl * N, 2.0 * B * N * M
+    fb = trained["feedback_ops"]
+    lit2, fired2, sel, match, hi, lo, include = fb
+    B2, n = fired2.shape
+    lit_t = lit2.float().T
+    t1f = (sel & match & fired2).float()
+    t2f = (sel & ~match & fired2).float()
+    lhs = torch.stack([lit_t, 1.0 - lit_t, 1.0 - lit_t]).contiguous()
+    rhs = torch.stack([t1f, t1f, t2f]).contiguous()
+    decay = (sel & match & ~fired2).float().sum(dim=0)
+    hi_f, lo_f, excl_f = hi.float(), lo.float(), (~include).float()
+
+    def lib_feedback():
+        p = torch.bmm(lhs, rhs)
+        return (hi_f * p[0] - lo_f * (p[1] + decay)
+                + excl_f * p[2]).to(torch.int32)
+
+    table = (
+        ("ta_feedback", "ta_feedback_i32", "ta_feedback.cu",
+         "src/repro/kernels/fused_impact.py:394",
+         lambda: ta_feedback(*fb), lambda: ref.ta_feedback_ref(*fb),
+         lib_feedback, B2 * Kl + 3 * B2 * n + 9 * Kl * n + 4 * Kl * n,
+         3 * 2.0 * Kl * n * B2),
+        ("fused_cotm", "fused_cotm_i32", "digital_cotm.cu",
+         "src/repro/kernels/fused_cotm.py:40",
+         lambda: fused_cotm(lit, inc, w, ne),
+         lambda: ref.fused_cotm_ref(lit, inc, w, ne), lib_fused,
+         in_clause + 4 * N * M + 4 * B * M, ops_clause + ops_class),
+        ("clause_eval", "clause_eval_i8", "digital_cotm.cu",
+         "src/repro/kernels/clause_eval.py:40",
+         lambda: clause_eval(lit, inc, ne),
+         lambda: ref.clause_eval_ref(lit, inc, ne), lib_clause,
+         in_clause + B * N, ops_clause),
+        ("class_sum", "class_sum_i32", "digital_cotm.cu",
+         "src/repro/kernels/class_sum.py:30", lambda: class_sum(cl, w),
+         lambda: ref.class_sum_ref(cl, w), lib_class,
+         B * N + 4 * N * M + 4 * B * M, ops_class),
+    )
+    ref_fb = feedback_operands((REFERENCE_UPDATE_ROWS, Kl, n), lit.device)
+    print(f"training-path kernel shapes: ta_feedback (2B, K, n) = "
+          f"({B2}, {Kl}, {n}); digital (B, K, N, M) = ({B}, {Kl}, {N}, {M});"
+          f" clause_eval viol mode "
+          f"{cuda_ms(lambda: clause_eval(lit, inc, ne, mode='viol')):.4f} "
+          f"ms; ta_feedback at 2B = {REFERENCE_UPDATE_ROWS} "
+          f"{cuda_ms(lambda: ta_feedback(*ref_fb)):.4f} ms (plain "
+          f"{cuda_ms(lambda: ref.ta_feedback_ref(*ref_fb)):.4f} ms)")
+    rows = []
+    for name, sym, src, repl, fn, plain, lib, by, ops in table:
+        b_ms, b_by = bound_ms(by, ops, PEAK_INT8_OPS)
+        print(f"{name} work: {ops:.0f} 0/1 operations on {by} B")
+        rows.append(dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{src}", replaces=repl,
+            launches=trained["launches"][sym], max_abs_err=errs[name],
+            ms=cuda_ms(fn), plain_ms=cuda_ms(plain), bound_ms=b_ms,
+            bound_by=b_by, library_ms=cuda_ms(lib)))
+    return [{k: r[k] for k in ROW_KEYS} for r in rows]
 
 
 def profile_engines(served: dict, lits: np.ndarray) -> None:
@@ -605,6 +1009,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     errs = check_kernels(device)
+    errs.update(check_training_kernels(device))
     print(f"phase kernels: all kernels match their plain versions "
           f"({time.perf_counter() - t0:.1f} s); max abs err "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
@@ -614,9 +1019,14 @@ def main() -> int:
     print(f"phase serving path: done in {time.perf_counter() - t0:.1f} s; "
           f"launches {served['launches']}")
 
+    t0 = time.perf_counter()
+    trained = train_path(device)
+    print(f"phase training path: done in {time.perf_counter() - t0:.1f} s; "
+          f"launches {trained['launches']}")
+
     profile_engines(served, np.tile(digit_literals(1024, seed=SEED + 7),
                                     (8, 1)))
-    rows = time_kernels(served, errs)
+    rows = time_kernels(served, errs) + time_training_kernels(trained, errs)
     for r in rows:
         print(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} "

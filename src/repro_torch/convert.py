@@ -32,8 +32,8 @@ def params_from_arrays(ta_state, weights, *,
     int32 tensors on ``device`` (default ``cuda``)."""
     dev = resolve_device(device)
     return CoTMParams(
-        ta_state=torch.as_tensor(np.asarray(ta_state, np.int32), device=dev),
-        weights=torch.as_tensor(np.asarray(weights, np.int32), device=dev))
+        ta_state=torch.as_tensor(np.array(ta_state, np.int32), device=dev),
+        weights=torch.as_tensor(np.array(weights, np.int32), device=dev))
 
 
 def system_from_arrays(d: Mapping[str, Any], *,
@@ -45,16 +45,23 @@ def system_from_arrays(d: Mapping[str, Any], *,
     ``class_g`` (S, sr, m), ``clause_i``, ``class_i``, the ints
     ``n_literals`` / ``n_clauses`` / ``n_classes``, the floats
     ``program_energy_j`` / ``erase_energy_j``, and optionally ``cfg``, a
-    mapping of ``IMPACTConfig`` fields.  The currents are taken as given,
-    not recomputed from the conductances.
+    mapping of ``IMPACTConfig`` fields, and the class tile's encoding map
+    ``weight_shift`` / ``w_max`` (``encode_stats["weight_shift"]`` and
+    ``encode_stats["weights"]["w_max"]``, which ``train.OnlineTrainer``
+    reads).  The currents are taken as given, not recomputed from the
+    conductances.
     """
     dev = resolve_device(device)
     arrays = {k: torch.as_tensor(np.array(d[k]), device=dev).to(dt)
               .contiguous() for k, dt in SYSTEM_ARRAYS.items()}
+    stats = dict(program_energy_j=float(d["program_energy_j"]),
+                 erase_energy_j=float(d["erase_energy_j"]))
+    if "weight_shift" in d:
+        stats["weight_shift"] = int(d["weight_shift"])
+    if "w_max" in d:
+        stats["weights"] = dict(w_max=int(d["w_max"]))
     return IMPACTSystem(
         **arrays,
         n_literals=int(d["n_literals"]), n_clauses=int(d["n_clauses"]),
         n_classes=int(d["n_classes"]),
-        cfg=IMPACTConfig(**dict(d.get("cfg", {}))),
-        encode_stats=dict(program_energy_j=float(d["program_energy_j"]),
-                          erase_energy_j=float(d["erase_energy_j"])))
+        cfg=IMPACTConfig(**dict(d.get("cfg", {}))), encode_stats=stats)

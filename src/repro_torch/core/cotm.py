@@ -10,7 +10,7 @@
 These digital functions are the golden reference the analog crossbar
 path is held to on ideal devices.  The integer dots run as float64
 matmuls (CUDA has no integer matmul): every term is an integer far below
-2**53, so the counts are exact.  Training comes with a later slice.
+2**53, so the counts are exact.  Training is in ``core.train``.
 """
 from __future__ import annotations
 

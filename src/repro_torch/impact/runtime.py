@@ -18,9 +18,17 @@ Routing follows the reference's ``_scores_expr`` / ``_metered_expr``:
   meters in the same single pass;
 * ``metering="staged"`` (the default, as in the reference) runs the
   per-shard ``impact_clause_bits`` / ``impact_class_scores``
-  compositions over ``crossbar_mvm``.
+  compositions over ``crossbar_mvm``;
+* ``ta_feedback`` (the online trainer's update primitive) runs the
+  backend's ``ta_feedback``.
 
 Invalid lanes predict the sentinel -1 and bill exactly 0.
+
+A session holds the system's weight-side operands on its device.  The
+reference's session re-reads the system's arrays on every call; this one
+reads them at construction and again on ``refresh_operands()``, which
+``train.OnlineTrainer`` calls on every session of the system after each
+write.
 """
 from __future__ import annotations
 
@@ -117,16 +125,14 @@ class InferenceSession:
     """Compiled runtime for one ``(IMPACTSystem, RuntimeSpec)``; built by
     ``IMPACTSystem.compile(spec)``."""
 
-    _ENTRIES = ("predict", "infer_step", "infer_with_report")
+    _ENTRIES = ("predict", "infer_step", "infer_with_report", "ta_feedback")
 
     def __init__(self, system, spec: RuntimeSpec):
         self.spec = spec
         self.system = system
         self.backend = backends.get_backend(spec.backend)
         self.device = resolve_device(spec.device)
-        self._clause_i = system.clause_i.to(self.device).contiguous()
-        self._nonempty = system._nonempty_eff().to(self.device)
-        self._class_i = system.class_i.to(self.device).contiguous()
+        self.refresh_operands()
         self._exes: dict[tuple[str, int], Callable] = {}
         self._traces: collections.Counter = collections.Counter()
         # The serving sweep and any declared predict shapes are prepared
@@ -161,6 +167,16 @@ class InferenceSession:
     def warm(self, batch: int, entry: str = "infer_step") -> None:
         """Ensure the ``(entry, batch)`` entry is prepared (nothing runs)."""
         self._exe(entry, batch)
+
+    def refresh_operands(self) -> None:
+        """(Re-)read the system's clause currents, nonempty mask and class
+        currents onto the session's device.  The session's tensors are
+        re-pointed at new ones, not written in place, so a caller still
+        holding the old tensors keeps the old values."""
+        sys_ = self.system
+        self._clause_i = sys_.clause_i.to(self.device).contiguous()
+        self._nonempty = sys_._nonempty_eff().to(self.device)
+        self._class_i = sys_.class_i.to(self.device).contiguous()
 
     # -- entry points -------------------------------------------------------
     def predict(self, literals) -> InferenceResult:
@@ -207,6 +223,24 @@ class InferenceSession:
             latency_s=sys_._grid_latency(), ops_crosspoint=ops_xp,
             datapoints=n_dp, area_mm2=sum(sys_.area_mm2().values()))
         return InferenceResult(predictions=preds, report=report)
+
+    def ta_feedback(self, lit2, fired2, sel, match, hi, lo,
+                    include) -> torch.Tensor:
+        """CoTM Type I/II TA feedback deltas -> (K, n) int32, routed through
+        the session's backend like every serving entry.
+
+        ``lit2`` (2B, K) doubled literal rows; ``fired2`` / ``sel`` /
+        ``match`` (2B, n) feedback masks; ``hi`` / ``lo`` (K, n) int32
+        draws; ``include`` (K, n) current TA actions.  The entry's batch
+        is the doubled row count 2B.
+        """
+        dev = self.device
+        lit2 = torch.as_tensor(lit2, device=dev).to(LITERAL_DTYPE)
+        fn = self._exe("ta_feedback", lit2.shape[0])
+        b = lambda x: torch.as_tensor(x, device=dev).to(torch.bool)
+        i32 = lambda x: torch.as_tensor(x, device=dev).to(torch.int32)
+        return fn(lit2, b(fired2), b(sel), b(match), i32(hi), i32(lo),
+                  b(include))
 
     # -- plumbing -----------------------------------------------------------
     def _lits(self, literals) -> torch.Tensor:
@@ -258,6 +292,10 @@ class InferenceSession:
                                                            self._class_i)
         return (scores, i_clause.sum(dim=(1, 2, 3)),
                 i_class.sum(dim=(1, 2)))
+
+    def _ta_feedback_fn(self, lit2, fired2, sel, match, hi, lo, include):
+        return self.backend.ta_feedback(lit2, fired2, sel, match, hi, lo,
+                                        include)
 
     def _predict_fn(self, literals):
         scores = self._scores_expr(literals)

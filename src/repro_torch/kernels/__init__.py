@@ -4,8 +4,12 @@ versions and the backend registry.
 * ``csrc/crossbar_mvm.cu``  — analog conductance MVM with read nonlinearity
 * ``csrc/fused_impact.cu``  — fused analog path: cell currents + CSA +
   periphery, optionally metered
-* ``crossbar_mvm.py`` / ``fused_impact.py`` — the wrappers (launch counts,
-  operand checks, CPU tensors to the plain versions)
+* ``csrc/ta_feedback.cu``   — online-training Type I/II TA deltas
+* ``csrc/digital_cotm.cu``  — digital CoTM: ``clause_eval``, ``class_sum``
+  and both fused (``fused_cotm``)
+* ``crossbar_mvm.py`` / ``fused_impact.py`` / ``ta_feedback.py`` /
+  ``clause_eval.py`` / ``class_sum.py`` / ``fused_cotm.py`` — the wrappers
+  (launch counts, operand checks, CPU tensors to the plain versions)
 * ``_build.py``  — ``nvcc`` build into ``build/torch_kernels/`` + ``ctypes``
 * ``backends.py`` — registry: ``"cuda"`` (kernels) and ``"torch"`` (plain)
 * ``ref.py``      — the plain PyTorch versions
@@ -13,10 +17,15 @@ versions and the backend registry.
 from . import backends, ref
 from ._build import build_all, launch_counts, reset_launch_counts
 from .backends import available_backends, get_backend, register_backend
+from .class_sum import class_sum
+from .clause_eval import clause_eval
 from .crossbar_mvm import crossbar_mvm
+from .fused_cotm import fused_cotm
 from .fused_impact import fused_impact, fused_impact_metered
+from .ta_feedback import ta_feedback
 
 __all__ = ["backends", "ref", "available_backends", "get_backend",
            "register_backend", "build_all", "launch_counts",
-           "reset_launch_counts", "crossbar_mvm", "fused_impact",
-           "fused_impact_metered"]
+           "reset_launch_counts", "class_sum", "clause_eval", "crossbar_mvm",
+           "fused_cotm", "fused_impact", "fused_impact_metered",
+           "ta_feedback"]

@@ -32,7 +32,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler",
                            "-fPIC")
-SOURCES = ("crossbar_mvm.cu", "fused_impact.cu")
+SOURCES = ("crossbar_mvm.cu", "fused_impact.cu", "ta_feedback.cu",
+           "digital_cotm.cu")
 HEADERS = ("tile_mma.cuh",)
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -1,5 +1,6 @@
 """Backend registry: one lowering of the crossbar primitives per name (the
-port of ``repro.kernels.backends`` for this slice).
+port of ``repro.kernels.backends``, packed and co-resident primitives
+aside).
 
 * ``"torch"`` — the plain PyTorch versions (``kernels.ref``), the
   counterpart of the reference's ``"xla"`` oracle backend;
@@ -21,9 +22,13 @@ from __future__ import annotations
 
 import torch
 
+from . import class_sum as _class
+from . import clause_eval as _clause
 from . import crossbar_mvm as _mvm
+from . import fused_cotm as _cotm
 from . import fused_impact as _impact
 from . import ref
+from . import ta_feedback as _feedback
 
 
 class Backend:
@@ -32,6 +37,23 @@ class Backend:
 
     name: str = ""
 
+    # -- digital CoTM primitives --------------------------------------------
+    def clause_eval(self, literals, include, nonempty, *,
+                    mode: str = "fired") -> torch.Tensor:
+        """-> fired (B, N) bool, or viol counts (B, N) int32 with
+        ``mode="viol"``."""
+        raise NotImplementedError
+
+    def class_sum(self, clauses, weights) -> torch.Tensor:
+        """clauses (B, N) x weights (N, M) -> scores (B, M) int32."""
+        raise NotImplementedError
+
+    def fused_cotm(self, literals, include, nonempty,
+                   weights) -> torch.Tensor:
+        """Both digital stages, weights (N, M) -> scores (B, M) int32."""
+        raise NotImplementedError
+
+    # -- analog crossbar primitives -----------------------------------------
     def crossbar_mvm(self, drive: torch.Tensor, g: torch.Tensor, *,
                      v_read: float = 2.0, nonlin: float = 1.5,
                      cutoff: float = 10e-9) -> torch.Tensor:
@@ -53,6 +75,16 @@ class Backend:
                                                thresh=thresh)
         scores, i_cls = self.impact_class_scores(fired, class_i)
         return scores, i_col.sum(dim=(1, 2, 3)), i_cls.sum(dim=(1, 2))
+
+    # -- online training ----------------------------------------------------
+    def ta_feedback(self, lit2, fired2, sel, match, hi, lo,
+                    include) -> torch.Tensor:
+        """CoTM Type I/II TA feedback deltas over one doubled update batch
+        -> ta_delta (K, n) int32 (``ref.ta_feedback_ref`` has the mask
+        semantics).  Every draw is an operand, so every backend returns
+        the same bits.  Default: the plain version."""
+        return ref.ta_feedback_ref(lit2, fired2, sel, match, hi, lo,
+                                   include)
 
     # -- staged analog compositions (Fig. 14 per-shard unroll) -------------
     def impact_clause_bits(self, literals, clause_i, nonempty, *,
@@ -102,6 +134,28 @@ class CudaBackend(Backend):
 
     name = "cuda"
 
+    def clause_eval(self, literals, include, nonempty, *, mode="fired"):
+        return _clause.clause_eval(literals.to(torch.int8).contiguous(),
+                                   include.to(torch.bool).contiguous(),
+                                   nonempty.to(torch.bool), mode=mode)
+
+    def class_sum(self, clauses, weights):
+        return _class.class_sum(clauses.to(torch.int8).contiguous(),
+                                weights.to(torch.int32).contiguous())
+
+    def fused_cotm(self, literals, include, nonempty, weights):
+        return _cotm.fused_cotm(literals.to(torch.int8).contiguous(),
+                                include.to(torch.bool).contiguous(),
+                                weights.to(torch.int32).contiguous(),
+                                nonempty.to(torch.bool))
+
+    def ta_feedback(self, lit2, fired2, sel, match, hi, lo, include):
+        b = lambda x: x.to(torch.bool).contiguous()
+        i32 = lambda x: x.to(torch.int32).contiguous()
+        return _feedback.ta_feedback(lit2.to(torch.int8).contiguous(),
+                                     b(fired2), b(sel), b(match), i32(hi),
+                                     i32(lo), b(include))
+
     def crossbar_mvm(self, drive, g, *, v_read=2.0, nonlin=1.5,
                      cutoff=10e-9):
         return _mvm.crossbar_mvm(drive.to(torch.float32),
@@ -134,6 +188,17 @@ class TorchBackend(Backend):
 
     name = "torch"
 
+    def clause_eval(self, literals, include, nonempty, *, mode="fired"):
+        if mode == "viol":
+            return ref.clause_viol_ref(literals, include)
+        return ref.clause_eval_ref(literals, include, nonempty)
+
+    def class_sum(self, clauses, weights):
+        return ref.class_sum_ref(clauses, weights)
+
+    def fused_cotm(self, literals, include, nonempty, weights):
+        return ref.fused_cotm_ref(literals, include, weights, nonempty)
+
     def crossbar_mvm(self, drive, g, *, v_read=2.0, nonlin=1.5,
                      cutoff=10e-9):
         return ref.crossbar_mvm_ref(drive, g, v_read=v_read, nonlin=nonlin,
@@ -156,11 +221,12 @@ class TorchBackend(Backend):
 
 _REGISTRY: dict[str, Backend] = {}
 
-#: The primitives every registered backend must provide (this slice's cut
-#: of the reference's contract).
+#: The primitives every registered backend must provide (the reference's
+#: contract without its packed and co-resident primitives).
 REQUIRED_PRIMITIVES: tuple[str, ...] = (
-    "crossbar_mvm", "fused_impact", "fused_impact_metered",
-    "impact_clause_bits", "impact_class_scores",
+    "clause_eval", "class_sum", "fused_cotm", "crossbar_mvm",
+    "fused_impact", "fused_impact_metered", "impact_clause_bits",
+    "impact_class_scores", "ta_feedback",
 )
 
 

@@ -46,6 +46,14 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def byte_view(t: torch.Tensor, name: str) -> torch.Tensor:
+    """A bool / int8 / uint8 operand as contiguous bytes (a view when it
+    is contiguous already)."""
+    if t.dtype not in (torch.bool, torch.int8, torch.uint8):
+        raise TypeError(f"{name} must be bool, int8 or uint8, got {t.dtype}")
+    return t.contiguous().view(torch.uint8)
+
+
 def crossbar_mvm(drive: torch.Tensor, g: torch.Tensor, *,
                  v_read: float = 2.0, nonlin: float = 1.5,
                  cutoff: float = 10e-9) -> torch.Tensor:

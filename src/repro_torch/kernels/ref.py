@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the crossbar kernels (the port of
-``repro.kernels.ref`` for this slice).
+"""Plain PyTorch versions of the crossbar and digital CoTM kernels (the
+port of ``repro.kernels.ref``, packed and co-resident oracles aside).
 
 Each hand-written CUDA kernel in this package computes the function of
 the same name here.  The CPU tests hold these against the JAX oracles,
@@ -10,6 +10,75 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+
+def clause_eval_ref(literals: torch.Tensor, include: torch.Tensor,
+                    nonempty: torch.Tensor | None = None) -> torch.Tensor:
+    """Boolean clause outputs: literals (B, K) {0,1}, include (K, N) {0,1}
+    -> fired (B, N) bool, ``(sum_k (1-L)*inc == 0) & nonempty``.  As in
+    the reference oracle, ``nonempty=None`` applies no mask (the kernel
+    wrappers default it to ``include.any(0)``, as ``repro.kernels.ops``
+    does)."""
+    fired = clause_viol_ref(literals, include) == 0
+    if nonempty is not None:
+        fired = fired & nonempty.to(torch.bool)
+    return fired
+
+
+def clause_viol_ref(literals: torch.Tensor,
+                    include: torch.Tensor) -> torch.Tensor:
+    """Violation counts (the clause-crossbar column current), (B, N) int32.
+    An f32 product: the counts are below K < 2**24, so it is exact (CUDA
+    has no integer matmul)."""
+    not_l = 1.0 - literals.to(torch.float32)
+    return (not_l @ include.to(torch.float32)).to(torch.int32)
+
+
+def class_sum_ref(clauses: torch.Tensor,
+                  weights: torch.Tensor) -> torch.Tensor:
+    """clauses (B, N) {0,1}; weights (N, M) int -> scores (B, M) int32.
+    An f64 product, exact while |scores| < 2**53."""
+    return (clauses.to(torch.float64)
+            @ weights.to(torch.float64)).to(torch.int32)
+
+
+def fused_cotm_ref(literals: torch.Tensor, include: torch.Tensor,
+                   weights: torch.Tensor,
+                   nonempty: torch.Tensor | None = None) -> torch.Tensor:
+    """literals (B, K) -> class scores (B, M) int32; weights (N, M) are the
+    class-crossbar layout (W^T)."""
+    return class_sum_ref(clause_eval_ref(literals, include, nonempty),
+                         weights)
+
+
+def ta_feedback_ref(lit2: torch.Tensor, fired2: torch.Tensor,
+                    sel: torch.Tensor, match: torch.Tensor, hi: torch.Tensor,
+                    lo: torch.Tensor, include: torch.Tensor) -> torch.Tensor:
+    """CoTM Type I/II TA feedback deltas over one doubled update batch.
+
+    lit2 (2B, K) {0,1} literals (true-class rows, then negative-class
+    rows); fired2 / sel / match (2B, n) bool feedback masks; hi / lo
+    (K, n) int32 per-TA draws; include (K, n) bool current TA actions ->
+    ta_delta (K, n) int32 = hi*present - lo*(absent + decay) + excl*inval
+    with ``t1f = sel&match&fired``, ``present = lit^T @ t1f``, ``absent =
+    (1-lit)^T @ t1f``, ``inval = (1-lit)^T @ (sel&~match&fired)`` and
+    ``decay = sum_b sel&match&~fired``.  f32 products as in the
+    reference: exact for counts far below 2**24.
+    """
+    sel, match, fired2 = (x.to(torch.bool) for x in (sel, match, fired2))
+    t1 = sel & match
+    t1f = (t1 & fired2).to(torch.float32)
+    t1nf = (t1 & ~fired2).to(torch.float32)
+    t2f = (sel & ~match & fired2).to(torch.float32)
+    lit_t = lit2.to(torch.float32).T
+    present = lit_t @ t1f
+    absent = (1.0 - lit_t) @ t1f
+    inval = (1.0 - lit_t) @ t2f
+    decay = t1nf.sum(dim=0, keepdim=True)
+    excl = (~include.to(torch.bool)).to(torch.float32)
+    delta = (hi.to(torch.float32) * present
+             - lo.to(torch.float32) * (absent + decay) + excl * inval)
+    return delta.to(torch.int32)
 
 
 def pad_to(x: torch.Tensor, size: int, dim: int, value=0) -> torch.Tensor:

@@ -41,7 +41,7 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
         "import sys\n"
         "import repro_torch, repro_torch.convert, repro_torch.core, "
         "repro_torch.data.synthetic, repro_torch.impact, repro_torch.kernels,"
-        " repro_torch.serve\n"
+        " repro_torch.serve, repro_torch.train, repro_torch.quickstart\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"

@@ -147,7 +147,9 @@ def test_session_shapes_are_prepared_once(pair):
     with pytest.raises(ValueError, match="valid shape"):
         sess.infer_step(lits, valid[:-1])
     with pytest.raises(ValueError, match="unknown entry"):
-        sess.warm(4, "ta_feedback")
+        sess.warm(4, "train")
+    sess.warm(8, "ta_feedback")
+    assert sess.trace_count == 6
     assert "fused" in repr(sess)
 
 
