@@ -11,7 +11,7 @@ Phases, each of which must pass or the script exits non-zero:
    compiled with ``nvcc`` (one process per source, in parallel);
 3. kernels: each CUDA kernel against its plain PyTorch version on the same
    card tensors, at the paper serving shape and at ragged and multi-shard
-   shapes;
+   shapes (the packed kernels on the 2-bit operand packed on the card);
 4. the serving path at paper width (K=1568 literals, n=500 clauses, m=10
    classes, capacity 128): ``build_system`` with device variability,
    sessions for every metering mode, ``predict`` / ``infer_with_report``,
@@ -22,7 +22,13 @@ Phases, each of which must pass or the script exits non-zero:
    variable devices, the digital kernels against the software CoTM, and
    online training (``OnlineTrainer``) interleaved with ``IMPACTEngine``
    sweeps on one session, with its own launch counters;
-6. times: the device's busy share while the engine serves (under
+6. the compressed serving path on the trained model of phase 5:
+   programming on ideal and on variable devices, ``prune_clauses``
+   against 1000 training digits, ``packing="2bit"`` sessions for every
+   metering mode, exactness gates on ideal devices, an accuracy gate on
+   variable devices and ``IMPACTEngine`` serving the packed fused
+   session, with its own launch counters;
+7. times: the device's busy share while the engine serves (under
    ``torch.profiler``), then each kernel, its plain version and one
    PyTorch call for the same function, in CUDA-event medians.
 
@@ -106,6 +112,14 @@ DIGITAL_SHAPES = [(DIGITAL_BATCH, K, N_CLAUSES, M_CLASSES), (5, 70, 33, 4),
 FEEDBACK_SHAPES = [(2 * ONLINE_BATCH, K, N_CLAUSES),
                    (REFERENCE_UPDATE_ROWS, K, N_CLAUSES), (42, 130, 129),
                    (6, 33, 5), (100, 1000, N_CLAUSES), (300, 200, 77)]
+
+# Compressed path: prune against N_CALIBRATION training digits; on
+# variable devices the packed session's held-out accuracy must lie within
+# PACKED_ACC_TOL of the unpacked session's (the quantized column currents
+# sit far from the CSA threshold: about 2.4 uA of leakage on a firing
+# column against 4.1 uA).
+N_CALIBRATION, PACKED_ACC_TOL = 1000, 0.01
+RTOL_PACKED_METERS = 1e-5     # packed vs unpacked meters, ideal devices
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, 700 W): f32 outside
 # the tensor cores, int8 on the tensor cores (dense; the 0/1 contractions
@@ -283,6 +297,59 @@ def check_kernels(device) -> dict[str, float]:
                            ref.crossbar_mvm_ref(drive, g), RTOL_MVM, ATOL_MVM)
         errs["crossbar_mvm"] = max(errs["crossbar_mvm"], err_cols, err_cls,
                                    err_mvm)
+    torch.cuda.synchronize()
+    return errs
+
+
+def check_packed_kernels(device) -> dict[str, float]:
+    """The packed kernels against their plain versions on the same card
+    tensors, the clause operand packed on the card (its bits equal to
+    the CPU's packing); the staged compositions on the dequantized codes
+    give the plain CSA bits exactly.  Returns the max absolute error per
+    kernel."""
+    from repro_torch.impact.yflash import I_CSA_THRESHOLD as TH
+    from repro_torch.kernels import backends, packing, ref
+    from repro_torch.kernels.fused_impact import (
+        fused_impact_packed, fused_impact_packed_metered)
+    cuda_bk = backends.get_backend("cuda")
+    torch_bk = backends.get_backend("torch")
+    errs = dict(fused_impact_packed=0.0, fused_impact_packed_metered=0.0)
+    for i, shape in enumerate(KERNEL_SHAPES):
+        s = synthetic_system(shape, device, seed=20 + i)
+        tr = shape[5]
+        pk = packing.pack_clause_operand(s["clause_i"])
+        exact(f"packed bits on the card vs the CPU {shape}", pk.bits.cpu(),
+              packing.pack_clause_operand(s["clause_i"].cpu()).bits)
+        args = (s["literals"], pk.bits, pk.levels, s["nonempty"],
+                s["class_i"])
+        got = fused_impact_packed(*args, thresh=TH, tr=tr)
+        want = ref.fused_impact_packed_ref(*args, thresh=TH, tr=tr)
+        exact(f"fused_impact_packed argmax {shape}", got.argmax(-1),
+              want.argmax(-1))
+        errs["fused_impact_packed"] = max(
+            errs["fused_impact_packed"],
+            allclose(f"fused_impact_packed scores {shape}", got, want,
+                     RTOL_SCORES))
+        g_sc, g_cl, g_cs = fused_impact_packed_metered(*args, thresh=TH,
+                                                       tr=tr)
+        w_sc, w_cl, w_cs = ref.fused_impact_packed_metered_ref(
+            *args, thresh=TH, tr=tr)
+        exact(f"fused_impact_packed_metered argmax {shape}", g_sc.argmax(-1),
+              w_sc.argmax(-1))
+        errs["fused_impact_packed_metered"] = max(
+            errs["fused_impact_packed_metered"],
+            allclose(f"fused_impact_packed_metered scores {shape}", g_sc,
+                     w_sc, RTOL_SCORES),
+            allclose(f"fused_impact_packed_metered clause meter {shape}",
+                     g_cl, w_cl, RTOL_CLAUSE_METER),
+            allclose(f"fused_impact_packed_metered class meter {shape}",
+                     g_cs, w_cs, RTOL_CLASS_METER))
+        deq = packing.dequant_clause(pk.bits, pk.levels, tr)
+        f_k, _ = cuda_bk.impact_clause_bits(s["literals"], deq,
+                                            s["nonempty"], thresh=TH)
+        f_p, _ = torch_bk.impact_clause_bits(s["literals"], deq,
+                                             s["nonempty"], thresh=TH)
+        exact(f"packed staged clause bits {shape}", f_k, f_p)
     torch.cuda.synchronize()
     return errs
 
@@ -738,10 +805,201 @@ def train_path(device) -> dict:
     hi, lo = ta_draws(draws, cfg)
     out["feedback_ops"] = (torch.cat([lb, lb]).to(torch.int8), fired2, sel,
                            match, hi, lo, inc_t)
+    out["model"] = (params, cfg)
+    out["data"] = (lit_tr, lit_ho, y_ho)
     return out
 
 
 # -- phase 6 --------------------------------------------------------------
+
+COMPRESSED_KERNELS = ("fused_impact_packed_f32",
+                      "fused_impact_packed_metered_f32", "crossbar_mvm_f32")
+
+
+def compressed_path(device, trained: dict) -> dict:
+    """Drive the compressed serving path at paper width on the trained
+    model: program, prune against calibration digits, compile packed
+    sessions, gate them against the unpacked ones and serve.  Returns
+    what the timing phase needs and the launch counts of this run."""
+    from repro_torch import kernels
+    from repro_torch.impact import IMPACTConfig, RuntimeSpec, build_system
+    from repro_torch.impact.yflash import I_CSA_THRESHOLD as TH
+    from repro_torch.kernels import backends, packing
+    from repro_torch.serve import IMPACTEngine
+    from repro_torch.train import prune_clauses
+
+    params, cfg = trained["model"]
+    lit_tr, lit_ho, y_ho = trained["data"]
+    lit_cal = lit_tr[:N_CALIBRATION]
+    cuda_bk = backends.get_backend("cuda")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out: dict = {}
+
+    def spec(metering, packing_="none", capacity=CAPACITY):
+        return RuntimeSpec(backend="cuda", metering=metering,
+                           packing=packing_, capacity=capacity,
+                           device=str(device))
+
+    t0 = time.perf_counter()
+    systems = {
+        "ideal": build_system(params, cfg, None,
+                              IMPACTConfig(variability=False),
+                              device=device),
+        "variable": build_system(
+            params, cfg, torch.Generator(device=device).manual_seed(SEED + 2),
+            IMPACTConfig(variability=True), device=device)}
+    torch.cuda.synchronize()
+    print(f"compressed path: programmed the trained model on ideal and on "
+          f"variable devices in {time.perf_counter() - t0:.2f} s")
+
+    for name, system in systems.items():
+        t0 = time.perf_counter()
+        pruned, stats = prune_clauses(system, lit_cal)
+        torch.cuda.synchronize()
+        pj = {}
+        for tag, sys_ in (("unpruned", system), ("pruned", pruned)):
+            rep = sys_.compile(spec("fused", capacity=None)).infer_with_report(
+                lit_cal).report
+            pj[tag] = (rep.clause_energy_j / rep.datapoints * 1e12,
+                       rep.class_energy_j / rep.datapoints * 1e12)
+        print(f"{name} devices: prune_clauses on {N_CALIBRATION} training "
+              f"digits in {time.perf_counter() - t0:.2f} s: {stats}; read "
+              f"energy per datapoint clause / class "
+              f"{pj['unpruned'][0]:.3f} / {pj['unpruned'][1]:.3f} pJ -> "
+              f"{pj['pruned'][0]:.3f} / {pj['pruned'][1]:.3f} pJ")
+        n_nonempty = int(system._nonempty_eff().sum())
+        if stats.n_effective + stats.n_never_fired + stats.n_duplicates != \
+                n_nonempty:
+            fail(f"{name}: pruning does not account for every column")
+        # An erased column draws 0 A instead of its leakage.
+        lower = (pj["pruned"][0] < pj["unpruned"][0]
+                 if stats.n_effective < n_nonempty
+                 else pj["pruned"][0] == pj["unpruned"][0])
+        if not lower:
+            fail(f"{name}: the clause read energy did not follow the "
+                 f"erased columns")
+
+        packed = {m: pruned.compile(spec(m, "2bit"))
+                  for m in ("off", "fused", "staged")}
+        unpacked = pruned.compile(spec("fused"))
+        sess = packed["fused"]
+        want = packing.pack_clause_operand(pruned.clause_i)
+        exact(f"{name}: session packed bits vs pack_clause_operand",
+              sess._packed.bits, want.bits)
+        exact(f"{name}: session levels vs pack_clause_operand",
+              sess._packed.levels, want.levels)
+        tr = pruned.clause_i.shape[2]
+        preds = {m: s.predict(lit_cal).predictions
+                 for m, s in packed.items()}
+        for m in ("fused", "staged"):
+            exact(f"{name}: packed predictions off vs {m}", preds[m],
+                  preds["off"])
+        unpacked_pred = unpacked.predict(lit_cal).predictions
+        if name == "ideal":
+            # Packing is lossless on ideal devices: every HCS and every LCS
+            # cell carries one current, which the levels take exactly.
+            exact("ideal: dequantized codes vs the pruned clause currents",
+                  packing.dequant_clause(*sess._packed, tr), pruned.clause_i)
+            ne = pruned._nonempty_eff()
+            lit8 = lit_cal.to(torch.int8)
+            exact("ideal: packed vs unpacked clause bits",
+                  cuda_bk.impact_clause_bits(
+                      lit8, packing.dequant_clause(*sess._packed, tr), ne,
+                      thresh=TH)[0],
+                  cuda_bk.impact_clause_bits(lit8, pruned.clause_i, ne,
+                                             thresh=TH)[0])
+            exact("ideal: packed vs unpacked predictions", preds["off"],
+                  unpacked_pred)
+            exact("ideal: pruned vs unpruned predictions on the calibration "
+                  "batch", unpacked_pred,
+                  system.compile(spec("off", capacity=None)).predict(
+                      lit_cal).predictions)
+            for m in ("fused", "staged"):
+                r_p = packed[m].infer_with_report(lit_cal).report
+                r_u = pruned.compile(spec(m)).infer_with_report(
+                    lit_cal).report
+                for f in ("clause_energy_j", "class_energy_j"):
+                    a, b = getattr(r_p, f), getattr(r_u, f)
+                    if not abs(a - b) <= RTOL_PACKED_METERS * abs(b):
+                        fail(f"ideal {m}: packed {f} {a!r} vs unpacked "
+                             f"{b!r}")
+            batch = lit_cal[:CAPACITY]
+            valid = np.arange(CAPACITY) < CAPACITY - 3
+            a = sess.infer_step(batch, valid)
+            b = unpacked.infer_step(batch, valid)
+            allclose("ideal: packed vs unpacked clause lane energies",
+                     a.e_clause_lanes, b.e_clause_lanes, RTOL_PACKED_METERS)
+            allclose("ideal: packed vs unpacked class lane energies",
+                     a.e_class_lanes, b.e_class_lanes, RTOL_PACKED_METERS)
+            if bool((a.e_clause_lanes[CAPACITY - 3:] != 0).any()):
+                fail("ideal: an invalid lane billed non-zero energy")
+            print("ideal devices: pruned + packed equals pruned unpacked "
+                  f"on the {N_CALIBRATION} calibration digits: clause bits,"
+                  f" predictions (and those of the unpruned system), "
+                  f"fused and staged meters at rtol {RTOL_PACKED_METERS}; "
+                  f"the dequantized codes equal the clause currents")
+            continue
+
+        # Variable devices: each cell's current becomes its population's
+        # mean; the CSA decisions stay far from the threshold.
+        p_ho = packed["off"].predict(lit_ho).predictions
+        u_ho = unpacked.predict(lit_ho).predictions
+        full = system.compile(spec("off", capacity=None)).predict(
+            lit_ho).predictions
+        acc = {k: float((v == y_ho).double().mean())
+               for k, v in (("packed", p_ho), ("unpacked", u_ho),
+                            ("unpruned", full))}
+        agree = int((p_ho == u_ho).sum())
+        print(f"variable devices: on {N_HELD_OUT} held-out digits the packed"
+              f" and unpacked pruned sessions agree on {agree}; accuracy "
+              f"packed {acc['packed']:.4f}, unpacked {acc['unpacked']:.4f},"
+              f" unpruned unpacked {acc['unpruned']:.4f}")
+        if abs(acc["packed"] - acc["unpacked"]) > PACKED_ACC_TOL:
+            fail(f"variable devices: packed accuracy {acc['packed']} is "
+                 f"more than {PACKED_ACC_TOL} from unpacked "
+                 f"{acc['unpacked']}")
+        nb_p = sess.input_bytes("infer_step", CAPACITY)
+        nb_u = unpacked.input_bytes("infer_step", CAPACITY)
+        print(f"input_bytes('infer_step', {CAPACITY}): packed {nb_p} B, "
+              f"unpacked {nb_u} B, ratio {nb_u / nb_p:.3f}")
+        if not nb_u >= 4 * nb_p:
+            fail(f"packing cut the sweep's bytes only {nb_u / nb_p:.2f}x")
+        out.update(acc=acc, agree=agree, input_bytes=(nb_p, nb_u),
+                   system=pruned, batch=lit_cal[:CAPACITY])
+
+        eng = IMPACTEngine(sess, clock=time.perf_counter)
+        burst = np.tile(lit_cal.cpu().numpy(),
+                        (-(-ENGINE_REQUESTS // N_CALIBRATION), 1))
+        burst = burst[:ENGINE_REQUESTS]
+        eng.run(burst[:2 * CAPACITY])
+        rps = []
+        for _ in range(ENGINE_WINDOWS):
+            q0 = len(eng.request_records)
+            t0 = time.perf_counter()
+            p, st = eng.run(burst)
+            rps.append(len(p) / (time.perf_counter() - t0))
+            bills = sum(r.e_read_j for r in eng.request_records[q0:])
+            meter = st["energy"].read_energy_j
+            if not abs(bills - meter) <= RTOL_BILLS * abs(meter):
+                fail(f"packed engine: request bills {bills!r} != batch "
+                     f"meter {meter!r}")
+        exact("packed engine predictions vs predict",
+              torch.as_tensor(p[:N_CALIBRATION]), preds["fused"].cpu())
+        print(f"IMPACTEngine continuous on the pruned + packed fused session:"
+              f" {ENGINE_WINDOWS} windows of {len(p)} requests, requests/s "
+              + " / ".join(f"{r:.1f}" for r in rps)
+              + f" (median {statistics.median(rps):.1f}); request bills "
+              f"equal the batch meter at {RTOL_BILLS}")
+    torch.cuda.synchronize()
+    out["launches"] = kernels.launch_counts()
+    for sym in COMPRESSED_KERNELS:
+        if out["launches"][sym] == 0:
+            fail(f"{sym} was never launched on the compressed path")
+    return out
+
+
+# -- phase 7 --------------------------------------------------------------
 
 def cuda_ms(fn, iters: int = 30) -> float:
     """Median device time of ``fn`` in ms: per iteration, the stream first
@@ -770,6 +1028,16 @@ def bound_ms(bytes_moved: float, ops: float,
     return (t_o, "operations") if t_o >= t_b else (t_b, "bytes")
 
 
+def needed_columns(ne: torch.Tensor, drawing: torch.Tensor,
+                   ) -> tuple[int, int]:
+    """The clause columns a fused function needs on this run's data: only
+    nonempty columns can fire, so the scores need their cells and class
+    rows alone; the clause meter also needs every column that draws
+    current (the leaking padding columns, not the pruned ones, which
+    hold no device).  -> (for the scores, for the metered kernel)."""
+    return int(ne.sum()), int((drawing | ne).sum())
+
+
 def time_kernels(served: dict, errs: dict) -> list[dict]:
     from repro_torch.impact.yflash import I_CSA_THRESHOLD as TH
     from repro_torch.kernels import ref
@@ -789,8 +1057,8 @@ def time_kernels(served: dict, errs: dict) -> list[dict]:
     if R != 1 or Kl > tr:
         fail(f"the timed layout must be one row shard, got R={R}, tr={tr}")
     # The work the function needs: the K driven rows of the clause tile
-    # (rows past K have no drive), and the class rows of the C*tc clause
-    # columns (the rest have no drive either).
+    # (rows past K have no drive) over the columns ``needed_columns``
+    # counts.
     live = min(C * tc, S * sr)
     drive = 1.0 - lits.float()                             # (B, K)
     ccur = ci[0, :, :Kl].transpose(0, 1).reshape(Kl, C * tc).contiguous()
@@ -801,18 +1069,22 @@ def time_kernels(served: dict, errs: dict) -> list[dict]:
         fired = (torch.matmul(drive, ccur) < TH) & ne
         return torch.matmul(fired[:, :live].float(), wcur)
 
-    in_bytes = (lits.numel() + ccur.numel() * 4 + ne.numel()
-                + wcur.numel() * 4)
-    fl_fused = 2.0 * B * Kl * C * tc + 2.0 * B * live * M
-    print(f"fused_impact work: {fl_fused:.0f} flop on {in_bytes} B in")
+    n_ne, n_meter = needed_columns(ne, ccur.ne(0).any(dim=0))
     rows = []
-    for name, fn, plain, extra_out in (
+    for name, fn, plain, extra_out, n_cols in (
             ("fused_impact", lambda: fused_impact(*args, thresh=TH),
-             lambda: ref.fused_impact_ref(*args, thresh=TH), 0),
+             lambda: ref.fused_impact_ref(*args, thresh=TH), 0, n_ne),
             ("fused_impact_metered",
              lambda: fused_impact_metered(*args, thresh=TH),
-             lambda: ref.fused_impact_metered_ref(*args, thresh=TH), 2 * B)):
-        b_ms, b_by = bound_ms(in_bytes + (B * M + extra_out) * 4, fl_fused)
+             lambda: ref.fused_impact_metered_ref(*args, thresh=TH), 2 * B,
+             n_meter)):
+        in_bytes = (lits.numel() + Kl * n_cols * 4 + ne.numel()
+                    + n_ne * M * 4)
+        flops = 2.0 * B * Kl * n_cols + 2.0 * B * n_ne * M
+        print(f"{name} work: {flops:.0f} flop on {in_bytes} B in ({n_cols} "
+              f"of {C * tc} clause columns x {Kl} driven rows, {n_ne} "
+              f"nonempty class rows)")
+        b_ms, b_by = bound_ms(in_bytes + (B * M + extra_out) * 4, flops)
         rows.append(dict(
             name=name, route="cuda",
             source="src/repro_torch/kernels/csrc/fused_impact.cu",
@@ -865,6 +1137,73 @@ def time_kernels(served: dict, errs: dict) -> list[dict]:
     for r in rows:
         r["launches"] = served["launches"][symbols[r["name"]]]
         r["max_abs_err"] = errs[r["name"]]
+    return [{k: r[k] for k in ROW_KEYS} for r in rows]
+
+
+def time_packed_kernels(compressed: dict, errs: dict) -> list[dict]:
+    """The packed kernels at the compressed path's shape (the pruned
+    variable-device system, B = 128): each kernel, its plain version and
+    one PyTorch yardstick (dequantize, then the two f32 matmuls and the
+    compare), with the bound counted as for fused_impact on the codes of
+    the driven rows, over the columns each function needs."""
+    from repro_torch.impact.yflash import I_CSA_THRESHOLD as TH
+    from repro_torch.kernels import packing, ref
+    from repro_torch.kernels.fused_impact import (
+        fused_impact_packed, fused_impact_packed_metered)
+    system = compressed["system"]
+    lits = compressed["batch"].to(torch.int8).contiguous()
+    ne, cls = system._nonempty_eff(), system.class_i
+    R, C, tr, tc = system.clause_i.shape
+    S, sr, M = cls.shape
+    B, Kl = lits.shape
+    if R != 1 or Kl > tr:
+        fail(f"the timed layout must be one row shard, got R={R}, tr={tr}")
+    bits, levels = packing.pack_clause_operand(system.clause_i)
+    args = (lits, bits, levels, ne, cls)
+    live = min(C * tc, S * sr)
+    k4 = packing.packed_rows(Kl)
+    drive = 1.0 - lits.float()
+    bits_live = bits[:, :, :k4].contiguous()
+    wcur = cls.reshape(S * sr, M)[:live].contiguous()
+
+    def dequant_two_matmuls():
+        cur = packing.dequant_clause(bits_live, levels, 4 * k4)
+        cur = cur[0, :, :Kl].transpose(0, 1).reshape(Kl, C * tc)
+        fired = (torch.matmul(drive, cur) < TH) & ne
+        return torch.matmul(fired[:, :live].float(), wcur)
+
+    # A column draws current where any of its codes is not DEAD.
+    n_ne, n_meter = needed_columns(
+        ne, bits_live[0].ne(0).any(dim=1).reshape(C * tc))
+
+    def work(n_clause_cols: int) -> tuple[int, float]:
+        in_bytes = (lits.numel() + k4 * n_clause_cols + levels.numel() * 4
+                    + ne.numel() + n_ne * M * 4)
+        return in_bytes, 2.0 * B * Kl * n_clause_cols + 2.0 * B * n_ne * M
+
+    rows = []
+    for name, sym, fn, plain, extra_out, n_cols, repl in (
+            ("fused_impact_packed", "fused_impact_packed_f32",
+             lambda: fused_impact_packed(*args, thresh=TH, tr=tr),
+             lambda: ref.fused_impact_packed_ref(*args, thresh=TH, tr=tr),
+             0, n_ne, "src/repro/kernels/fused_impact.py:280"),
+            ("fused_impact_packed_metered", "fused_impact_packed_metered_f32",
+             lambda: fused_impact_packed_metered(*args, thresh=TH, tr=tr),
+             lambda: ref.fused_impact_packed_metered_ref(*args, thresh=TH,
+                                                         tr=tr),
+             2 * B, n_meter, "src/repro/kernels/fused_impact.py:453")):
+        in_bytes, flops = work(n_cols)
+        print(f"{name} work: {flops:.0f} flop on {in_bytes} B in ({n_cols} "
+              f"of {C * tc} clause columns x {Kl} driven rows, {n_ne} "
+              f"nonempty class rows)")
+        b_ms, b_by = bound_ms(in_bytes + (B * M + extra_out) * 4, flops)
+        rows.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/fused_impact.cu",
+            replaces=repl, launches=compressed["launches"][sym],
+            max_abs_err=errs[name], ms=cuda_ms(fn), plain_ms=cuda_ms(plain),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=cuda_ms(dequant_two_matmuls)))
     return [{k: r[k] for k in ROW_KEYS} for r in rows]
 
 
@@ -1009,6 +1348,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     errs = check_kernels(device)
+    errs.update(check_packed_kernels(device))
     errs.update(check_training_kernels(device))
     print(f"phase kernels: all kernels match their plain versions "
           f"({time.perf_counter() - t0:.1f} s); max abs err "
@@ -1024,9 +1364,15 @@ def main() -> int:
     print(f"phase training path: done in {time.perf_counter() - t0:.1f} s; "
           f"launches {trained['launches']}")
 
+    t0 = time.perf_counter()
+    compressed = compressed_path(device, trained)
+    print(f"phase compressed path: done in {time.perf_counter() - t0:.1f} s; "
+          f"launches {compressed['launches']}")
+
     profile_engines(served, np.tile(digit_literals(1024, seed=SEED + 7),
                                     (8, 1)))
-    rows = time_kernels(served, errs) + time_training_kernels(trained, errs)
+    rows = (time_kernels(served, errs) + time_packed_kernels(compressed, errs)
+            + time_training_kernels(trained, errs))
     for r in rows:
         print(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} "

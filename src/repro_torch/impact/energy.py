@@ -13,8 +13,7 @@ Paper anchors:
 
 Per-lane quantities stay tensors on the device; every host-side fold
 into a report sums in float64 numpy, so per-request bills add up to the
-batch meter exactly.  ``energy_per_effective_clause`` comes with the
-pruning slice.
+batch meter exactly.
 """
 from __future__ import annotations
 
@@ -131,6 +130,18 @@ def encode_energy(n_program_pulses: torch.Tensor, n_erase_pulses: torch.Tensor,
 
 def tile_area_mm2(rows: int, cols: int) -> float:
     return rows * cols * AREA_PER_DEVICE_UM2 * 1e-6
+
+
+def energy_per_effective_clause(read_energy_j: float, datapoints: int,
+                                n_effective: int) -> float:
+    """Table 4's read energy per datapoint per clause, re-anchored after
+    clause pruning (``train.compression.prune_clauses``): the divisor is
+    the count of columns still drawing current, not the programmed
+    clause count.  Degenerate inputs (nothing survived, an empty
+    calibration batch) report 0.0."""
+    if n_effective <= 0 or datapoints <= 0:
+        return 0.0
+    return read_energy_j / float(datapoints) / float(n_effective)
 
 
 def inference_latency(n_clause_cols: int, n_class_cols: int,

@@ -53,8 +53,11 @@ class IMPACTSystem:
     n_classes: int
     cfg: IMPACTConfig
     encode_stats: dict[str, Any]
-    _sessions: dict = dataclasses.field(default_factory=dict, repr=False,
-                                        compare=False)
+    # The compiled-session cache belongs to this system alone: init=False
+    # keeps ``dataclasses.replace`` (a pruned or rewritten copy) from
+    # sharing it, which would hand the copy this system's sessions.
+    _sessions: dict = dataclasses.field(init=False, default_factory=dict,
+                                        repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:

@@ -1,6 +1,6 @@
 """Compiled-session runtime: ``RuntimeSpec`` -> ``InferenceSession`` (the
-PyTorch port of ``repro.impact.runtime`` for one device, no packing and
-no co-residency).
+PyTorch port of ``repro.impact.runtime`` for one device, no
+co-residency).
 
 A frozen ``RuntimeSpec`` (backend name, metering mode, precision,
 packing, slot capacity, device) is resolved ONCE by
@@ -13,22 +13,28 @@ serving must never grow.  CUDA graphs per ``(entry, batch)`` come later.
 
 Routing follows the reference's ``_scores_expr`` / ``_metered_expr``:
 
-* ``predict`` and ``metering="off"`` serve through ``fused_impact``;
+* ``predict`` and ``metering="off"`` serve through ``fused_impact``
+  (``fused_impact_packed`` under ``packing="2bit"``);
 * ``metering="fused"`` bills from ``fused_impact_metered``'s in-kernel
-  meters in the same single pass;
+  meters in the same single pass (``fused_impact_packed_metered``, whose
+  meters bill the quantized currents, under ``packing="2bit"``);
 * ``metering="staged"`` (the default, as in the reference) runs the
   per-shard ``impact_clause_bits`` / ``impact_class_scores``
-  compositions over ``crossbar_mvm``;
+  compositions over ``crossbar_mvm`` (on the dequantized codes under
+  ``packing="2bit"``);
 * ``ta_feedback`` (the online trainer's update primitive) runs the
   backend's ``ta_feedback``.
 
 Invalid lanes predict the sentinel -1 and bill exactly 0.
 
-A session holds the system's weight-side operands on its device.  The
-reference's session re-reads the system's arrays on every call; this one
-reads them at construction and again on ``refresh_operands()``, which
-``train.OnlineTrainer`` calls on every session of the system after each
-write.
+A session holds the system's weight-side operands on its device: the
+clause currents, or under ``packing="2bit"`` (and on the ``"cuda-packed"``
+backend, whatever the spec's ``packing``) their 2-bit packed operand
+(``kernels.packing``, packed on the session's device) in their place.
+The reference's session re-reads the system's arrays on every call; this
+one reads them at construction and again on ``refresh_operands()``,
+which ``train.OnlineTrainer`` calls on every session of the system after
+each write, so a packed session is re-packed after each write.
 """
 from __future__ import annotations
 
@@ -39,14 +45,14 @@ from typing import Any, Callable
 import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
-from ..kernels import backends
+from ..kernels import backends, packing
 from . import energy as energy_mod
 from .energy import EnergyReport
 from .yflash import I_CSA_THRESHOLD, T_READ, V_READ
 
 METERING_MODES = ("off", "staged", "fused")
 PRECISIONS = ("float32",)
-PACKINGS = ("none",)
+PACKINGS = ("none", "2bit")
 
 #: Canonical literal dtype of every session entry: callers may pass bool /
 #: int / float {0,1} literals; the session casts once before the kernels.
@@ -61,10 +67,12 @@ class RuntimeSpec:
     versions); ``metering`` is ``"off"`` / ``"staged"`` / ``"fused"``;
     ``capacity`` is the serving slot-table shape, prepared at session
     build, and ``batch_sizes`` extra ``predict`` shapes to prepare;
-    ``device`` is where the session runs (default ``cuda``).
+    ``device`` is where the session runs (default ``cuda``);
+    ``packing`` is ``"none"`` (f32 clause currents) or ``"2bit"`` (the
+    compressed datapath: the clause operand packed once per session).
 
-    ``packing="2bit"``, ``coresident`` and a ``topology`` with a mesh are
-    not ported yet and raise ``NotImplementedError``.
+    ``coresident`` and a ``topology`` with a mesh are not ported yet and
+    raise ``NotImplementedError``.
     """
     backend: str = "cuda"
     metering: str = "staged"
@@ -77,10 +85,6 @@ class RuntimeSpec:
     coresident: Any = None
 
     def __post_init__(self):
-        if self.packing == "2bit":
-            raise NotImplementedError(
-                "packing='2bit' is not ported yet (ROADMAP Queue 1, item 8: "
-                "2-bit packing)")
         if self.coresident is not None:
             raise NotImplementedError(
                 "coresident= is not ported yet (ROADMAP Queue 1, item 10: "
@@ -148,6 +152,13 @@ class InferenceSession:
         return self.spec.capacity
 
     @property
+    def packed(self) -> bool:
+        """Whether the session serves the 2-bit packed clause operand:
+        under ``packing="2bit"``, and always on ``"cuda-packed"``, which
+        would otherwise pack the f32 operand again on every sweep."""
+        return self.spec.packing == "2bit" or self.backend.serves_packed
+
+    @property
     def meters_energy(self) -> bool:
         return self.spec.metering != "off"
 
@@ -169,14 +180,40 @@ class InferenceSession:
         self._exe(entry, batch)
 
     def refresh_operands(self) -> None:
-        """(Re-)read the system's clause currents, nonempty mask and class
-        currents onto the session's device.  The session's tensors are
-        re-pointed at new ones, not written in place, so a caller still
-        holding the old tensors keeps the old values."""
+        """(Re-)read the system's clause currents (packed, when the session
+        is ``packed``), nonempty mask and class currents onto the
+        session's device.  The session's tensors are re-pointed at new
+        ones, not written in place, so a caller still holding the old
+        tensors keeps the old values."""
         sys_ = self.system
-        self._clause_i = sys_.clause_i.to(self.device).contiguous()
+        clause_i = sys_.clause_i.to(self.device).contiguous()
+        if self.packed:
+            self._clause_i = None
+            self._packed = self.backend.pack_clause_operand(clause_i)
+        else:
+            self._clause_i = clause_i
+            self._packed = None
         self._nonempty = sys_._nonempty_eff().to(self.device)
         self._class_i = sys_.class_i.to(self.device).contiguous()
+
+    def _operands(self) -> tuple[torch.Tensor, ...]:
+        """The weight-side operands a sweep reads: ``(clause_i, nonempty,
+        class_i)``, or ``(bits, levels, nonempty, class_i)`` under
+        ``packing="2bit"``."""
+        if self._packed is not None:
+            return (*self._packed, self._nonempty, self._class_i)
+        return self._clause_i, self._nonempty, self._class_i
+
+    def input_bytes(self, entry: str, batch: int) -> int:
+        """Bytes of the ``(entry, batch)`` entry's input tensors per sweep:
+        the literals, the valid mask (all but ``predict``) and the
+        weight-side operands, as the reference counts them."""
+        n = batch * self.system.n_literals * LITERAL_DTYPE.itemsize
+        if entry != "predict":
+            n += batch * torch.bool.itemsize
+        for op in self._operands():
+            n += op.numel() * op.element_size()
+        return int(n)
 
     # -- entry points -------------------------------------------------------
     def predict(self, literals) -> InferenceResult:
@@ -268,6 +305,10 @@ class InferenceSession:
         return fn
 
     def _scores_expr(self, literals: torch.Tensor) -> torch.Tensor:
+        if self._packed is not None:
+            return self.backend.fused_impact_packed(
+                literals, self._packed, self._nonempty, self._class_i,
+                thresh=I_CSA_THRESHOLD, tr=self.system.clause_i.shape[2])
         return self.backend.fused_impact(
             literals, self._clause_i, self._nonempty, self._class_i,
             thresh=I_CSA_THRESHOLD)
@@ -275,17 +316,25 @@ class InferenceSession:
     def _metered_expr(self, literals: torch.Tensor, valid: torch.Tensor):
         """Metered core -> (scores (B, m), per-lane summed clause currents
         (B,), per-lane summed class currents (B,)), zero on invalid lanes:
-        the fused meters, or the staged per-shard oracle."""
+        the fused meters, or the staged per-shard oracle.  A packed
+        session meters the quantized currents, the ones its cells draw."""
+        tr = self.system.clause_i.shape[2]
         if self.spec.metering == "fused":
-            scores, i_cl, i_cs = self.backend.fused_impact_metered(
-                literals, self._clause_i, self._nonempty, self._class_i,
-                thresh=I_CSA_THRESHOLD)
+            if self._packed is not None:
+                scores, i_cl, i_cs = self.backend.fused_impact_packed_metered(
+                    literals, self._packed, self._nonempty, self._class_i,
+                    thresh=I_CSA_THRESHOLD, tr=tr)
+            else:
+                scores, i_cl, i_cs = self.backend.fused_impact_metered(
+                    literals, self._clause_i, self._nonempty, self._class_i,
+                    thresh=I_CSA_THRESHOLD)
             # Meters are per-lane, so masking after the fused pass is exact.
             v = valid.to(scores.dtype)
             return scores, i_cl * v, i_cs * v
+        clause_i = (self._clause_i if self._packed is None else
+                    packing.dequant_clause(*self._packed, tr))
         fired, i_clause = self.backend.impact_clause_bits(
-            literals, self._clause_i, self._nonempty,
-            thresh=I_CSA_THRESHOLD)
+            literals, clause_i, self._nonempty, thresh=I_CSA_THRESHOLD)
         fired = fired & valid[:, None]
         i_clause = i_clause * valid[:, None, None, None]
         scores, i_class = self.backend.impact_class_scores(fired,
@@ -324,5 +373,6 @@ class InferenceSession:
         return (f"InferenceSession(backend={self.spec.backend!r}, "
                 f"device={self.spec.device!r}, "
                 f"metering={self.spec.metering!r}, "
+                f"packing={self.spec.packing!r}, "
                 f"capacity={self.spec.capacity}, "
                 f"compiled={self.compiled_shapes()})")

@@ -1,13 +1,23 @@
 """Backend registry: one lowering of the crossbar primitives per name (the
-port of ``repro.kernels.backends``, packed and co-resident primitives
-aside).
+port of ``repro.kernels.backends``, co-resident primitives aside).
 
 * ``"torch"`` — the plain PyTorch versions (``kernels.ref``), the
   counterpart of the reference's ``"xla"`` oracle backend;
 * ``"cuda"`` — the hand-written CUDA kernels, the counterpart of
   ``"pallas"``.  Its kernel wrappers take the plain version for tensors
   on the CPU, so a ``"cuda"`` session compiled for ``device="cpu"`` runs
-  the same routing with the plain arithmetic.
+  the same routing with the plain arithmetic;
+* ``"cuda-packed"`` — the counterpart of ``"pallas-packed"``: its
+  unpacked ``fused_impact`` / ``fused_impact_metered`` pack the clause
+  operand (``kernels.packing``) and launch the packed kernels.  A
+  session on it holds the packed operand, packed once, whatever its
+  spec's ``packing`` (``serves_packed``).
+
+Every backend serves the 2-bit packed operand (``RuntimeSpec(packing=
+"2bit")``): ``Backend.fused_impact_packed`` and its metered twin
+dequantize and delegate, as in the reference (on ``"torch"`` that is the
+packed plain version); ``"cuda"`` overrides them with the kernels that
+unpack the codes on chip.
 
 The staged analog compositions (``impact_clause_bits`` /
 ``impact_class_scores``, the Fig. 14 per-shard unroll over
@@ -27,7 +37,7 @@ from . import clause_eval as _clause
 from . import crossbar_mvm as _mvm
 from . import fused_cotm as _cotm
 from . import fused_impact as _impact
-from . import ref
+from . import packing, ref
 from . import ta_feedback as _feedback
 
 
@@ -36,6 +46,10 @@ class Backend:
     implement the primitives and ``register_backend`` an instance."""
 
     name: str = ""
+    #: A session on this backend holds the 2-bit packed clause operand
+    #: (packed once, in ``InferenceSession.refresh_operands``) even when
+    #: its spec asks for ``packing="none"``.
+    serves_packed: bool = False
 
     # -- digital CoTM primitives --------------------------------------------
     def clause_eval(self, literals, include, nonempty, *,
@@ -75,6 +89,34 @@ class Backend:
                                                thresh=thresh)
         scores, i_cls = self.impact_class_scores(fired, class_i)
         return scores, i_col.sum(dim=(1, 2, 3)), i_cls.sum(dim=(1, 2))
+
+    # -- 2-bit packed clause operand (kernels.packing layout) ---------------
+    def pack_clause_operand(self, clause_i, *,
+                            split=None) -> packing.PackedClause:
+        """Quantize a clause-current operand to the 2-bit packed layout;
+        ``split=None`` splits HCS from LCS at the device-population
+        midpoint (``packing.population_split``)."""
+        return packing.pack_clause_operand(clause_i, split=split)
+
+    def fused_impact_packed(self, literals, packed: packing.PackedClause,
+                            nonempty, class_i, *, thresh: float,
+                            tr: int) -> torch.Tensor:
+        """``fused_impact`` on a packed clause operand; ``tr`` is the
+        unpacked rows of a shard.  Default: dequantize and delegate."""
+        clause_i = packing.dequant_clause(packed.bits, packed.levels, tr)
+        return self.fused_impact(literals, clause_i, nonempty, class_i,
+                                 thresh=thresh)
+
+    def fused_impact_packed_metered(self, literals,
+                                    packed: packing.PackedClause, nonempty,
+                                    class_i, *, thresh: float, tr: int,
+                                    ) -> tuple[torch.Tensor, torch.Tensor,
+                                               torch.Tensor]:
+        """``fused_impact_metered`` on a packed clause operand; the meters
+        bill the quantized currents.  Default: dequantize and delegate."""
+        clause_i = packing.dequant_clause(packed.bits, packed.levels, tr)
+        return self.fused_impact_metered(literals, clause_i, nonempty,
+                                         class_i, thresh=thresh)
 
     # -- online training ----------------------------------------------------
     def ta_feedback(self, lit2, fired2, sel, match, hi, lo,
@@ -165,22 +207,55 @@ class CudaBackend(Backend):
     def fused_impact(self, literals, clause_i, nonempty, class_i, *,
                      thresh):
         return _impact.fused_impact(*self._fused_operands(
-            literals, clause_i, nonempty, class_i), thresh=thresh)
+            literals, (clause_i.to(torch.float32),), nonempty, class_i),
+            thresh=thresh)
 
     def fused_impact_metered(self, literals, clause_i, nonempty, class_i,
                              *, thresh):
         return _impact.fused_impact_metered(*self._fused_operands(
-            literals, clause_i, nonempty, class_i), thresh=thresh)
+            literals, (clause_i.to(torch.float32),), nonempty, class_i),
+            thresh=thresh)
+
+    def fused_impact_packed(self, literals, packed, nonempty, class_i, *,
+                            thresh, tr):
+        return _impact.fused_impact_packed(*self._fused_operands(
+            literals, packed, nonempty, class_i), thresh=thresh, tr=tr)
+
+    def fused_impact_packed_metered(self, literals, packed, nonempty,
+                                    class_i, *, thresh, tr):
+        return _impact.fused_impact_packed_metered(*self._fused_operands(
+            literals, packed, nonempty, class_i), thresh=thresh, tr=tr)
 
     @staticmethod
-    def _fused_operands(literals, clause_i, nonempty, class_i):
-        """The fused kernels' dtypes and layouts: int8 literals, bool
-        nonempty, contiguous f32 currents (no-ops for a session's own
-        operands)."""
+    def _fused_operands(literals, cells, nonempty, class_i):
+        """The fused kernels' dtypes and layouts around the clause cells
+        (``(clause_i,)`` or a ``PackedClause``): int8 literals, contiguous
+        cells, bool nonempty, contiguous f32 class currents (no-ops for a
+        session's own operands)."""
         return (literals.to(torch.int8).contiguous(),
-                clause_i.to(torch.float32).contiguous(),
-                nonempty.to(torch.bool),
+                *(c.contiguous() for c in cells), nonempty.to(torch.bool),
                 class_i.to(torch.float32).contiguous())
+
+
+class CudaPackedBackend(CudaBackend):
+    """The compressed lowering (the reference's ``PackedPallasBackend``):
+    the unpacked fused primitives pack the clause operand and launch the
+    packed kernels, so the f32 clause currents never reach a kernel."""
+
+    name = "cuda-packed"
+    serves_packed = True
+
+    def fused_impact(self, literals, clause_i, nonempty, class_i, *,
+                     thresh):
+        return self.fused_impact_packed(
+            literals, self.pack_clause_operand(clause_i), nonempty, class_i,
+            thresh=thresh, tr=clause_i.shape[2])
+
+    def fused_impact_metered(self, literals, clause_i, nonempty, class_i,
+                             *, thresh):
+        return self.fused_impact_packed_metered(
+            literals, self.pack_clause_operand(clause_i), nonempty, class_i,
+            thresh=thresh, tr=clause_i.shape[2])
 
 
 class TorchBackend(Backend):
@@ -222,11 +297,13 @@ class TorchBackend(Backend):
 _REGISTRY: dict[str, Backend] = {}
 
 #: The primitives every registered backend must provide (the reference's
-#: contract without its packed and co-resident primitives).
+#: contract without its co-resident primitives, which come with
+#: co-residency).
 REQUIRED_PRIMITIVES: tuple[str, ...] = (
     "clause_eval", "class_sum", "fused_cotm", "crossbar_mvm",
     "fused_impact", "fused_impact_metered", "impact_clause_bits",
-    "impact_class_scores", "ta_feedback",
+    "impact_class_scores", "ta_feedback", "pack_clause_operand",
+    "fused_impact_packed", "fused_impact_packed_metered",
 )
 
 
@@ -265,4 +342,5 @@ def available_backends() -> tuple[str, ...]:
 
 
 register_backend(CudaBackend())
+register_backend(CudaPackedBackend())
 register_backend(TorchBackend())

@@ -1,10 +1,16 @@
 // Fused analog IMPACT inference for Hopper (sm_90a), IEEE f32: both
 // crossbars, the CSA threshold and the digital periphery, with optional
-// per-lane read-current meters.
+// per-lane read-current meters, on f32 cell currents or on the 2-bit
+// packed clause operand.
 //
-// Replaces: src/repro/kernels/fused_impact.py, `_fused_impact_kernel` (:58)
-// behind `fused_impact` (:106), and `_fused_impact_metered_kernel` (:134)
-// behind `fused_impact_metered` (:210), the Pallas TPU kernels.
+// Replaces: src/repro/kernels/fused_impact.py, the Pallas TPU kernels
+// `_fused_impact_kernel` (:58) behind `fused_impact` (:106),
+// `_fused_impact_metered_kernel` (:134) behind `fused_impact_metered`
+// (:210), `_fused_impact_packed_kernel` (:280) behind
+// `fused_impact_packed` (:349), with its helpers `_dequant_plane` (:260)
+// and `_packed_column_current` (:266), and
+// `_fused_impact_packed_metered_kernel` (:453) behind
+// `fused_impact_packed_metered` (:511).
 //
 //   per clause column j (row shards r = 0..R-1 of tr rows each):
 //     i_col[r] = drive[r] @ clause_i[r][:, j]       Kirchhoff column sum
@@ -14,17 +20,22 @@
 //              class meter  = sum over m of scores per lane.
 //
 // Operands stay in the system's own layouts: literals (B, K) int8 (the
-// drive 1 - literal is formed in the tile load), clause_i (R, C, tr, tc)
-// f32, nonempty (C*tc,) u8, class_i (S*sr, M) f32.  Rows past K float at
-// 0 V (the reference pads literals with 1), so they add exactly 0: the
-// row loop stops at K and never loads or multiplies them.
+// drive 1 - literal is formed in the tile load), nonempty (C*tc,) u8,
+// class_i (S*sr, M) f32, and the clause cells either as clause_i
+// (R, C, tr, tc) f32 or packed (kernels/packing.py): bits (R, C, tr4, tc)
+// u8 with tr4 = ceil(tr / 4), bit-field j (shift 2j) of packed row q
+// holding the code of cell row 4q + j, and levels [i_lcs, i_hcs] f32.
+// Rows past K float at 0 V (the reference pads literals with 1), so they
+// add exactly 0: the row loop stops at K and never loads or multiplies
+// them.
 //
 // What bounds it on this card: at the paper serving shape (B = 128,
 // K = 1568, R = C = S = 1, tr = sr = 2048, tc = 512, M = 10) the clause
-// stage is 2*B*K*C*tc = 0.21 GFLOP on 3.2 MB of live clause currents and
-// 0.2 MB of literals, so the f32 FMA rate bounds it, not memory.  The
-// contract is IEEE f32 (scores at rtol 1e-6, CSA bits exact), so every
-// product is one FFMA on the CUDA cores; no tensor cores, no TF32.
+// stage is 2*B*K*C*tc = 0.21 GFLOP on 3.2 MB of live clause currents
+// (200,704 B of live codes when packed) and 0.2 MB of literals, so the
+// f32 FMA rate bounds it, not memory.  The contract is IEEE f32 (scores
+// at rtol 1e-6, CSA bits exact), so every product is one FFMA on the
+// CUDA cores; no tensor cores, no TF32.
 //
 // Design, three launches on one stream:
 // 1. Column currents.  The TPU walks the clause axis as a sequential grid
@@ -34,7 +45,13 @@
 //    shape), so each block takes one 32-lane x 32-column tile of one row
 //    shard and one slice of its live rows, those below K (tile_mma.cuh:
 //    shared-memory stages of 32 rows, 4 x 2 f32 accumulators a thread),
-//    and writes its partial column currents to scratch.
+//    and writes its partial column currents to scratch.  The clause cells
+//    come through a loader: F32Cells reads the f32 currents; PackedCells
+//    reads the code byte of (row, column), shifts out the row's 2-bit
+//    field and writes i_hcs, i_lcs or 0 A into the shared-memory stage,
+//    so the packed kernels never hold an f32 clause operand in device
+//    memory and do the same FFMAs as the f32 ones.  Each thread reads
+//    the two levels once, from device memory (no host sync).
 // 2. CSA and class stage.  Per (32 lanes, 32 columns) tile: sum each
 //    shard's slices in a fixed order into the column current, latch the
 //    CSA bit with the reference's strict `<`, AND over shards, mask with
@@ -42,7 +59,9 @@
 //    (lane, class).  The clause bits live only in shared memory here.
 // 3. A fixed-order sum of the tiles' partial scores and meters per lane.
 // No float atomics anywhere, so scores and meters are identical from run
-// to run.
+// to run.  Passes 2 and 3 do not depend on the clause operand's format;
+// the packed meters bill the quantized column currents, as the
+// reference's packed kernel does.
 //
 // * Columns: the reference pads the clause axis to max(C*tc, S*sr) (2048
 //   at paper dims against 512 live columns) with 0 A, nonempty = 0
@@ -53,8 +72,12 @@
 //   shard, including the columns from n up to C*tc: those are real LCS
 //   cells that leak.
 // * Ragged edges are masked in the loads (0 V drive, 0 A cells), which add
-//   exactly 0.  M (10 at paper dims) needs no padding: the class stage
-//   loops over the M columns of class_i directly.
+//   exactly 0; a shard's rows past tr (the packed padding, tr % 4 != 0)
+//   are never read.  M (10 at paper dims) needs no padding: the class
+//   stage loops over the M columns of class_i directly.  The packed
+//   reference instead pads and transposes the drive bitplane-major
+//   (R, 4, B, tr4) and the meters to (B, 128) lanes; none of that is
+//   needed here.
 // * The class stage and both meters accumulate in f64 and round to f32
 //   once at the end: a few thousand adds a lane, and it keeps the kernel's
 //   own rounding out of the comparison with the f32 reference.
@@ -83,13 +106,49 @@ Plan plan(int B, int K, int R, int C, int tr, int tc) {
               split_k(min(tr, K), tiles * ((B + BB - 1) / BB) * R)};
 }
 
+// Clause-cell loaders for pass 1: tile(r, c) gives the cells of clause
+// tile (r, c), read as cell(k, col) for row k < tr and column col < tc.
+struct F32Cells {
+  const float* clause_i;                     // (R, C, tr, tc) f32 currents
+  struct Tile {
+    const float* cur;
+    int tc;
+    __device__ float operator()(int k, int col) const {
+      return cur[(size_t)k * tc + col];
+    }
+  };
+  __device__ Tile tile(int r, int c, int C, int tr, int tc) const {
+    return Tile{clause_i + ((size_t)r * C + c) * tr * tc, tc};
+  }
+};
+
+struct PackedCells {
+  const uint8_t* bits;                       // (R, C, tr4, tc) 2-bit codes
+  const float* levels;                       // [i_lcs, i_hcs]
+  struct Tile {
+    const uint8_t* codes;
+    int tc;
+    float i_lcs, i_hcs;
+    __device__ float operator()(int k, int col) const {
+      const unsigned code =
+          (codes[(size_t)(k >> 2) * tc + col] >> (2 * (k & 3))) & 3u;
+      return code == 2u ? i_hcs : (code == 1u ? i_lcs : 0.f);
+    }
+  };
+  __device__ Tile tile(int r, int c, int C, int tr, int tc) const {
+    const int tr4 = (tr + 3) / 4;
+    return Tile{bits + ((size_t)r * C + c) * tr4 * tc, tc, levels[0],
+                levels[1]};
+  }
+};
+
 // Pass 1: block (column tile t, lane tile, r * slices + slice) -> partial
 // column currents part[r * slices + slice] (B, C*tc).
+template <class Cells>
 __global__ void __launch_bounds__(THREADS)
-column_currents(const int8_t* __restrict__ lits,
-                const float* __restrict__ clause_i, float* __restrict__ part,
-                int B, int K, int C, int tr, int tc, int tiles_c, int slices,
-                int chunk) {
+column_currents(const int8_t* __restrict__ lits, Cells cells,
+                float* __restrict__ part, int B, int K, int C, int tr, int tc,
+                int tiles_c, int slices, int chunk) {
   __shared__ Smem s;
   const int t = blockIdx.x;
   const int c = t / tiles_c;
@@ -98,7 +157,7 @@ column_currents(const int8_t* __restrict__ lits,
   const int r = blockIdx.z / slices;
   const int k_begin = (blockIdx.z % slices) * chunk;
   const int k_end = min(min(tr, K - r * tr), k_begin + chunk);
-  const float* cur = clause_i + ((size_t)r * C + c) * tr * tc;
+  const typename Cells::Tile cell = cells.tile(r, c, C, tr, tc);
 
   float acc[TM][TN];
 #pragma unroll
@@ -115,7 +174,7 @@ column_currents(const int8_t* __restrict__ lits,
       },
       [&](int k, int nn) {
         const int col = col0 + nn;
-        return col < tc ? cur[(size_t)k * tc + col] : 0.f;
+        return col < tc ? cell(k, col) : 0.f;
       });
 
   const int N = C * tc;
@@ -216,8 +275,8 @@ __global__ void lane_reduce(const double* __restrict__ part_scores,
   }
 }
 
-template <bool METERED>
-int launch(const int8_t* lits, const float* clause_i, const uint8_t* nonempty,
+template <bool METERED, class Cells>
+int launch(const int8_t* lits, Cells cells, const uint8_t* nonempty,
            const float* class_i, float* part_cols, double* part_scores,
            double* part_meter, float* scores, float* meter_clause,
            float* meter_class, int B, int K, int R, int C, int tr, int tc,
@@ -227,7 +286,7 @@ int launch(const int8_t* lits, const float* clause_i, const uint8_t* nonempty,
   const int tiles_b = (B + BB - 1) / BB;
   if (p.tiles > 0) {
     column_currents<<<dim3(p.tiles, tiles_b, R * p.split.count), THREADS, 0,
-                      stream>>>(lits, clause_i, part_cols, B, K, C, tr, tc,
+                      stream>>>(lits, cells, part_cols, B, K, C, tr, tc,
                                 p.tiles_c, p.split.count, p.split.chunk);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -261,7 +320,7 @@ extern "C" int fused_impact_f32(const int8_t* lits, const float* clause_i,
                                 double* part_scores, float* scores, int B,
                                 int K, int R, int C, int tr, int tc, int Nc,
                                 int M, float thresh, cudaStream_t stream) {
-  return launch<false>(lits, clause_i, nonempty, class_i, part_cols,
+  return launch<false>(lits, F32Cells{clause_i}, nonempty, class_i, part_cols,
                        part_scores, nullptr, scores, nullptr, nullptr, B, K,
                        R, C, tr, tc, Nc, M, thresh, stream);
 }
@@ -272,7 +331,31 @@ extern "C" int fused_impact_metered_f32(
     double* part_meter, float* scores, float* meter_clause,
     float* meter_class, int B, int K, int R, int C, int tr, int tc, int Nc,
     int M, float thresh, cudaStream_t stream) {
-  return launch<true>(lits, clause_i, nonempty, class_i, part_cols,
+  return launch<true>(lits, F32Cells{clause_i}, nonempty, class_i, part_cols,
                       part_scores, part_meter, scores, meter_clause,
                       meter_class, B, K, R, C, tr, tc, Nc, M, thresh, stream);
+}
+
+// The packed entries: the same three passes on bits (R, C, ceil(tr/4), tc)
+// u8 and levels (2,) f32; the scratch is fused_impact_scratch's.
+extern "C" int fused_impact_packed_f32(
+    const int8_t* lits, const uint8_t* bits, const float* levels,
+    const uint8_t* nonempty, const float* class_i, float* part_cols,
+    double* part_scores, float* scores, int B, int K, int R, int C, int tr,
+    int tc, int Nc, int M, float thresh, cudaStream_t stream) {
+  return launch<false>(lits, PackedCells{bits, levels}, nonempty, class_i,
+                       part_cols, part_scores, nullptr, scores, nullptr,
+                       nullptr, B, K, R, C, tr, tc, Nc, M, thresh, stream);
+}
+
+extern "C" int fused_impact_packed_metered_f32(
+    const int8_t* lits, const uint8_t* bits, const float* levels,
+    const uint8_t* nonempty, const float* class_i, float* part_cols,
+    double* part_scores, double* part_meter, float* scores,
+    float* meter_clause, float* meter_class, int B, int K, int R, int C,
+    int tr, int tc, int Nc, int M, float thresh, cudaStream_t stream) {
+  return launch<true>(lits, PackedCells{bits, levels}, nonempty, class_i,
+                      part_cols, part_scores, part_meter, scores,
+                      meter_clause, meter_class, B, K, R, C, tr, tc, Nc, M,
+                      thresh, stream);
 }

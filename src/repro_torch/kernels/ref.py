@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the crossbar and digital CoTM kernels (the
-port of ``repro.kernels.ref``, packed and co-resident oracles aside).
+port of ``repro.kernels.ref``, co-resident oracles aside).
 
 Each hand-written CUDA kernel in this package computes the function of
 the same name here.  The CPU tests hold these against the JAX oracles,
@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from . import packing
 
 
 def clause_eval_ref(literals: torch.Tensor, include: torch.Tensor,
@@ -151,6 +153,33 @@ def fused_impact_metered_ref(literals: torch.Tensor, clause_i: torch.Tensor,
                                           thresh=thresh)
     scores, i_cls = impact_class_scores_ref(fired, class_i)
     return scores, i_col.sum(dim=(1, 2, 3)), i_cls.sum(dim=(1, 2))
+
+
+def fused_impact_packed_ref(literals: torch.Tensor, bits: torch.Tensor,
+                            levels: torch.Tensor, nonempty: torch.Tensor,
+                            class_i: torch.Tensor, *, thresh: float,
+                            tr: int) -> torch.Tensor:
+    """``fused_impact_ref`` on a packed clause operand: ``bits`` (R, C,
+    tr4, tc) uint8 2-bit codes, ``levels`` (2,) f32 ``[i_lcs, i_hcs]``
+    (``kernels.packing``), ``tr`` the unpacked rows of a shard.
+    Dequantizes, then does what the unpacked path does."""
+    clause_i = packing.dequant_clause(bits, levels, tr)
+    return fused_impact_ref(literals, clause_i, nonempty, class_i,
+                            thresh=thresh)
+
+
+def fused_impact_packed_metered_ref(literals: torch.Tensor,
+                                    bits: torch.Tensor, levels: torch.Tensor,
+                                    nonempty: torch.Tensor,
+                                    class_i: torch.Tensor, *, thresh: float,
+                                    tr: int,
+                                    ) -> tuple[torch.Tensor, torch.Tensor,
+                                               torch.Tensor]:
+    """``fused_impact_metered_ref`` on a packed clause operand: the meters
+    bill the quantized currents, the ones the packed cells draw."""
+    clause_i = packing.dequant_clause(bits, levels, tr)
+    return fused_impact_metered_ref(literals, clause_i, nonempty, class_i,
+                                    thresh=thresh)
 
 
 def crossbar_mvm_ref(drive: torch.Tensor, g: torch.Tensor, *,

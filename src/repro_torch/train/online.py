@@ -76,14 +76,14 @@ class OnlineTrainer:
                 "OnlineTrainer needs a single-tenant session — training "
                 "writes re-program the shared fabric under a co-resident "
                 "plan's feet (train the member system, then rebalance)")
-        if session.spec.packing == "2bit":
+        if session.packed:
             raise ValueError(
                 "OnlineTrainer needs an unpacked session — the write path "
                 "targets the f32 conductance grid")
         self.session = session
         self.system = sys_ = session.system
         dev = sys_.device
-        if session._clause_i.device != dev:
+        if session._class_i.device != dev:
             raise ValueError(f"OnlineTrainer needs a session on the "
                              f"system's device {dev}, got {session.device}")
         if generator.device.type != dev.type:

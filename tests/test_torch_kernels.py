@@ -198,13 +198,20 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors():
 
 
 def test_registry_contract():
-    assert backends.available_backends() == ("cuda", "torch")
-    assert backends.get_backend("cuda").name == "cuda"
-    assert backends.get_backend("torch").name == "torch"
+    assert backends.available_backends() == ("cuda", "cuda-packed", "torch")
+    for name in backends.available_backends():
+        bk = backends.get_backend(name)
+        assert bk.name == name
+        for p in backends.REQUIRED_PRIMITIVES:
+            assert callable(getattr(bk, p)), (name, p)
+    assert {"pack_clause_operand", "fused_impact_packed",
+            "fused_impact_packed_metered"} <= set(backends.REQUIRED_PRIMITIVES)
     with pytest.raises(ValueError):
         backends.get_backend("pallas")
     with pytest.raises(ValueError):
         backends.register_backend(backends.CudaBackend())
+    with pytest.raises(ValueError):
+        backends.register_backend(backends.CudaPackedBackend())
 
     class Broken(backends.Backend):
         name = "broken"
@@ -212,6 +219,13 @@ def test_registry_contract():
 
     with pytest.raises(TypeError):
         backends.register_backend(Broken())
+
+    class NoPacked(backends.TorchBackend):
+        name = "no-packed"
+        fused_impact_packed = None
+
+    with pytest.raises(TypeError, match="fused_impact_packed"):
+        backends.register_backend(NoPacked())
 
 
 def test_build_needs_nvcc_and_names_libraries_by_content(monkeypatch,

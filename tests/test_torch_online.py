@@ -267,23 +267,51 @@ def test_interleaved_train_serve_improves_and_reconciles():
 
 
 def test_trainer_rejects_sessions_it_cannot_write():
-    """Packed and co-resident specs are not ported yet and raise at the
-    spec; the trainer itself refuses them, as the reference does."""
+    """The trainer refuses a packed session (``packing="2bit"``, or any
+    session on ``"cuda-packed"``: the write path targets the f32
+    conductance grid) and a co-resident one, as the reference does;
+    co-resident specs are not ported yet and raise at the spec."""
     cfg, params, system, _, _ = _port_deployed(False, pretrain=1)
-    for kw in (dict(packing="2bit"), dict(coresident=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            RuntimeSpec(device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        RuntimeSpec(device="cpu", coresident=object())
+    for spec in (RuntimeSpec(device="cpu", packing="2bit"),
+                 RuntimeSpec(backend="cuda-packed", device="cpu")):
+        with pytest.raises(ValueError, match="unpacked"):
+            OnlineTrainer(system.compile(spec), params, cfg,
+                          generator=torch.Generator())
     session = system.compile(RuntimeSpec(device="cpu"))
 
     class Spec:
-        coresident = None
-        packing = "2bit"
+        coresident = object()
+        packing = "none"
 
-    class Packed:
+    class CoResident:
         spec, system = Spec(), session.system
 
-    with pytest.raises(ValueError, match="unpacked"):
-        OnlineTrainer(Packed(), params, cfg, generator=torch.Generator())
-    Spec.packing, Spec.coresident = "none", object()
     with pytest.raises(ValueError, match="single-tenant"):
-        OnlineTrainer(Packed(), params, cfg, generator=torch.Generator())
+        OnlineTrainer(CoResident(), params, cfg, generator=torch.Generator())
+
+
+def test_packed_sessions_are_repacked_after_a_write():
+    """After an ideal-device update through an unpacked session, a packed
+    session compiled before it on the same system serves what a fresh
+    packed session on the written system serves: the trainer's refresh
+    re-packs it."""
+    cfg, params, system, (tr_l, tr_y), (ho_l, _) = _port_deployed(False)
+    spec = RuntimeSpec(backend="cuda", packing="2bit", metering="fused",
+                       device="cpu")
+    packed = system.compile(spec)
+    bits_before = packed._packed.bits.clone()
+    trainer = OnlineTrainer(system.compile(RuntimeSpec(device="cpu")),
+                            params, cfg,
+                            generator=torch.Generator().manual_seed(1),
+                            variability=False)
+    trainer.update(tr_l[:B], tr_y[:B])
+    assert trainer.records[0]["n_flips"] > 0
+    fresh = InferenceSession(system, spec)
+    assert not torch.equal(fresh._packed.bits, bits_before)
+    assert torch.equal(packed._packed.bits, fresh._packed.bits)
+    assert torch.equal(packed._packed.levels, fresh._packed.levels)
+    got, want = packed.predict(ho_l), fresh.predict(ho_l)
+    assert torch.equal(got.predictions, want.predictions)
+    assert torch.equal(got.scores, want.scores)

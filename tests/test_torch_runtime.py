@@ -154,7 +154,7 @@ def test_session_shapes_are_prepared_once(pair):
 
 
 @pytest.mark.parametrize("kwargs,exc", [
-    (dict(packing="2bit"), NotImplementedError),
+    (dict(packing="2bit", coresident=object()), NotImplementedError),
     (dict(coresident=object()), NotImplementedError),
     (dict(topology=object()), NotImplementedError),
     (dict(metering="always"), ValueError),
