@@ -12,6 +12,9 @@ Phases, each of which must pass or the script exits non-zero:
 3. kernels: each CUDA kernel against its plain PyTorch version on the same
    card tensors, at the paper serving shape and at ragged and multi-shard
    shapes (the packed kernels on the 2-bit operand packed on the card);
+   ``crossbar_mvm`` also at one lane, at the class call (its narrow path)
+   and on operands one float past a 16-byte boundary, and bit for bit
+   equal to itself from launch to launch;
 4. the serving path at paper width (K=1568 literals, n=500 clauses, m=10
    classes, capacity 128): ``build_system`` with device variability,
    sessions for every metering mode, ``predict`` / ``infer_with_report``,
@@ -41,6 +44,7 @@ from __future__ import annotations
 import gc
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -279,7 +283,7 @@ def check_kernels(device) -> dict[str, float]:
         # crossbar_mvm through the staged compositions (CSA bits exact) ...
         f_k, i_k = cuda_bk.impact_clause_bits(*args[:3], thresh=TH)
         f_p, i_p = torch_bk.impact_clause_bits(*args[:3], thresh=TH)
-        exact(f"staged clause bits {shape}", f_k, f_p)
+        csa_bits_exact(f"staged clause bits {shape}", f_k, f_p, i_p, TH)
         err_cols = allclose(f"staged column currents {shape}", i_k, i_p,
                             RTOL_COLUMN)
         sc_k, _ = cuda_bk.impact_class_scores(f_p, s["class_i"])
@@ -297,8 +301,67 @@ def check_kernels(device) -> dict[str, float]:
                            ref.crossbar_mvm_ref(drive, g), RTOL_MVM, ATOL_MVM)
         errs["crossbar_mvm"] = max(errs["crossbar_mvm"], err_cols, err_cls,
                                    err_mvm)
+    errs["crossbar_mvm"] = max(errs["crossbar_mvm"], check_mvm_paths(device))
     torch.cuda.synchronize()
     return errs
+
+
+def mvm_operands(B: int, Kx: int, N: int, device, seed: int,
+                 offset: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """drive (B, Kx) in [0, 1) and conductances (Kx, N) of 1 nS to 2.5 uS
+    (some under the 10 nS cutoff of the nonlinearity), each a contiguous
+    view ``offset`` floats into a larger buffer."""
+    rng = np.random.default_rng(seed)
+    d = torch.as_tensor(rng.random(B * Kx + offset), device=device,
+                        dtype=torch.float32)[offset:].view(B, Kx)
+    g = torch.as_tensor(10.0 ** rng.uniform(-9, -5.6, Kx * N + offset),
+                        device=device, dtype=torch.float32)
+    g = g[offset:].view(Kx, N)
+    return d, g
+
+
+def check_mvm_paths(device) -> float:
+    """crossbar_mvm with the nonlinearity on at the paper clause call with
+    one lane, the class call (the narrow path), and the clause call on
+    operands one float past a 16-byte boundary (4-byte copies); then two
+    launches on the same inputs, which must agree bit for bit.  Returns
+    the max absolute error."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.crossbar_mvm import crossbar_mvm, describe
+    err = 0.0
+    for i, (label, B, Kx, N, offset) in enumerate((
+            ("one lane", 1, K, 512, 0),
+            ("class call", CAPACITY, N_CLAUSES, M_CLASSES, 0),
+            ("unaligned", CAPACITY, K, 512, 1))):
+        d, g = mvm_operands(B, Kx, N, device, seed=300 + i, offset=offset)
+        if offset and (d.data_ptr() % 16 == 0 or g.data_ptr() % 16 == 0):
+            fail(f"crossbar_mvm {label}: the operands are 16-byte aligned")
+        e = allclose(f"crossbar_mvm {label} {(B, Kx, N)}", crossbar_mvm(d, g),
+                     ref.crossbar_mvm_ref(d, g), RTOL_MVM, ATOL_MVM)
+        err = max(err, e)
+        path = describe(d, g) if d.is_cuda else "plain version"
+        print(f"crossbar_mvm {label} {(B, Kx, N)}: {path}; max abs err "
+              f"{e:.3e}")
+    d, g = mvm_operands(CAPACITY, K, 512, device, seed=303)
+    exact("crossbar_mvm run to run", crossbar_mvm(d, g), crossbar_mvm(d, g))
+    return err
+
+
+def csa_bits_exact(name: str, got: torch.Tensor, want: torch.Tensor,
+                   i_col: torch.Tensor, thresh: float) -> None:
+    """``exact`` for CSA bits (B, C*tc); a flipped bit is reported with
+    the margin of its column current (the plain version's, nearest shard)
+    to the threshold."""
+    if torch.equal(got, want):
+        return
+    B = i_col.shape[0]
+    cur = i_col.reshape(B, i_col.shape[1], -1)             # (B, R, C*tc)
+    margin = ((cur - thresh).abs() / thresh).amin(dim=1)   # (B, C*tc)
+    bad = (got != want).nonzero().tolist()
+    fail(f"{name}: {len(bad)} of {got.numel()} bits differ; (lane, column, "
+         f"relative margin to the threshold): "
+         + ", ".join(f"({b}, {c}, {margin[b, c].item():.2e})"
+                     for b, c in bad[:8]))
 
 
 def check_packed_kernels(device) -> dict[str, float]:
@@ -1041,7 +1104,7 @@ def needed_columns(ne: torch.Tensor, drawing: torch.Tensor,
 def time_kernels(served: dict, errs: dict) -> list[dict]:
     from repro_torch.impact.yflash import I_CSA_THRESHOLD as TH
     from repro_torch.kernels import ref
-    from repro_torch.kernels.crossbar_mvm import crossbar_mvm
+    from repro_torch.kernels.crossbar_mvm import crossbar_mvm, describe
     from repro_torch.kernels.fused_impact import (fused_impact,
                                                   fused_impact_metered)
     system, batch = served["system"], served["batch"]
@@ -1099,8 +1162,6 @@ def time_kernels(served: dict, errs: dict) -> list[dict]:
     fired = ref.impact_clause_bits_ref(lits, ci, ne, thresh=TH)[0]
     calls = ((drive.contiguous(), ccur),
              (fired[:, :live].float().contiguous(), wcur))
-    d_cl, g_cl = calls[0]
-    d_cs, g_cs = calls[1]
     by = sum(d.numel() * 4 + g.numel() * 4 + d.shape[0] * g.shape[1] * 4
              for d, g in calls)
     fl = sum(2.0 * d.shape[0] * d.shape[1] * g.shape[1] for d, g in calls)
@@ -1119,12 +1180,19 @@ def time_kernels(served: dict, errs: dict) -> list[dict]:
         for d, g in eff:
             torch.matmul(d, g)
 
-    per_call = [cuda_ms(lambda d=d, g=g: crossbar_mvm(d, g, v_read=1.0,
-                                                      cutoff=0.0))
-                for d, g in calls]
-    print(f"crossbar_mvm per call: clause stage {tuple(d_cl.shape)}x"
-          f"{tuple(g_cl.shape)} {per_call[0]:.4f} ms, class stage "
-          f"{tuple(d_cs.shape)}x{tuple(g_cs.shape)} {per_call[1]:.4f} ms")
+    for label, (d, g), (_, g_eff) in zip(("clause", "class"), calls, eff):
+        c_ms = cuda_ms(lambda d=d, g=g: crossbar_mvm(d, g, v_read=1.0,
+                                                     cutoff=0.0))
+        c_lib = cuda_ms(lambda d=d, g=g_eff: torch.matmul(d, g))
+        c_bound, c_by = bound_ms(
+            (d.numel() + g.numel() + d.shape[0] * g.shape[1]) * 4,
+            2.0 * d.shape[0] * d.shape[1] * g.shape[1])
+        print(f"crossbar_mvm {label} call {tuple(d.shape)}x"
+              f"{tuple(g.shape)}: {c_ms:.4f} ms, bound {c_bound:.5f} ms by "
+              f"{c_by} ({100 * c_bound / c_ms:.1f}% of it), library "
+              f"{c_lib:.4f} ms; {describe(d, g)}")
+    print(f"one empty launch (torch.cuda._sleep(1)) under the same timer: "
+          f"{cuda_ms(lambda: torch.cuda._sleep(1)):.4f} ms")
     rows.append(dict(
         name="crossbar_mvm", route="cuda",
         source="src/repro_torch/kernels/csrc/crossbar_mvm.cu",
@@ -1323,6 +1391,21 @@ def profile_engines(served: dict, lits: np.ndarray) -> None:
               + "; ".join(f"{n[:60]} {t / 1e3:.3f} ms" for n, t in top))
 
 
+def kernel_resources(source: str) -> list[str]:
+    """Each kernel of ``source`` with its registers, spills and shared
+    memory, from the build's ``nvcc --resource-usage`` report."""
+    from repro_torch.kernels import _build
+    out, name = [], "?"
+    for line in _build.resource_usage(source).splitlines():
+        m = re.search(r"\d+(mvm_[a-z]+)(?:ILb(\d)ELb(\d)E)?", line)
+        if m:
+            name = m.group(1) + (f"<{m.group(2)},{m.group(3)}>"
+                                 if m.group(2) else "")
+        elif "registers" in line or "spill" in line:
+            out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a "
@@ -1345,6 +1428,8 @@ def main() -> int:
             torch.backends.cudnn.allow_tf32:
         fail("TF32 is on: the port's f32 contract needs it off")
     print(f"phase build: nvcc for sm_90a, {kernels.build_all():.1f} s")
+    for line in kernel_resources("crossbar_mvm.cu"):
+        print(f"  crossbar_mvm.cu {line}")
 
     t0 = time.perf_counter()
     errs = check_kernels(device)

@@ -4,12 +4,14 @@ Each ``csrc/*.cu`` source compiles on its own with ``nvcc`` into a
 shared library with a plain C interface, loaded with ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/torch_kernels/<name>-<hash>.so <name>.cu
+         -Xcompiler -fPIC --resource-usage \
+         -o build/torch_kernels/<name>-<hash>.so <name>.cu
 
 Libraries go to ``build/torch_kernels/`` at the root of the checkout
-(listed in ``.gitignore``), named by a hash of the source, the shared
-headers and the flags, so a changed source rebuilds and an unchanged one
-is reused.  Nothing is built at import: ``library()`` builds on first use,
+(listed in ``.gitignore``), named by a hash of the source, every header
+in ``csrc/`` and the flags, so a changed source rebuilds and an unchanged
+one is reused; beside each, a ``.txt`` holds what ``--resource-usage``
+printed.  Nothing is built at import: ``library()`` builds on first use,
 and ``build_all()`` starts one ``nvcc`` per source at once and waits for
 all of them.
 
@@ -31,10 +33,11 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler",
-                           "-fPIC")
+                           "-fPIC", "--resource-usage")
 SOURCES = ("crossbar_mvm.cu", "fused_impact.cu", "ta_feedback.cu",
            "digital_cotm.cu")
-HEADERS = ("tile_mma.cuh",)
+# Every header beside the sources: each is part of every library's hash.
+HEADERS = tuple(sorted(p.name for p in CSRC.glob("*.cuh")))
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _ENTRIES: dict[tuple[str, str], ctypes._CFuncPtr] = {}
@@ -81,6 +84,7 @@ def _finish(source: str, job) -> None:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed on {source} "
                            f"(exit {proc.returncode}):\n{log}")
+    out.with_suffix(".txt").write_text(log)  # registers, spills, smem
     os.replace(tmp, out)             # atomic: a concurrent build is harmless
 
 
@@ -102,6 +106,13 @@ def library(source: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_target(source)))
         _LIBS[source] = lib
     return lib
+
+
+def resource_usage(source: str) -> str:
+    """What ``nvcc --resource-usage`` printed when ``source``'s library was
+    built: each kernel's registers, spills and shared memory."""
+    library(source)
+    return _target(source).with_suffix(".txt").read_text()
 
 
 # ctypes spellings of the C argument types: every pointer (and the stream)

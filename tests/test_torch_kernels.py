@@ -14,6 +14,8 @@ column currents rtol 1e-3 (reassociated f32 sums over up to R*tr*C*tc
 terms); class meters rtol 1e-5; ``crossbar_mvm`` rtol 1e-5 / atol 1e-12
 (``tests/test_kernels.py``).
 """
+import shutil
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -243,3 +245,19 @@ def test_build_needs_nvcc_and_names_libraries_by_content(monkeypatch,
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
     assert _build._target("fused_impact.cu") != a
     assert set(_build.SOURCES) == {p.name for p in _build.CSRC.glob("*.cu")}
+
+
+def test_build_hash_covers_every_header(monkeypatch, tmp_path):
+    """Every ``csrc/*.cuh`` is part of each library's hash: editing any
+    header's text renames every library, so a stale one never loads."""
+    assert set(_build.HEADERS) == {p.name for p in _build.CSRC.glob("*.cuh")}
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {s: _build._target(s) for s in _build.SOURCES}
+    for h in _build.HEADERS:
+        text = (csrc / h).read_bytes()
+        (csrc / h).write_bytes(text + b"\n// edited\n")
+        assert all(_build._target(s) != before[s] for s in _build.SOURCES)
+        (csrc / h).write_bytes(text)
+    assert {s: _build._target(s) for s in _build.SOURCES} == before
