@@ -13,8 +13,12 @@ Phases, each of which must pass or the script exits non-zero:
    card tensors, at the paper serving shape and at ragged and multi-shard
    shapes (the packed kernels on the 2-bit operand packed on the card);
    ``crossbar_mvm`` also at one lane, at the class call (its narrow path)
-   and on operands one float past a 16-byte boundary, and bit for bit
-   equal to itself from launch to launch;
+   and on operands one float past a 16-byte boundary; ``crossbar_mvm``
+   and the four fused kernels bit for bit equal to themselves from
+   launch to launch; ``fused_impact`` and ``fused_impact_metered`` also
+   on literals one byte past an aligned base (the plain-load path); the
+   four fused kernels also at 1000 and 300 lanes, where the tail takes 4
+   and 2 lanes a block;
 4. the serving path at paper width (K=1568 literals, n=500 clauses, m=10
    classes, capacity 128): ``build_system`` with device variability,
    sessions for every metering mode, ``predict`` / ``infer_with_report``,
@@ -32,8 +36,9 @@ Phases, each of which must pass or the script exits non-zero:
    variable devices and ``IMPACTEngine`` serving the packed fused
    session, with its own launch counters;
 7. times: the device's busy share while the engine serves (under
-   ``torch.profiler``), then each kernel, its plain version and one
-   PyTorch call for the same function, in CUDA-event medians.
+   ``torch.profiler``, with each fused pass's device time a call), then
+   each kernel, its plain version and one PyTorch call for the same
+   function, in CUDA-event medians.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -253,7 +258,7 @@ def check_kernels(device) -> dict[str, float]:
     from repro_torch.impact.yflash import I_CSA_THRESHOLD as TH
     from repro_torch.kernels import backends, ref
     from repro_torch.kernels.crossbar_mvm import crossbar_mvm
-    from repro_torch.kernels.fused_impact import (fused_impact,
+    from repro_torch.kernels.fused_impact import (describe, fused_impact,
                                                   fused_impact_metered)
     cuda_bk = backends.get_backend("cuda")
     torch_bk = backends.get_backend("torch")
@@ -261,24 +266,11 @@ def check_kernels(device) -> dict[str, float]:
     for i, shape in enumerate(KERNEL_SHAPES):
         s = synthetic_system(shape, device, seed=i)
         args = (s["literals"], s["clause_i"], s["nonempty"], s["class_i"])
-        got = fused_impact(*args, thresh=TH)
-        want = ref.fused_impact_ref(*args, thresh=TH)
-        exact(f"fused_impact argmax {shape}", got.argmax(-1), want.argmax(-1))
-        errs["fused_impact"] = max(errs["fused_impact"], allclose(
-            f"fused_impact scores {shape}", got, want, RTOL_SCORES))
-
-        g_sc, g_cl, g_cs = fused_impact_metered(*args, thresh=TH)
-        w_sc, w_cl, w_cs = ref.fused_impact_metered_ref(*args, thresh=TH)
-        exact(f"fused_impact_metered argmax {shape}", g_sc.argmax(-1),
-              w_sc.argmax(-1))
-        errs["fused_impact_metered"] = max(
-            errs["fused_impact_metered"],
-            allclose(f"fused_impact_metered scores {shape}", g_sc, w_sc,
-                     RTOL_SCORES),
-            allclose(f"fused_impact_metered clause meter {shape}", g_cl, w_cl,
-                     RTOL_CLAUSE_METER),
-            allclose(f"fused_impact_metered class meter {shape}", g_cs, w_cs,
-                     RTOL_CLASS_METER))
+        if s["literals"].is_cuda:
+            print(f"fused_impact {shape}: {describe(*args[:2])}")
+        e, e_m = check_fused(str(shape), args, TH)
+        errs["fused_impact"] = max(errs["fused_impact"], e)
+        errs["fused_impact_metered"] = max(errs["fused_impact_metered"], e_m)
 
         # crossbar_mvm through the staged compositions (CSA bits exact) ...
         f_k, i_k = cuda_bk.impact_clause_bits(*args[:3], thresh=TH)
@@ -302,7 +294,79 @@ def check_kernels(device) -> dict[str, float]:
         errs["crossbar_mvm"] = max(errs["crossbar_mvm"], err_cols, err_cls,
                                    err_mvm)
     errs["crossbar_mvm"] = max(errs["crossbar_mvm"], check_mvm_paths(device))
+    e, e_m = check_unaligned_literals(device)
+    errs["fused_impact"] = max(errs["fused_impact"], e)
+    errs["fused_impact_metered"] = max(errs["fused_impact_metered"], e_m)
     torch.cuda.synchronize()
+    return errs
+
+
+def check_fused(label: str, args: tuple, thresh: float,
+                packed_tr: int | None = None) -> tuple[float, float]:
+    """``fused_impact`` and ``fused_impact_metered`` (their packed twins
+    when ``packed_tr`` is given, on args (literals, bits, levels,
+    nonempty, class_i)) against their plain versions: argmax exact,
+    scores, clause and class meters at the reference's tolerances; each
+    kernel launched twice on the same operands, bit for bit equal.
+    Returns the max absolute errors of the two kernels."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_impact import (
+        fused_impact, fused_impact_metered, fused_impact_packed,
+        fused_impact_packed_metered)
+    if packed_tr is None:
+        fns = ((fused_impact, ref.fused_impact_ref, {}),
+               (fused_impact_metered, ref.fused_impact_metered_ref, {}))
+    else:
+        kw = dict(tr=packed_tr)
+        fns = ((fused_impact_packed, ref.fused_impact_packed_ref, kw),
+               (fused_impact_packed_metered,
+                ref.fused_impact_packed_metered_ref, kw))
+    errs = []
+    for fn, plain, kw in fns:
+        name = f"{fn.__name__} {label}"
+        got = fn(*args, thresh=thresh, **kw)
+        again = fn(*args, thresh=thresh, **kw)
+        want = plain(*args, thresh=thresh, **kw)
+        if isinstance(got, torch.Tensor):
+            got, again, want = (got,), (again,), (want,)
+        for what, g, a in zip(("scores", "clause meter", "class meter"),
+                              got, again):
+            exact(f"{name} {what} run to run", g, a)
+        exact(f"{name} argmax", got[0].argmax(-1), want[0].argmax(-1))
+        err = allclose(f"{name} scores", got[0], want[0], RTOL_SCORES)
+        if len(got) == 3:
+            err = max(err,
+                      allclose(f"{name} clause meter", got[1], want[1],
+                               RTOL_CLAUSE_METER),
+                      allclose(f"{name} class meter", got[2], want[2],
+                               RTOL_CLASS_METER))
+        errs.append(err)
+    return errs[0], errs[1]
+
+
+def check_unaligned_literals(device) -> tuple[float, float]:
+    """``fused_impact`` and ``fused_impact_metered`` at the paper serving
+    shape on literals one byte past an aligned base (a ``[:, 1:]`` slice,
+    made contiguous at an odd offset of a larger buffer): the pass-1
+    literal loads take their plain-load path.  Returns the max absolute
+    errors."""
+    from repro_torch.impact.yflash import I_CSA_THRESHOLD as TH
+    from repro_torch.kernels.fused_impact import describe
+    s = synthetic_system(KERNEL_SHAPES[0], device, seed=40)
+    lit = s["literals"]
+    B, K_ = lit.shape
+    wide = torch.cat([torch.zeros((B, 1), dtype=torch.int8, device=device),
+                      lit], dim=1)
+    buf = torch.zeros(B * K_ + 16, dtype=torch.int8, device=device)
+    odd = buf[1:1 + B * K_].view(B, K_)
+    odd.copy_(wide[:, 1:])
+    if odd.data_ptr() % 2 != 1:
+        fail("fused_impact unaligned: the literals start on an even byte")
+    args = (odd, s["clause_i"], s["nonempty"], s["class_i"])
+    errs = check_fused("unaligned literals", args, TH)
+    path = describe(*args[:2]) if odd.is_cuda else "plain version"
+    print(f"fused_impact unaligned literals {(B, K_)}: {path}; max abs err "
+          f"{errs[0]:.3e} / {errs[1]:.3e} (metered)")
     return errs
 
 
@@ -371,9 +435,7 @@ def check_packed_kernels(device) -> dict[str, float]:
     give the plain CSA bits exactly.  Returns the max absolute error per
     kernel."""
     from repro_torch.impact.yflash import I_CSA_THRESHOLD as TH
-    from repro_torch.kernels import backends, packing, ref
-    from repro_torch.kernels.fused_impact import (
-        fused_impact_packed, fused_impact_packed_metered)
+    from repro_torch.kernels import backends, packing
     cuda_bk = backends.get_backend("cuda")
     torch_bk = backends.get_backend("torch")
     errs = dict(fused_impact_packed=0.0, fused_impact_packed_metered=0.0)
@@ -385,34 +447,60 @@ def check_packed_kernels(device) -> dict[str, float]:
               packing.pack_clause_operand(s["clause_i"].cpu()).bits)
         args = (s["literals"], pk.bits, pk.levels, s["nonempty"],
                 s["class_i"])
-        got = fused_impact_packed(*args, thresh=TH, tr=tr)
-        want = ref.fused_impact_packed_ref(*args, thresh=TH, tr=tr)
-        exact(f"fused_impact_packed argmax {shape}", got.argmax(-1),
-              want.argmax(-1))
-        errs["fused_impact_packed"] = max(
-            errs["fused_impact_packed"],
-            allclose(f"fused_impact_packed scores {shape}", got, want,
-                     RTOL_SCORES))
-        g_sc, g_cl, g_cs = fused_impact_packed_metered(*args, thresh=TH,
-                                                       tr=tr)
-        w_sc, w_cl, w_cs = ref.fused_impact_packed_metered_ref(
-            *args, thresh=TH, tr=tr)
-        exact(f"fused_impact_packed_metered argmax {shape}", g_sc.argmax(-1),
-              w_sc.argmax(-1))
+        e, e_m = check_fused(str(shape), args, TH, packed_tr=tr)
+        errs["fused_impact_packed"] = max(errs["fused_impact_packed"], e)
         errs["fused_impact_packed_metered"] = max(
-            errs["fused_impact_packed_metered"],
-            allclose(f"fused_impact_packed_metered scores {shape}", g_sc,
-                     w_sc, RTOL_SCORES),
-            allclose(f"fused_impact_packed_metered clause meter {shape}",
-                     g_cl, w_cl, RTOL_CLAUSE_METER),
-            allclose(f"fused_impact_packed_metered class meter {shape}",
-                     g_cs, w_cs, RTOL_CLASS_METER))
+            errs["fused_impact_packed_metered"], e_m)
         deq = packing.dequant_clause(pk.bits, pk.levels, tr)
         f_k, _ = cuda_bk.impact_clause_bits(s["literals"], deq,
                                             s["nonempty"], thresh=TH)
         f_p, _ = torch_bk.impact_clause_bits(s["literals"], deq,
                                              s["nonempty"], thresh=TH)
         exact(f"packed staged clause bits {shape}", f_k, f_p)
+    torch.cuda.synchronize()
+    return errs
+
+
+def check_tail_lanes(device) -> dict[str, float]:
+    """The four fused kernels at the batches that give the tail blocks
+    of several lanes: the paper layout at the compressed path's
+    calibration batch (N_CALIBRATION lanes) and at 300 lanes, and the
+    ragged multi-shard layout at both, against their plain versions as
+    ``check_fused`` holds them.  On the card the plans must give both 2
+    and 4 lanes a tail block.  Returns the max absolute error per
+    kernel."""
+    from repro_torch.impact.yflash import I_CSA_THRESHOLD as TH
+    from repro_torch.kernels import packing
+    from repro_torch.kernels.crossbar_mvm import sm_count
+    from repro_torch.kernels.fused_impact import plan
+    errs = dict(fused_impact=0.0, fused_impact_metered=0.0,
+                fused_impact_packed=0.0, fused_impact_packed_metered=0.0)
+    seen = set()
+    for i, (B, base) in enumerate(((N_CALIBRATION, 0), (300, 0),
+                                   (N_CALIBRATION, 2), (300, 2))):
+        shape = (B,) + KERNEL_SHAPES[base][1:]
+        _, K_, _, _, R, tr, C, tc, _, _ = shape
+        s = synthetic_system(shape, device, seed=60 + i)
+        pk = packing.pack_clause_operand(s["clause_i"])
+        runs = ((("fused_impact", "fused_impact_metered"), False,
+                 (s["literals"], s["clause_i"], s["nonempty"], s["class_i"]),
+                 None),
+                (("fused_impact_packed", "fused_impact_packed_metered"), True,
+                 (s["literals"], pk.bits, pk.levels, s["nonempty"],
+                  s["class_i"]), tr))
+        for names, packed, args, packed_tr in runs:
+            e, e_m = check_fused(str(shape), args, TH, packed_tr=packed_tr)
+            errs[names[0]] = max(errs[names[0]], e)
+            errs[names[1]] = max(errs[names[1]], e_m)
+            if device.type == "cuda":
+                p = plan(B, K_, R, C, tr, tc, sm_count(device.index), packed)
+                seen.add(p.lanes)
+                print(f"{names[0]} tail lanes {shape}: {p.tail_blocks} "
+                      f"blocks of {p.lanes} lane(s); max abs err {e:.3e} / "
+                      f"{e_m:.3e} (metered)")
+    if device.type == "cuda" and not {2, 4} <= seen:
+        fail(f"tail lanes: the plans gave {sorted(seen)} lanes a block, "
+             f"not both 2 and 4")
     torch.cuda.synchronize()
     return errs
 
@@ -1107,6 +1195,7 @@ def time_kernels(served: dict, errs: dict) -> list[dict]:
     from repro_torch.kernels.crossbar_mvm import crossbar_mvm, describe
     from repro_torch.kernels.fused_impact import (fused_impact,
                                                   fused_impact_metered)
+    from repro_torch.kernels.fused_impact import describe as fused_path
     system, batch = served["system"], served["batch"]
     dev = system.device
     lits = torch.as_tensor(batch, device=dev).to(torch.int8)
@@ -1133,6 +1222,8 @@ def time_kernels(served: dict, errs: dict) -> list[dict]:
         return torch.matmul(fired[:, :live].float(), wcur)
 
     n_ne, n_meter = needed_columns(ne, ccur.ne(0).any(dim=0))
+    print(f"fused_impact at the serving shape {tuple(lits.shape)} x "
+          f"{tuple(ci.shape)}: {fused_path(lits, ci)}")
     rows = []
     for name, fn, plain, extra_out, n_cols in (
             ("fused_impact", lambda: fused_impact(*args, thresh=TH),
@@ -1367,10 +1458,14 @@ def time_training_kernels(trained: dict, errs: dict) -> list[dict]:
     return [{k: r[k] for k in ROW_KEYS} for r in rows]
 
 
+FUSED_PASSES = ("impact_tiles", "column_currents", "impact_tail")
+
+
 def profile_engines(served: dict, lits: np.ndarray) -> None:
     """One more burst per metering mode under ``torch.profiler``; prints
-    the device's busy share of the burst's wall time and the kernels that
-    took it."""
+    the device's busy share of the burst's wall time, the kernels that
+    took it and, for the fused kernels' passes, the device time a
+    call."""
     from torch.profiler import ProfilerActivity, profile
     for m in ("off", "fused", "staged"):
         eng = served[f"engine_{m}"]["engine"]
@@ -1380,15 +1475,22 @@ def profile_engines(served: dict, lits: np.ndarray) -> None:
             eng.run(lits)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        kern = {}
+        kern, calls = {}, {}
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 kern[e.name] = kern.get(e.name, 0.0) + e.time_range.elapsed_us()
+                calls[e.name] = calls.get(e.name, 0) + 1
         busy = sum(kern.values()) * 1e-6
         top = sorted(kern.items(), key=lambda kv: -kv[1])[:6]
         print(f"profile metering={m}: wall {wall * 1e3:.3f} ms, device busy "
               f"{busy * 1e3:.3f} ms ({100 * busy / wall:.2f}% of wall); top: "
               + "; ".join(f"{n[:60]} {t / 1e3:.3f} ms" for n, t in top))
+        for n, t in sorted(kern.items(), key=lambda kv: -kv[1]):
+            short = re.sub(r"\(.*", "", n.replace(
+                "(anonymous namespace)::", "")).replace("void ", "")
+            if short.split("<")[0] in FUSED_PASSES:
+                print(f"  metering={m} pass {short}: {calls[n]} calls, "
+                      f"{t / calls[n]:.2f} us a call ({t / 1e3:.3f} ms)")
 
 
 def kernel_resources(source: str) -> list[str]:
@@ -1397,10 +1499,12 @@ def kernel_resources(source: str) -> list[str]:
     from repro_torch.kernels import _build
     out, name = [], "?"
     for line in _build.resource_usage(source).splitlines():
-        m = re.search(r"\d+(mvm_[a-z]+)(?:ILb(\d)ELb(\d)E)?", line)
-        if m:
-            name = m.group(1) + (f"<{m.group(2)},{m.group(3)}>"
-                                 if m.group(2) else "")
+        m = re.search(r"\d+((?:impact|column|mvm)_[a-z]+)(I\w*?EE)?", line)
+        if m:   # the kernel and its template arguments, demangled
+            args = re.findall(r"L[ib](\d+)E|\d+((?:[A-Z][a-z]+)+)",
+                              m.group(2) or "")
+            name = m.group(1) + (f"<{','.join(a or b for a, b in args)}>"
+                                 if args else "")
         elif "registers" in line or "spill" in line:
             out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
     return out
@@ -1428,12 +1532,15 @@ def main() -> int:
             torch.backends.cudnn.allow_tf32:
         fail("TF32 is on: the port's f32 contract needs it off")
     print(f"phase build: nvcc for sm_90a, {kernels.build_all():.1f} s")
-    for line in kernel_resources("crossbar_mvm.cu"):
-        print(f"  crossbar_mvm.cu {line}")
+    for source in ("crossbar_mvm.cu", "fused_impact.cu"):
+        for line in kernel_resources(source):
+            print(f"  {source} {line}")
 
     t0 = time.perf_counter()
     errs = check_kernels(device)
     errs.update(check_packed_kernels(device))
+    for k, v in check_tail_lanes(device).items():
+        errs[k] = max(errs[k], v)
     errs.update(check_training_kernels(device))
     print(f"phase kernels: all kernels match their plain versions "
           f"({time.perf_counter() - t0:.1f} s); max abs err "

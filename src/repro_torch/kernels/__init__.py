@@ -8,6 +8,8 @@ versions and the backend registry.
 * ``csrc/ta_feedback.cu``   — online-training Type I/II TA deltas
 * ``csrc/digital_cotm.cu``  — digital CoTM: ``clause_eval``, ``class_sum``
   and both fused (``fused_cotm``)
+* ``csrc/hopper_async.cuh`` — ``cp.async``, ``griddepcontrol`` and launch
+  helpers; ``csrc/tile_mma.cuh`` — the packed kernels' pass-1 tiles
 * ``crossbar_mvm.py`` / ``fused_impact.py`` / ``ta_feedback.py`` /
   ``clause_eval.py`` / ``class_sum.py`` / ``fused_cotm.py`` — the wrappers
   (launch counts, operand checks, CPU tensors to the plain versions)

@@ -65,8 +65,10 @@ def plan(B: int, K: int, N: int, sms: int) -> Plan:
         return Plan(NARROW, 1, max(K, 1), lanes, _cdiv(B, lanes))
     tiles = _cdiv(B, TILE_B) * _cdiv(N, TILE_N)
     stages = max(1, _cdiv(K, STAGE_K))
-    # At most one wave, and splits deep enough to fill the copy ring.
-    want = max(1, min(wave // tiles, stages // MIN_SPLIT_STAGES))
+    # At most one wave, and splits deep enough to fill the copy ring; no
+    # lanes (B = 0), no tiles and one split.
+    want = (max(1, min(wave // tiles, stages // MIN_SPLIT_STAGES))
+            if tiles else 1)
     chunk = _cdiv(stages, want) * STAGE_K
     splits = max(1, _cdiv(K, chunk))
     return Plan(TILES, splits, chunk, 1, tiles * splits)
@@ -145,6 +147,8 @@ def crossbar_mvm(drive: torch.Tensor, g: torch.Tensor, *,
     K2, N = g.shape
     if K != K2:
         raise ValueError(f"drive has {K} rows to drive, g has {K2}")
+    if B == 0:
+        return torch.empty((0, N), dtype=torch.float32, device=drive.device)
     p = plan(B, K, N, sm_count(drive.device.index))
     vec_a, vec_b = (int(w == 16) for w in copy_widths(drive, g))
     out = torch.empty((B, N), dtype=torch.float32, device=drive.device)

@@ -52,7 +52,9 @@
 
 #include <cuda_runtime.h>
 
-#include <cstdint>
+#include "hopper_async.cuh"
+
+using namespace hopper;
 
 namespace {
 
@@ -75,45 +77,9 @@ static_assert(BM * BK % (4 * THREADS) == 0 && BK * BN % (4 * THREADS) == 0,
               "whole 16-byte copies per thread and operand per stage");
 static_assert(TN == 4, "a thread's columns are one float4");
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// Copy `bytes` (0 = fill with zeros) of a 16- or 4-byte chunk.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 __device__ __forceinline__ float cell_current(float g, float v_read,
                                               float nonlin, float cutoff) {
   return g * v_read * (g < cutoff ? nonlin : 1.f);
-}
-
-// Every kernel here is launched as a programmatic dependent (`launch`
-// below): it may start while the kernel before it on the stream drains,
-// and waits here, before it reads anything, until that kernel is done and
-// its writes are visible.
-__device__ __forceinline__ void grid_dependency_wait() {
-  asm volatile("griddepcontrol.wait;" ::: "memory");
 }
 
 struct TileSmem {
@@ -384,29 +350,6 @@ mvm_narrow(const float* __restrict__ drive, const float* __restrict__ g,
     for (int w = 1; w < WARPS; ++w) v += red[w][l * NARROW_MAX_N + j];
     out[(size_t)(b0 + l) * N + j] = v;
   }
-}
-
-// Launch `kernel` on `stream` as a programmatic dependent launch (Hopper),
-// which hides the launch latency behind the previous kernel's tail.
-template <class... Params, class... Args>
-cudaError_t launch(void (*kernel)(Params...), dim3 grid, int threads,
-                   cudaStream_t stream, Args... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(threads);
-  cfg.stream = stream;
-  cudaLaunchAttribute early;
-  early.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  early.val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = &early;
-  cfg.numAttrs = 1;
-  const cudaError_t err =
-      cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
-  return err != cudaSuccess ? err : cudaGetLastError();
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<std::uintptr_t>(p) & 15) == 0;
 }
 
 template <bool VA, bool VB>

@@ -1,4 +1,5 @@
-// Shared-memory tiled f32 multiply-accumulate used by the crossbar kernels.
+// Shared-memory tiled f32 multiply-accumulate of the packed kernels' pass 1
+// (`column_currents<PackedCells>` in fused_impact.cu).
 //
 // One block of THREADS threads owns a BB x BN output tile; each thread keeps
 // a TM x TN register tile of accumulators.  `tile_mma` walks a contraction
@@ -22,36 +23,6 @@ constexpr int TM = 4;                        // rows per thread
 constexpr int TN = 2;                        // columns per thread
 constexpr int TX = BN / TN;                  // 16 column groups
 constexpr int THREADS = (BB / TM) * TX;      // 128
-
-// Blocks to aim for: two per SM of the card, so that latency from device
-// memory hides behind other blocks' arithmetic.
-inline int target_blocks() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (sms <= 0) sms = 132;
-  }
-  return 2 * sms;
-}
-
-// Split of a contraction of `k` rows across blocks, given `tiles` output
-// tiles: the chunk (a multiple of BK) each split covers, and the number
-// of splits that gives about target_blocks() blocks.
-struct Split {
-  int chunk;
-  int count;
-};
-
-inline Split split_k(int k, int tiles) {
-  if (k <= 0 || tiles <= 0) return Split{BK, 1};
-  const int stages = (k + BK - 1) / BK;
-  int want = (target_blocks() + tiles - 1) / tiles;
-  want = want < 1 ? 1 : (want > stages ? stages : want);
-  const int chunk = ((stages + want - 1) / want) * BK;
-  return Split{chunk, (k + chunk - 1) / chunk};
-}
 
 struct Smem {
   float a[BK][BB + 1];   // row operand, k-major; the pad keeps the

@@ -28,11 +28,11 @@ mvm = importlib.import_module("repro_torch.kernels.crossbar_mvm")
 SMS = (132, 114)          # H100 SXM, H100 PCIe
 # (B, K, N): the staged sweep's calls at the paper layout (a full row
 # shard too), one lane, the ragged calls of chip_smoke's kernel shapes,
-# and edge cases (K = 0, a single stage, many lanes).
+# and edge cases (K = 0, a single stage, many lanes, no lanes).
 SHAPES = [(128, 1568, 512), (128, 2048, 512), (128, 500, 10),
           (1, 1568, 512), (37, 150, 90), (37, 16, 3), (8, 200, 512),
           (16, 32, 33), (4, 100, 10), (3, 0, 20), (5, 0, 7), (130, 1, 17),
-          (1000, 300, 3), (4096, 1568, 512)]
+          (1000, 300, 3), (4096, 1568, 512), (0, 1568, 512), (0, 500, 10)]
 
 
 @pytest.mark.parametrize("sms", SMS)
@@ -88,6 +88,16 @@ def test_narrow_class_call_has_a_block_per_lane_group():
     assert mvm.plan(128, 500, 10, 114).lanes == 1
     assert mvm.plan(300, 500, 10, 114).lanes == 2
     assert mvm.plan(4096, 500, 10, 132).lanes == mvm.NARROW_MAX_LANES
+
+
+@pytest.mark.parametrize("sms", SMS)
+@pytest.mark.parametrize("K,N,path", [(1568, 512, 0), (500, 10, 1),
+                                      (0, 33, 0), (16, 3, 1)])
+def test_no_lanes_plans_no_blocks(K, N, path, sms):
+    """B = 0 on either path plans one split and no block (the planner
+    once divided by the zero tiles of the tile path)."""
+    p = mvm.plan(0, K, N, sms)
+    assert (p.path, p.splits, p.blocks) == (path, 1, 0)
 
 
 def test_plan_is_computed_once_per_shape():
