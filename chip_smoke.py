@@ -18,7 +18,11 @@ Phases, each of which must pass or the script exits non-zero:
    launch to launch; ``fused_impact`` and ``fused_impact_metered`` also
    on literals one byte past an aligned base (the plain-load path); the
    four fused kernels also at 1000 and 300 lanes, where the tail takes 4
-   and 2 lanes a block;
+   and 2 lanes a block; the packed twins also on codes one and four bytes
+   past an aligned base (plain loads, 4-byte copies); ``class_sum`` also
+   on signed int8 clauses, past 16 classes, at one clause, on clauses
+   one byte off and with no lane, class or clause, bit for bit equal
+   from launch to launch;
 4. the serving path at paper width (K=1568 literals, n=500 clauses, m=10
    classes, capacity 128): ``build_system`` with device variability,
    sessions for every metering mode, ``predict`` / ``infer_with_report``,
@@ -36,8 +40,9 @@ Phases, each of which must pass or the script exits non-zero:
    variable devices and ``IMPACTEngine`` serving the packed fused
    session, with its own launch counters;
 7. times: the device's busy share while the engine serves (under
-   ``torch.profiler``, with each fused pass's device time a call), then
-   each kernel, its plain version and one PyTorch call for the same
+   ``torch.profiler``, with each fused pass's device time a call), the
+   packed passes' device time a call over a short loop of packed calls,
+   then each kernel, its plain version and one PyTorch call for the same
    function, in CUDA-event medians.
 
 The second-to-last line is the kernel table as JSON; the last line is
@@ -436,6 +441,7 @@ def check_packed_kernels(device) -> dict[str, float]:
     kernel."""
     from repro_torch.impact.yflash import I_CSA_THRESHOLD as TH
     from repro_torch.kernels import backends, packing
+    from repro_torch.kernels.fused_impact import describe
     cuda_bk = backends.get_backend("cuda")
     torch_bk = backends.get_backend("torch")
     errs = dict(fused_impact_packed=0.0, fused_impact_packed_metered=0.0)
@@ -447,6 +453,9 @@ def check_packed_kernels(device) -> dict[str, float]:
               packing.pack_clause_operand(s["clause_i"].cpu()).bits)
         args = (s["literals"], pk.bits, pk.levels, s["nonempty"],
                 s["class_i"])
+        if s["literals"].is_cuda:
+            print(f"fused_impact_packed {shape}: "
+                  f"{describe(s['literals'], pk.bits, tr)}")
         e, e_m = check_fused(str(shape), args, TH, packed_tr=tr)
         errs["fused_impact_packed"] = max(errs["fused_impact_packed"], e)
         errs["fused_impact_packed_metered"] = max(
@@ -457,7 +466,46 @@ def check_packed_kernels(device) -> dict[str, float]:
         f_p, _ = torch_bk.impact_clause_bits(s["literals"], deq,
                                              s["nonempty"], thresh=TH)
         exact(f"packed staged clause bits {shape}", f_k, f_p)
+    for k, v in zip(errs, check_unaligned_codes(device)):
+        errs[k] = max(errs[k], v)
     torch.cuda.synchronize()
+    return errs
+
+
+def check_unaligned_codes(device) -> tuple[float, float]:
+    """``fused_impact_packed`` and ``fused_impact_packed_metered`` at the
+    paper serving shape on codes one byte and four bytes past an aligned
+    base (contiguous copies at those offsets of a larger buffer): pass 1
+    takes its plain code loads and its 4-byte code copies.  Returns the
+    max absolute errors."""
+    from repro_torch.impact.yflash import I_CSA_THRESHOLD as TH
+    from repro_torch.kernels import packing
+    from repro_torch.kernels.fused_impact import code_width, describe
+    shape = KERNEL_SHAPES[0]
+    tr = shape[5]
+    s = synthetic_system(shape, device, seed=41)
+    pk = packing.pack_clause_operand(s["clause_i"])
+    errs = (0.0, 0.0)
+    for offset, width in ((1, 1), (4, 4)):
+        buf = torch.zeros(pk.bits.numel() + 32, dtype=torch.uint8,
+                          device=device)
+        bits = buf[offset:offset + pk.bits.numel()].view(pk.bits.shape)
+        bits.copy_(pk.bits)
+        if bits.data_ptr() % 16 != offset:
+            fail(f"fused_impact_packed codes {offset} byte(s) off: the "
+                 f"buffer is not 16-byte aligned")
+        args = (s["literals"], bits, pk.levels, s["nonempty"], s["class_i"])
+        e = check_fused(f"codes {offset} byte(s) off", args, TH, packed_tr=tr)
+        errs = tuple(max(a, b) for a, b in zip(errs, e))
+        path = "plain version"
+        if bits.is_cuda:
+            if code_width(bits) != width:
+                fail(f"fused_impact_packed codes {offset} byte(s) off take "
+                     f"{code_width(bits)}-byte code copies, not {width}")
+            path = describe(s["literals"], bits, tr)
+        print(f"fused_impact_packed codes {offset} byte(s) off "
+              f"{tuple(bits.shape)}: {path}; max abs err {e[0]:.3e} / "
+              f"{e[1]:.3e} (metered)")
     return errs
 
 
@@ -575,6 +623,48 @@ def check_training_kernels(device) -> dict[str, float]:
             ref.ta_feedback_ref(*ops)))
     torch.cuda.synchronize()
     return errs
+
+
+# (B, N, M) of class_sum's own checks: the training path's, past one
+# 16-class pass (37 classes, two passes and a ragged third), one clause,
+# N off every multiple of 4 and past one 512-clause weight stage, and no
+# lane, class or clause.
+CLASS_SUM_SHAPES = [(DIGITAL_BATCH, N_CLAUSES, M_CLASSES),
+                    (DIGITAL_BATCH, N_CLAUSES, 37), (9, 1, M_CLASSES),
+                    (37, 77, 3), (13, 1030, 17), (0, N_CLAUSES, M_CLASSES),
+                    (5, N_CLAUSES, 0), (7, 0, M_CLASSES)]
+
+
+def check_class_sum(device) -> float:
+    """``class_sum`` on signed int8 clauses (the contract; the paths pass
+    0/1) against its plain version, exact, at ``CLASS_SUM_SHAPES`` and
+    the digital shapes, on clauses one byte past an aligned base (byte
+    loads), bit for bit equal on two launches; one launch a call, none
+    where B or M is 0.  Returns the max absolute error (0)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.class_sum import KERNEL, class_sum, clause_width
+    shapes = CLASS_SUM_SHAPES + [(B, N, M) for B, _, N, M in DIGITAL_SHAPES]
+    rng = np.random.default_rng(SEED + 50)
+    for i, (B, N, M) in enumerate(shapes):
+        w = torch.as_tensor(rng.integers(-20, 21, (N, M)), device=device,
+                            dtype=torch.int32)
+        for offset in (0, 1):
+            buf = torch.as_tensor(rng.integers(-128, 128, B * N + 16),
+                                  device=device, dtype=torch.int8)
+            cl = buf[offset:offset + B * N].view(B, N)
+            before = KERNEL.launches
+            got, again = class_sum(cl, w), class_sum(cl, w)
+            launched = KERNEL.launches - before
+            label = (f"class_sum {(B, N, M)} signed clauses {offset} "
+                     f"byte(s) off")
+            max_int_err(label, got, ref.class_sum_ref(cl, w))
+            exact(f"{label} run to run", got, again)
+            if cl.is_cuda and launched != (2 if B and M else 0):
+                fail(f"{label}: {launched} launches for two calls")
+            if cl.is_cuda and offset and B * N and clause_width(cl) != 1:
+                fail(f"{label}: {clause_width(cl)}-byte clause loads")
+    torch.cuda.synchronize()
+    return 0.0
 
 
 # -- phase 4 --------------------------------------------------------------
@@ -1308,7 +1398,7 @@ def time_packed_kernels(compressed: dict, errs: dict) -> list[dict]:
     from repro_torch.impact.yflash import I_CSA_THRESHOLD as TH
     from repro_torch.kernels import packing, ref
     from repro_torch.kernels.fused_impact import (
-        fused_impact_packed, fused_impact_packed_metered)
+        describe, fused_impact_packed, fused_impact_packed_metered)
     system = compressed["system"]
     lits = compressed["batch"].to(torch.int8).contiguous()
     ne, cls = system._nonempty_eff(), system.class_i
@@ -1319,6 +1409,8 @@ def time_packed_kernels(compressed: dict, errs: dict) -> list[dict]:
         fail(f"the timed layout must be one row shard, got R={R}, tr={tr}")
     bits, levels = packing.pack_clause_operand(system.clause_i)
     args = (lits, bits, levels, ne, cls)
+    print(f"fused_impact_packed at the compressed shape {tuple(lits.shape)}"
+          f" x {tuple(bits.shape)}: {describe(lits, bits, tr)}")
     live = min(C * tc, S * sr)
     k4 = packing.packed_rows(Kl)
     drive = 1.0 - lits.float()
@@ -1458,7 +1550,27 @@ def time_training_kernels(trained: dict, errs: dict) -> list[dict]:
     return [{k: r[k] for k in ROW_KEYS} for r in rows]
 
 
-FUSED_PASSES = ("impact_tiles", "column_currents", "impact_tail")
+FUSED_PASSES = ("impact_tiles", "packed_tiles", "impact_tail")
+
+
+def pass_times(prof) -> tuple[dict, dict]:
+    """Device microseconds and calls by kernel name of a profile."""
+    kern, calls = {}, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kern[e.name] = kern.get(e.name, 0.0) + e.time_range.elapsed_us()
+            calls[e.name] = calls.get(e.name, 0) + 1
+    return kern, calls
+
+
+def print_fused_passes(label: str, kern: dict, calls: dict) -> None:
+    """Each fused pass's device time a call, from ``pass_times``."""
+    for n, t in sorted(kern.items(), key=lambda kv: -kv[1]):
+        short = re.sub(r"\(.*", "", n.replace(
+            "(anonymous namespace)::", "")).replace("void ", "")
+        if short.split("<")[0] in FUSED_PASSES:
+            print(f"  {label} pass {short}: {calls[n]} calls, "
+                  f"{t / calls[n]:.2f} us a call ({t / 1e3:.3f} ms)")
 
 
 def profile_engines(served: dict, lits: np.ndarray) -> None:
@@ -1475,37 +1587,67 @@ def profile_engines(served: dict, lits: np.ndarray) -> None:
             eng.run(lits)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        kern, calls = {}, {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                kern[e.name] = kern.get(e.name, 0.0) + e.time_range.elapsed_us()
-                calls[e.name] = calls.get(e.name, 0) + 1
+        kern, calls = pass_times(prof)
         busy = sum(kern.values()) * 1e-6
         top = sorted(kern.items(), key=lambda kv: -kv[1])[:6]
         print(f"profile metering={m}: wall {wall * 1e3:.3f} ms, device busy "
               f"{busy * 1e3:.3f} ms ({100 * busy / wall:.2f}% of wall); top: "
               + "; ".join(f"{n[:60]} {t / 1e3:.3f} ms" for n, t in top))
-        for n, t in sorted(kern.items(), key=lambda kv: -kv[1]):
-            short = re.sub(r"\(.*", "", n.replace(
-                "(anonymous namespace)::", "")).replace("void ", "")
-            if short.split("<")[0] in FUSED_PASSES:
-                print(f"  metering={m} pass {short}: {calls[n]} calls, "
-                      f"{t / calls[n]:.2f} us a call ({t / 1e3:.3f} ms)")
+        print_fused_passes(f"metering={m}", kern, calls)
+
+
+def profile_packed(compressed: dict, calls: int = 50) -> None:
+    """A short loop of ``calls`` calls of each packed kernel at the
+    compressed path's shape under ``torch.profiler``, printing each
+    pass's device time a call and the call's CUDA-event time, on codes
+    the pass copies 4 bytes at a time and on codes one byte off (plain
+    loads)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.impact.yflash import I_CSA_THRESHOLD as TH
+    from repro_torch.kernels import packing
+    from repro_torch.kernels.fused_impact import (
+        describe, fused_impact_packed, fused_impact_packed_metered)
+    system = compressed["system"]
+    lits = compressed["batch"].to(torch.int8).contiguous()
+    bits, levels = packing.pack_clause_operand(system.clause_i)
+    odd = torch.zeros(bits.numel() + 16, dtype=torch.uint8,
+                      device=bits.device)[1:1 + bits.numel()].view(bits.shape)
+    odd.copy_(bits)
+    tr = system.clause_i.shape[2]
+    for codes in (bits, odd):
+        args = (lits, codes, levels, system._nonempty_eff(), system.class_i)
+        print(f"packed calls: {describe(lits, codes, tr)}")
+        for fn in (fused_impact_packed, fused_impact_packed_metered):
+            fn(*args, thresh=TH, tr=tr)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn(*args, thresh=TH, tr=tr)
+                torch.cuda.synchronize()
+            ms = cuda_ms(lambda: fn(*args, thresh=TH, tr=tr))
+            print(f"  {fn.__name__}: {ms:.4f} ms a call")
+            print_fused_passes(f"{fn.__name__} x {calls}", *pass_times(prof))
+
+
+# The redesigned kernels, by their mangled names in nvcc's report.
+RESOURCE_KERNELS = re.compile(
+    r"\d+((?:impact|packed|mvm)_[a-z]+|class_sum_kernel)(I\w*?EE)?")
 
 
 def kernel_resources(source: str) -> list[str]:
-    """Each kernel of ``source`` with its registers, spills and shared
-    memory, from the build's ``nvcc --resource-usage`` report."""
+    """Each kernel of ``source`` that ``RESOURCE_KERNELS`` names, with its
+    registers, spills and shared memory, from the build's ``nvcc
+    --resource-usage`` report."""
     from repro_torch.kernels import _build
-    out, name = [], "?"
+    out, name = [], None
     for line in _build.resource_usage(source).splitlines():
-        m = re.search(r"\d+((?:impact|column|mvm)_[a-z]+)(I\w*?EE)?", line)
-        if m:   # the kernel and its template arguments, demangled
-            args = re.findall(r"L[ib](\d+)E|\d+((?:[A-Z][a-z]+)+)",
-                              m.group(2) or "")
-            name = m.group(1) + (f"<{','.join(a or b for a, b in args)}>"
-                                 if args else "")
-        elif "registers" in line or "spill" in line:
+        if "_Z" in line:   # a kernel's header line: its mangled name
+            m = RESOURCE_KERNELS.search(line)
+            name = None
+            if m:          # the kernel and its template arguments
+                args = re.findall(r"L[ib](\d+)E", m.group(2) or "")
+                name = m.group(1) + (f"<{','.join(args)}>" if args else "")
+        elif name and ("registers" in line or "spill" in line):
             out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
     return out
 
@@ -1532,7 +1674,7 @@ def main() -> int:
             torch.backends.cudnn.allow_tf32:
         fail("TF32 is on: the port's f32 contract needs it off")
     print(f"phase build: nvcc for sm_90a, {kernels.build_all():.1f} s")
-    for source in ("crossbar_mvm.cu", "fused_impact.cu"):
+    for source in ("crossbar_mvm.cu", "fused_impact.cu", "digital_cotm.cu"):
         for line in kernel_resources(source):
             print(f"  {source} {line}")
 
@@ -1542,6 +1684,7 @@ def main() -> int:
     for k, v in check_tail_lanes(device).items():
         errs[k] = max(errs[k], v)
     errs.update(check_training_kernels(device))
+    errs["class_sum"] = max(errs["class_sum"], check_class_sum(device))
     print(f"phase kernels: all kernels match their plain versions "
           f"({time.perf_counter() - t0:.1f} s); max abs err "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
@@ -1563,6 +1706,7 @@ def main() -> int:
 
     profile_engines(served, np.tile(digit_literals(1024, seed=SEED + 7),
                                     (8, 1)))
+    profile_packed(compressed)
     rows = (time_kernels(served, errs) + time_packed_kernels(compressed, errs)
             + time_training_kernels(trained, errs))
     for r in rows:

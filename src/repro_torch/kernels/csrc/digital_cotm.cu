@@ -16,7 +16,9 @@
 // 0.2 us at the int8 tensor-core rate, on 1.2 MB of operands, 0.36 us at
 // 3.35 TB/s: both bounds are below a microsecond, so launch latency and
 // the number of blocks in flight set the time.  The class stage has int32
-// weights, which the int8 tensor cores cannot take.
+// weights, which the int8 tensor cores cannot take; class_sum alone at
+// (B, N, M) = (256, 500, 10) moves 158 KB (0.05 us), so one launch is
+// its floor.
 //
 // Design:
 // - The clause stage is a binary product.  Literals are packed along K
@@ -34,8 +36,18 @@
 //   order the blocks finish in, and the clause matrix never reaches
 //   device memory.  fired is 0/1, so the class stage is conditional int32
 //   adds on the CUDA cores.
-// - class_sum walks 128 clause rows a block and adds its partial scores
-//   with int32 atomics the same way.
+// - class_sum is one launch in which a block owns whole lanes, one a
+//   warp (8 a block, 32 blocks at B = 256): each score is written once,
+//   so nothing zeroes the scores first, there are no atomics, and the
+//   result is the same bits from run to run.  The block stages the
+//   weights of up to 512 clauses x 16 classes in shared memory, class
+//   major; a warp's threads stride over the clauses, four at a time
+//   (one 4-byte load of clause bytes, one 16-byte read of each class's
+//   weights) where the pointer and N allow, and keep up to 16 class
+//   accumulators in registers; passes of 16 classes take any M.  A fixed
+//   butterfly of shuffles sums each class over the warp.  The clause
+//   values are any int8 (the contract is an int8 x int32 product summed
+//   in int32), not only 0/1.
 // - Ragged edges are masked, never padded: packed bits past K are 0 (no
 //   violation), lanes and columns past B and N are skipped.  The Pallas
 //   wrappers pad literals with 1 and include with 0 instead
@@ -44,7 +56,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cstdint>
+
+#include "hopper_async.cuh"
+
 namespace {
+
+using hopper::cp_async4;
+using hopper::cp_async_commit;
+using hopper::cp_async_wait;
 
 constexpr int THREADS = 256;
 constexpr int TB = 32;               // lanes per block
@@ -52,7 +72,10 @@ constexpr int TJ = 32;               // clause columns per block
 constexpr int RB = THREADS / TJ;     // lane rows per thread pass (8)
 constexpr int QB = TB / RB;          // outputs per thread (4)
 constexpr int KW = 32;               // K words per shared-memory stage
-constexpr int CN = 128;              // clause rows per class_sum block
+constexpr int CS_LANES = 8;          // class_sum lanes a block, one a warp
+constexpr int CS_THREADS = 32 * CS_LANES;
+constexpr int CS_MT = 16;            // class_sum classes a pass
+constexpr int CS_NC = 512;           // class_sum clauses a weight stage
 
 // Literal bits: out (B, words); bit i of word w of lane b is
 // (L[b][32w + i] == 0), 0 past K.  One thread per (b, bit): a warp covers
@@ -178,29 +201,93 @@ fused_cotm_kernel(const uint32_t* __restrict__ notl,
   }
 }
 
-// scores (B, M) int32, zeroed before the launch, += clauses (B, N) int8
-// @ weights (N, M) int32 over CN clause rows a block.  Grid
-// (ceil(N / CN), ceil(B / TB)).
-__global__ void __launch_bounds__(THREADS)
+// Sign-extended byte q of `word`.
+__device__ __forceinline__ int sbyte(unsigned word, int q) {
+  return static_cast<int>(static_cast<int8_t>(word >> (8 * q)));
+}
+
+// scores (B, M) int32 = clauses (B, N) int8 @ weights (N, M) int32.
+// Grid ceil(B / CS_LANES); warp w of block x owns lane x * CS_LANES + w.
+// VW = 4: clause bytes read 4 at a time (base and N multiples of 4);
+// 1: one at a time.  Lane l of a warp takes clause groups l, l + 32, ...
+// of VW clauses, at most CS_NC / 32 / VW of a stage, loaded before the
+// stage's weights so that both loads are in flight together.
+template <int VW>
+__global__ void __launch_bounds__(CS_THREADS)
 class_sum_kernel(const int8_t* __restrict__ clauses,
                  const int32_t* __restrict__ weights,
                  int32_t* __restrict__ scores, int B, int N, int M) {
-  __shared__ int8_t cl[TB][CN];
-  const int b0 = blockIdx.y * TB, n0 = blockIdx.x * CN;
-  const int nn = min(CN, N - n0);
-  for (int e = threadIdx.x; e < TB * CN; e += THREADS) {
-    const int r = e / CN, c = e % CN;
-    cl[r][c] = (b0 + r < B && c < nn) ? clauses[(size_t)(b0 + r) * N + n0 + c]
-                                      : 0;
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < TB * M; e += THREADS) {
-    const int r = e / M, m = e % M;
-    if (b0 + r >= B) continue;
-    int sum = 0;
-    for (int c = 0; c < nn; ++c)
-      sum += static_cast<int>(cl[r][c]) * weights[(size_t)(n0 + c) * M + m];
-    if (sum != 0) atomicAdd(&scores[(size_t)(b0 + r) * M + m], sum);
+  __shared__ __align__(16) int32_t w_s[CS_MT][CS_NC + 4];   // +4: banks
+  constexpr int PER = CS_NC / 32 / VW;       // clause groups a thread
+  const int warp = threadIdx.x / 32, wl = threadIdx.x % 32;
+  const int b = blockIdx.x * CS_LANES + warp;
+  const bool live = b < B;
+  const int8_t* row = clauses + (size_t)(live ? b : 0) * N;
+  for (int m0 = 0; m0 < M; m0 += CS_MT) {
+    const int mp = min(CS_MT, M - m0);
+    int acc[CS_MT];
+#pragma unroll
+    for (int m = 0; m < CS_MT; ++m) acc[m] = 0;
+    for (int n0 = 0; n0 < N; n0 += CS_NC) {
+      const int groups = min(CS_NC, N - n0) / VW;
+      unsigned cl[PER];
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        const int g = wl + 32 * i;
+        cl[i] = 0u;
+        if (live && g < groups) {
+          if (VW == 4)
+            cl[i] = __ldg(reinterpret_cast<const unsigned*>(row + n0) + g);
+          else
+            cl[i] = static_cast<uint8_t>(__ldg(row + n0 + g));
+        }
+      }
+      __syncthreads();                       // the last stage is read
+      // Weight (j, m) of the stage, e = j * mp + m, is copied to
+      // w_s[m][j] by a 4-byte `cp.async`, all of a thread's in flight at
+      // once; (j, m) is stepped without a division.
+      const int total = min(CS_NC, N - n0) * mp;
+      const int dj = CS_THREADS / mp, dm = CS_THREADS % mp;
+      int j = threadIdx.x / mp, m = threadIdx.x % mp;
+      for (int e = threadIdx.x; e < total; e += CS_THREADS) {
+        cp_async4(&w_s[m][j], weights + (size_t)(n0 + j) * M + m0 + m, 4);
+        j += dj;
+        m += dm;
+        if (m >= mp) {
+          m -= mp;
+          ++j;
+        }
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        const int g = wl + 32 * i;
+        if (g >= groups) break;
+#pragma unroll
+        for (int m = 0; m < CS_MT; ++m) {
+          if (m >= mp) break;
+          if (VW == 4) {
+            const int4 w = *reinterpret_cast<const int4*>(&w_s[m][4 * g]);
+            acc[m] += sbyte(cl[i], 0) * w.x + sbyte(cl[i], 1) * w.y +
+                      sbyte(cl[i], 2) * w.z + sbyte(cl[i], 3) * w.w;
+          } else {
+            acc[m] += sbyte(cl[i], 0) * w_s[m][g];
+          }
+        }
+      }
+    }
+    // Each class over the warp, by a fixed butterfly; thread m stores
+    // class m0 + m.
+#pragma unroll
+    for (int m = 0; m < CS_MT; ++m) {
+      if (m >= mp) break;
+#pragma unroll
+      for (int off = 16; off > 0; off /= 2)
+        acc[m] += __shfl_xor_sync(0xffffffffu, acc[m], off);
+      if (live && wl == m) scores[(size_t)b * M + m0 + m] = acc[m];
+    }
   }
 }
 
@@ -265,15 +352,26 @@ extern "C" int fused_cotm_i32(const int8_t* lit, const uint8_t* inc,
   return static_cast<int>(cudaGetLastError());
 }
 
-// clauses (B, N) int8; weights (N, M) int32; scores (B, M) int32.
+// clauses (B, N) int8; weights (N, M) int32; scores (B, M) int32, each
+// written once by the one launch (zeros where N = 0).  clause_width 4:
+// the clause bytes are read 4 at a time (base and N multiples of 4), 1:
+// one at a time; anything else returns cudaErrorInvalidValue, launching
+// nothing.  Nothing is launched where B or M is 0.
 extern "C" int class_sum_i32(const int8_t* clauses, const int32_t* weights,
                              int32_t* scores, int B, int N, int M,
-                             cudaStream_t stream) {
-  if (B <= 0 || M <= 0) return static_cast<int>(cudaGetLastError());
-  cudaError_t err = cudaMemsetAsync(scores, 0, sizeof(int32_t) * B * M,
-                                    stream);
-  if (err != cudaSuccess || N <= 0) return static_cast<int>(err);
-  class_sum_kernel<<<dim3((N + CN - 1) / CN, (B + TB - 1) / TB), THREADS, 0,
-                     stream>>>(clauses, weights, scores, B, N, M);
+                             int clause_width, cudaStream_t stream) {
+  const bool words = clause_width == 4 &&
+                     reinterpret_cast<std::uintptr_t>(clauses) % 4 == 0 &&
+                     N % 4 == 0;
+  if (B < 0 || N < 0 || M < 0 || !(words || clause_width == 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || M == 0) return static_cast<int>(cudaGetLastError());
+  const dim3 grid((B + CS_LANES - 1) / CS_LANES);
+  if (words)
+    class_sum_kernel<4><<<grid, CS_THREADS, 0, stream>>>(clauses, weights,
+                                                      scores, B, N, M);
+  else
+    class_sum_kernel<1><<<grid, CS_THREADS, 0, stream>>>(clauses, weights,
+                                                      scores, B, N, M);
   return static_cast<int>(cudaGetLastError());
 }

@@ -45,28 +45,35 @@
 //    tiles alone are too few for 132 SMs, so each block takes one tile
 //    of (lanes x clause columns) of one row shard and one chunk of its
 //    live rows (those below K), and writes its partial column currents
-//    to scratch (R * splits, B, C*tc) f32; the chunks are planned for one
-//    wave of two blocks an SM.
-//    - f32 cells, `impact_tiles`: a register-tiled SGEMM.  A block of 256
-//      threads owns 64 lanes x 64 columns, each thread a 4 x 4 register
-//      tile fed by float4 shared-memory reads (8 loads per 64 FFMAs).
-//      Both operands come 16 rows at a time through a 3-deep `cp.async`
-//      ring, so the copies of the next two stages overlap this stage's
-//      FFMAs (14 chunks of 112 rows, 224 blocks at the paper shape).  The
-//      literals stay int8: a 16-byte copy brings one lane's 16 literals
-//      of a stage, and the thread that copied them writes the f32 drive
-//      into the stage once they have landed, before the barrier that
-//      publishes it.  Copy widths are template parameters chosen per call
-//      from pointers and strides: literals 16 bytes, or plain loads where
-//      the base, K or shard r's start r*tr is not a multiple of 16; clause
-//      currents 16 bytes (`.cg`) or 4.  Launched as a programmatic
-//      dependent.
-//    - packed cells, `column_currents<PackedCells>` (tile_mma.cuh): 32 x
-//      32 tiles, 32-row stages, synchronous loads.  Its loader reads the
-//      code byte of (row, column), shifts out the row's 2-bit field and
-//      writes i_hcs, i_lcs or 0 A into the stage, which a `cp.async`
-//      cannot do, so the packed kernels never hold an f32 clause operand
-//      in device memory and do the same FFMAs as the f32 ones.
+//    to scratch (R * splits, B, C*tc) f32; the chunks are planned for
+//    about one wave of blocks.
+//    Every block is a register-tiled SGEMM: 256 threads own 64 lanes x
+//    64 columns, each thread a 4 x 4 register tile fed by float4
+//    shared-memory reads (8 loads per 64 FFMAs).  Both operands come 16
+//    rows at a time through a 3-deep `cp.async` ring, so the copies of
+//    the next two stages overlap this stage's FFMAs.  The literals stay
+//    int8: a 16-byte copy brings one lane's 16 literals of a stage, and
+//    the thread that copied them writes the f32 drive into the stage once
+//    they have landed, before the barrier that publishes it.  Copy widths
+//    are template parameters chosen per call from pointers and strides:
+//    literals 16 bytes, or plain loads where the base, K or shard r's
+//    start r*tr is not a multiple of 16.  Launched as a programmatic
+//    dependent.
+//    - f32 cells, `impact_tiles<LIT, VC>`: clause currents by 16-byte
+//      (`.cg`) or 4-byte copies (14 chunks of 112 rows, 224 blocks at the
+//      paper shape, planned for two blocks an SM).
+//    - packed cells, `packed_tiles<LIT, CW>`: a stage's cells are 256 code
+//      bytes (4 packed rows x 64 columns), copied 4 bytes at a time by 64
+//      threads (two whole warps) where the base and tc allow (CW = 4),
+//      else loaded a byte a thread.  The thread that copied a word decodes
+//      its 16 cells into the f32 stage (2 -> i_hcs, 1 -> i_lcs, else 0 A)
+//      before the barrier, as the literals become drive, so the kernel
+//      never holds an f32 clause operand in device memory and does the
+//      same FFMAs as the f32 one.  16-byte code copies were measured
+//      slower: 16 copying threads, half a warp, then decode 64 cells each
+//      while the block waits at the barrier (PERF.md).  Planned as
+//      the f32 pass (14 chunks of 112 rows, 224 blocks at the paper
+//      shape), which measured best.
 // 2. `impact_tail`, one launch for CSA, class stage and lane sums, shared
 //    by all four entries (it never sees the clause operand's format).  A
 //    block owns 1-4 lanes and all C*tc columns: for each column and
@@ -101,13 +108,12 @@
 #include <stdint.h>
 
 #include "hopper_async.cuh"
-#include "tile_mma.cuh"
 
 using namespace hopper;
 
 namespace {
 
-// -- pass 1, f32 cells: impact_tiles ---------------------------------------
+// -- pass 1: impact_tiles (f32 cells), packed_tiles (2-bit codes) ----------
 
 constexpr int BM = 64;        // lanes per block tile
 constexpr int BN = 64;        // clause columns per block tile
@@ -118,15 +124,23 @@ constexpr int TN = 4;         // columns per thread
 constexpr int TX = BN / TN;   // 16 column groups
 constexpr int THREADS = (BM / TM) * TX;   // 256
 constexpr int APAD = BK + 4;  // drive tile row: 80 B, 16-byte aligned
+// Blocks an SM the packed pass is planned for (`PACKED_BLOCKS_PER_SM` in
+// fused_impact.py); its registers are capped to fit them.
+constexpr int PACKED_BLOCKS = 2;
 
 static_assert(BM * BK == 4 * THREADS, "one 4-literal group a thread");
 static_assert(BK * BN == 4 * THREADS, "one 16-byte cell copy a thread");
+static_assert(BK / 4 * BN == THREADS, "one code byte a thread");
 static_assert(TN == 4, "a thread's columns are one float4");
 
 struct TileSmem {
   float a[STAGES][BM][APAD];      // drive 1 - literal, lane-major
   float b[STAGES][BK][BN];        // clause cell currents
   int8_t lit[STAGES][BM][BK];     // literals as copied (LIT = 16)
+};
+
+struct PackedSmem : TileSmem {
+  uint8_t code[STAGES][BK / 4][BN];   // 2-bit codes as copied (CW = 4)
 };
 
 // Drive of the four literals packed in `word` (rows k..k+3 of a lane):
@@ -142,19 +156,18 @@ __device__ __forceinline__ float4 drive4(int word, bool lane_in, int k,
   return make_float4(d[0], d[1], d[2], d[3]);
 }
 
-// Issue the copies of one stage (shard rows [k0, k0 + BK) clipped to
-// k_end) into ring buffer `buf`.  `lit` is this shard's first literal
-// (lits + r * tr, row stride K) and `cells` its clause tile (tr, tc).
-// LIT = 16: one 16-byte copy a lane (64 threads); 1: plain loads, four
-// literals a thread, the drive written straight into the stage.
-// VC: 16-byte copies of the cells, else 4-byte ones.  Where a copy is
-// in range it is whole: the wrapper picks LIT and VC so that K, tr and
-// tc keep every chunk inside one shard, row and column tile.
-template <int LIT, bool VC>
-__device__ __forceinline__ void load_stage(
-    TileSmem& s, int buf, const int8_t* __restrict__ lit,
-    const float* __restrict__ cells, int B, int K, int tc, int b0, int n0,
-    int k0, int k_end) {
+// Issue the literal copies of one stage (shard rows [k0, k0 + BK)
+// clipped to k_end) into ring buffer `buf`.  `lit` is this shard's first
+// literal (lits + r * tr, row stride K).  LIT = 16: one 16-byte copy a
+// lane (64 threads); 1: plain loads, four literals a thread, the drive
+// written straight into the stage.  Where a copy is in range it is
+// whole: the wrapper picks LIT so that K and tr keep every chunk inside
+// one shard and row.
+template <int LIT>
+__device__ __forceinline__ void load_lits(TileSmem& s, int buf,
+                                          const int8_t* __restrict__ lit,
+                                          int B, int K, int b0, int k0,
+                                          int k_end) {
   const int tid = threadIdx.x;
   if (LIT == 16) {
     if (tid < BM) {
@@ -175,28 +188,11 @@ __device__ __forceinline__ void load_stage(
     *reinterpret_cast<float4*>(&s.a[buf][bb][kk]) =
         drive4(word, b < B, k, k_end);
   }
-  if (VC) {   // tc % 4 == 0, so a chunk of 4 columns is all in or all out
-    const int kk = tid / (BN / 4), nn = (tid % (BN / 4)) * 4;
-    const int k = k0 + kk, n = n0 + nn;
-    const bool in = k < k_end && n < tc;
-    cp_async16(&s.b[buf][kk][nn], in ? cells + (size_t)k * tc + n : cells,
-               in ? 16 : 0);
-  } else {
-#pragma unroll
-    for (int i = 0; i < BK * BN / THREADS; ++i) {
-      const int e = threadIdx.x + i * THREADS;
-      const int kk = e / BN, nn = e % BN;
-      const int k = k0 + kk, n = n0 + nn;
-      const bool in = k < k_end && n < tc;
-      cp_async4(&s.b[buf][kk][nn], in ? cells + (size_t)k * tc + n : cells,
-                in ? 4 : 0);
-    }
-  }
 }
 
 // The literals this thread copied into `buf` (the same map as
-// load_stage's), written into the stage as drive.  LIT = 1 wrote the
-// drive already.
+// load_lits'), written into the stage as drive.  LIT = 1 wrote the drive
+// already.
 template <int LIT>
 __device__ __forceinline__ void to_drive(TileSmem& s, int buf, int B,
                                          int b0, int k0, int k_end) {
@@ -214,18 +210,127 @@ __device__ __forceinline__ void to_drive(TileSmem& s, int buf, int B,
   }
 }
 
+// Clause cells as f32 currents: `p` is clause_i (R, C, tr, tc), then the
+// block's tile (tr, tc).  VC: 16-byte copies, else 4-byte ones (tc % 4
+// == 0 for VC, so a chunk of 4 columns is all in or all out).
+template <bool VC>
+struct F32Cells {
+  const float* __restrict__ p;
+
+  __device__ F32Cells at(int r, int c, int C, int tr, int tc) const {
+    return {p + ((size_t)r * C + c) * tr * tc};
+  }
+
+  __device__ void load(TileSmem& s, int buf, int tc, int n0, int k0,
+                       int k_end) const {
+    if (VC) {
+      const int kk = threadIdx.x / (BN / 4), nn = (threadIdx.x % (BN / 4)) * 4;
+      const int k = k0 + kk, n = n0 + nn;
+      const bool in = k < k_end && n < tc;
+      cp_async16(&s.b[buf][kk][nn], in ? p + (size_t)k * tc + n : p,
+                 in ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int i = 0; i < BK * BN / THREADS; ++i) {
+        const int e = threadIdx.x + i * THREADS;
+        const int kk = e / BN, nn = e % BN;
+        const int k = k0 + kk, n = n0 + nn;
+        const bool in = k < k_end && n < tc;
+        cp_async4(&s.b[buf][kk][nn], in ? p + (size_t)k * tc + n : p,
+                  in ? 4 : 0);
+      }
+    }
+  }
+
+  __device__ void publish(TileSmem&, int, int, int) const {}
+};
+
+// The current of a 2-bit code: 2 -> i_hcs, 1 -> i_lcs, else 0 A
+// (`_dequant_plane` of the reference).
+__device__ __forceinline__ float level(unsigned code, float lcs, float hcs) {
+  return code == 2u ? hcs : (code == 1u ? lcs : 0.f);
+}
+
+// Clause cells as 2-bit codes: `p` is bits (R, C, tr4, tc) u8, then the
+// block's tile (tr4, tc); bit-field j of packed row q is cell row 4q + j.
+// A stage's 16 rows are 4 packed rows x 64 columns, 256 code bytes.
+// CW = 4: 4-byte `cp.async` copies by the 64 threads from thread BM on
+// (warps 2-3; the literal copiers are warps 0-1); each decodes its own
+// word into the f32 stage once it has landed (`publish`), before the
+// barrier that publishes the stage.  CW = 1: plain loads, one byte a
+// thread, decoded straight into the stage.  Rows at or past k_end decode
+// to 0 A; so do bytes past tc or past the live packed rows, which are
+// copied as zeros.  The wrapper picks CW = 4 only where a copy in range
+// is whole (tc % 4 == 0, the base 4-byte aligned).
+template <int CW>
+struct CodeCells {
+  static_assert(CW == 4 || CW == 1, "4-byte copies or plain loads");
+  static constexpr int COPIES = BK / 4 * BN / CW;   // 64 or 256
+  static constexpr int FIRST = CW == 1 ? 0 : BM;    // first copying thread
+  static_assert(FIRST + COPIES <= THREADS, "copiers fit the block");
+
+  const uint8_t* __restrict__ p;
+  float lcs, hcs;
+
+  __device__ CodeCells at(int r, int c, int C, int tr, int tc) const {
+    return {p + ((size_t)r * C + c) * ((tr + 3) / 4) * tc, lcs, hcs};
+  }
+
+  __device__ void load(PackedSmem& s, int buf, int tc, int n0, int k0,
+                       int k_end) const {
+    const int t = static_cast<int>(threadIdx.x) - FIRST;
+    if (t < 0 || t >= COPIES) return;
+    const int qq = t / (BN / CW), nn = (t % (BN / CW)) * CW;
+    const int q = k0 / 4 + qq, n = n0 + nn;
+    const bool in = 4 * q < k_end && n < tc;
+    const uint8_t* src = in ? p + (size_t)q * tc + n : p;
+    if (CW == 4) {
+      cp_async4(&s.code[buf][qq][nn], src, in ? 4 : 0);
+    } else {
+      const unsigned byte = in ? *src : 0u;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        s.b[buf][4 * qq + j][nn] =
+            k0 + 4 * qq + j < k_end ? level((byte >> (2 * j)) & 3u, lcs, hcs)
+                                    : 0.f;
+    }
+  }
+
+  __device__ void publish(PackedSmem& s, int buf, int k0, int k_end) const {
+    if (CW == 1) return;
+    const int t = static_cast<int>(threadIdx.x) - FIRST;
+    if (t < 0 || t >= COPIES) return;
+    const int qq = t / (BN / CW), nn = (t % (BN / CW)) * CW;
+    // Four columns' codes, one byte each.
+    const unsigned word =
+        *reinterpret_cast<const unsigned*>(&s.code[buf][qq][nn]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const unsigned x = word >> (2 * j);
+      const bool live = k0 + 4 * qq + j < k_end;
+      *reinterpret_cast<float4*>(&s.b[buf][4 * qq + j][nn]) =
+          live ? make_float4(level(x & 3u, lcs, hcs),
+                             level((x >> 8) & 3u, lcs, hcs),
+                             level((x >> 16) & 3u, lcs, hcs),
+                             level((x >> 24) & 3u, lcs, hcs))
+               : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+};
+
 // Block (column tile, lane tile, r * splits + split) -> partial column
 // currents part[r * splits + split] (B, C*tc).  A chunk past a shard's
-// live rows runs no stage and writes zeros.
-template <int LIT, bool VC>
-__global__ void __launch_bounds__(THREADS)
-impact_tiles(const int8_t* __restrict__ lits,
-             const float* __restrict__ clause_i, float* __restrict__ part,
-             int B, int K, int C, int tr, int tc, int tiles_c, int splits,
-             int chunk) {
-  __shared__ __align__(16) TileSmem s;
+// live rows runs no stage and writes zeros.  `cells` is the whole clause
+// operand; `s` is a TileSmem, or a PackedSmem for codes.
+template <int LIT, class Cells, class Smem>
+__device__ __forceinline__ void run_tiles(Smem& s,
+                                          const int8_t* __restrict__ lits,
+                                          Cells cells,
+                                          float* __restrict__ part, int B,
+                                          int K, int C, int tr, int tc,
+                                          int tiles_c, int splits,
+                                          int chunk) {
   const int tid = threadIdx.x;
-  grid_dependency_wait();
   const int tx = tid % TX, ty = tid / TX;
   const int c = blockIdx.x / tiles_c;
   const int n0 = (blockIdx.x % tiles_c) * BN;
@@ -235,7 +340,7 @@ impact_tiles(const int8_t* __restrict__ lits,
   const int k_end = min(min(tr, K - r * tr), k_begin + chunk);
   const int n_stages = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
   const int8_t* lit = lits + (size_t)r * tr;
-  const float* cells = clause_i + ((size_t)r * C + c) * tr * tc;
+  cells = cells.at(r, c, C, tr, tc);
 
   float acc[TM][TN];
 #pragma unroll
@@ -245,23 +350,28 @@ impact_tiles(const int8_t* __restrict__ lits,
 
 #pragma unroll
   for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < n_stages)
-      load_stage<LIT, VC>(s, st, lit, cells, B, K, tc, b0, n0,
-                          k_begin + st * BK, k_end);
+    if (st < n_stages) {
+      load_lits<LIT>(s, st, lit, B, K, b0, k_begin + st * BK, k_end);
+      cells.load(s, st, tc, n0, k_begin + st * BK, k_end);
+    }
     cp_async_commit();
   }
 
   for (int st = 0; st < n_stages; ++st) {
     const int buf = st % STAGES;
+    const int k0 = k_begin + st * BK;
     cp_async_wait<STAGES - 2>();          // this thread's stage st landed
-    to_drive<LIT>(s, buf, B, b0, k_begin + st * BK, k_end);
+    to_drive<LIT>(s, buf, B, b0, k0, k_end);
+    cells.publish(s, buf, k0, k_end);
     __syncthreads();                      // ... and every thread's
     // Refill the buffer that stage st - 1 used: every thread is past its
     // FFMAs, having reached the barrier above.
     const int next = st + STAGES - 1;
-    if (next < n_stages)
-      load_stage<LIT, VC>(s, next % STAGES, lit, cells, B, K, tc, b0, n0,
-                          k_begin + next * BK, k_end);
+    if (next < n_stages) {
+      load_lits<LIT>(s, next % STAGES, lit, B, K, b0, k_begin + next * BK,
+                     k_end);
+      cells.load(s, next % STAGES, tc, n0, k_begin + next * BK, k_end);
+    }
     cp_async_commit();
 
 #pragma unroll
@@ -311,79 +421,30 @@ impact_tiles(const int8_t* __restrict__ lits,
   }
 }
 
-// -- pass 1, packed cells: column_currents<PackedCells> --------------------
+template <int LIT, bool VC>
+__global__ void __launch_bounds__(THREADS)
+impact_tiles(const int8_t* __restrict__ lits,
+             const float* __restrict__ clause_i, float* __restrict__ part,
+             int B, int K, int C, int tr, int tc, int tiles_c, int splits,
+             int chunk) {
+  __shared__ __align__(16) TileSmem s;
+  grid_dependency_wait();
+  run_tiles<LIT>(s, lits, F32Cells<VC>{clause_i}, part, B, K, C, tr, tc,
+                 tiles_c, splits, chunk);
+}
 
-// Clause-cell loader of the packed operand: tile(r, c) gives the cells of
-// clause tile (r, c), read as cell(k, col) for row k < tr and column
-// col < tc.
-struct PackedCells {
-  const uint8_t* bits;                       // (R, C, tr4, tc) 2-bit codes
-  const float* levels;                       // [i_lcs, i_hcs]
-  struct Tile {
-    const uint8_t* codes;
-    int tc;
-    float i_lcs, i_hcs;
-    __device__ float operator()(int k, int col) const {
-      const unsigned code =
-          (codes[(size_t)(k >> 2) * tc + col] >> (2 * (k & 3))) & 3u;
-      return code == 2u ? i_hcs : (code == 1u ? i_lcs : 0.f);
-    }
-  };
-  __device__ Tile tile(int r, int c, int C, int tr, int tc) const {
-    const int tr4 = (tr + 3) / 4;
-    return Tile{bits + ((size_t)r * C + c) * tr4 * tc, tc, levels[0],
-                levels[1]};
-  }
-};
-
-// Block (column tile t, lane tile, r * slices + slice) -> partial column
-// currents part[r * slices + slice] (B, C*tc).
-template <class Cells>
-__global__ void __launch_bounds__(impact::THREADS)
-column_currents(const int8_t* __restrict__ lits, Cells cells,
-                float* __restrict__ part, int B, int K, int C, int tr, int tc,
-                int tiles_c, int slices, int chunk) {
-  __shared__ impact::Smem s;
-  const int t = blockIdx.x;
-  const int c = t / tiles_c;
-  const int col0 = (t % tiles_c) * impact::BN;
-  const int b0 = blockIdx.y * impact::BB;
-  const int r = blockIdx.z / slices;
-  const int k_begin = (blockIdx.z % slices) * chunk;
-  const int k_end = min(min(tr, K - r * tr), k_begin + chunk);
-  const typename Cells::Tile cell = cells.tile(r, c, C, tr, tc);
-
-  float acc[impact::TM][impact::TN];
-#pragma unroll
-  for (int i = 0; i < impact::TM; ++i)
-#pragma unroll
-    for (int j = 0; j < impact::TN; ++j) acc[i][j] = 0.f;
-  impact::tile_mma(
-      acc, k_begin, k_end, s,
-      [&](int bb, int k) {
-        const int b = b0 + bb;
-        return b < B ? 1.f - static_cast<float>(
-                                 lits[(size_t)b * K + r * tr + k])
-                     : 0.f;
-      },
-      [&](int k, int nn) {
-        const int col = col0 + nn;
-        return col < tc ? cell(k, col) : 0.f;
-      });
-
-  const int N = C * tc;
-  float* out = part + (size_t)blockIdx.z * B * N;
-  const int tx = threadIdx.x % impact::TX, ty = threadIdx.x / impact::TX;
-#pragma unroll
-  for (int i = 0; i < impact::TM; ++i) {
-    const int b = b0 + ty * impact::TM + i;
-    if (b >= B) continue;
-#pragma unroll
-    for (int j = 0; j < impact::TN; ++j) {
-      const int col = col0 + tx * impact::TN + j;
-      if (col < tc) out[(size_t)b * N + c * tc + col] = acc[i][j];
-    }
-  }
+// levels (2,) f32 [i_lcs, i_hcs], read once a block.
+template <int LIT, int CW>
+__global__ void __launch_bounds__(THREADS, PACKED_BLOCKS)
+packed_tiles(const int8_t* __restrict__ lits,
+             const uint8_t* __restrict__ bits,
+             const float* __restrict__ levels, float* __restrict__ part,
+             int B, int K, int C, int tr, int tc, int tiles_c, int splits,
+             int chunk) {
+  __shared__ __align__(16) PackedSmem s;
+  grid_dependency_wait();
+  run_tiles<LIT>(s, lits, CodeCells<CW>{bits, levels[0], levels[1]}, part,
+                 B, K, C, tr, tc, tiles_c, splits, chunk);
 }
 
 // -- pass 2: impact_tail ----------------------------------------------------
@@ -552,14 +613,46 @@ cudaError_t launch_tail(const float* part, const uint8_t* nonempty,
                 lanes, thresh);
 }
 
-template <int LIT, bool VC>
-cudaError_t launch_tiles(const int8_t* lits, const float* clause_i,
-                         float* part, int B, int K, int R, int C, int tr,
-                         int tc, int splits, int chunk, cudaStream_t stream) {
+// Pass 1 over a grid of (column tiles, lane tiles, R * splits) blocks.
+template <class... Params, class... Args>
+cudaError_t launch_pass1(void (*kernel)(Params...), int B, int R, int C,
+                         int tc, int splits, int chunk, cudaStream_t stream,
+                         Args... args) {
   const int tiles_c = (tc + BN - 1) / BN;
   const dim3 grid(C * tiles_c, (B + BM - 1) / BM, R * splits);
-  return launch(impact_tiles<LIT, VC>, grid, THREADS, stream, lits, clause_i,
-                part, B, K, C, tr, tc, tiles_c, splits, chunk);
+  return launch(kernel, grid, THREADS, stream, args..., tiles_c, splits,
+                chunk);
+}
+
+// Literal copies of lit_width bytes (16 or 1) can run: the base, K and,
+// with several shards, tr are multiples of 16 for 16-byte copies.
+bool literals_ok(const int8_t* lits, int lit_width, int K, int R, int tr) {
+  const auto at = reinterpret_cast<std::uintptr_t>(lits);
+  return lit_width == 1 || (lit_width == 16 && at % 16 == 0 &&
+                            K % 16 == 0 && (R == 1 || tr % 16 == 0));
+}
+
+// Pass 1 (`pass1`, a callable that launches it) then the tail, after the
+// checks every entry makes.
+template <bool METERED, class Pass1>
+int run(Pass1 pass1, const uint8_t* nonempty, const float* class_i,
+        float* part, float* scores, float* meter_clause, float* meter_class,
+        int B, int K, int R, int C, int tr, int tc, int Nc, int M,
+        float thresh, int splits, int chunk, int lanes,
+        cudaStream_t stream) {
+  if (check_plan(B, K, R, C, tr, tc, Nc, M, BK, splits, chunk, lanes,
+                 (tc + BN - 1) / BN, BM) != 0)
+    return BAD;
+  if (B == 0) return static_cast<int>(cudaGetLastError());
+  const int N = C * tc;
+  if (N > 0 && part == nullptr) return BAD;
+  if (N > 0) {
+    const cudaError_t err = pass1();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(launch_tail<METERED>(
+      part, nonempty, class_i, scores, meter_clause, meter_class, B, R, C,
+      tc, splits, Nc, M, lanes, thresh, stream));
 }
 
 template <bool METERED>
@@ -569,34 +662,20 @@ int run_f32(const int8_t* lits, const float* clause_i,
             int K, int R, int C, int tr, int tc, int Nc, int M, float thresh,
             int lit_width, int vec_c, int splits, int chunk, int lanes,
             cudaStream_t stream) {
-  if (check_plan(B, K, R, C, tr, tc, Nc, M, BK, splits, chunk, lanes,
-                 (tc + BN - 1) / BN, BM) != 0)
+  if (!literals_ok(lits, lit_width, K, R, tr) ||
+      (vec_c && (tc % 4 != 0 || !aligned16(clause_i))))
     return BAD;
-  const auto lits_at = reinterpret_cast<std::uintptr_t>(lits);
-  const bool lit_ok =
-      lit_width == 1 ||
-      (lit_width == 16 && lits_at % 16 == 0 && K % 16 == 0 &&
-       (R == 1 || tr % 16 == 0));
-  if (!lit_ok || (vec_c && (tc % 4 != 0 || !aligned16(clause_i))))
-    return BAD;
-  if (B == 0) return static_cast<int>(cudaGetLastError());
-  const int N = C * tc;
-  if (N > 0 && part == nullptr) return BAD;
-  cudaError_t err = cudaSuccess;
-  if (N > 0) {
+  const auto pass1 = [=]() {
 #define TILES(L, V)                                                        \
-  launch_tiles<L, V>(lits, clause_i, part, B, K, R, C, tr, tc, splits,     \
-                     chunk, stream)
-    if (lit_width == 16)
-      err = vec_c ? TILES(16, true) : TILES(16, false);
-    else
-      err = vec_c ? TILES(1, true) : TILES(1, false);
+  launch_pass1(impact_tiles<L, V>, B, R, C, tc, splits, chunk, stream,    \
+               lits, clause_i, part, B, K, C, tr, tc)
+    if (lit_width == 16) return vec_c ? TILES(16, true) : TILES(16, false);
+    return vec_c ? TILES(1, true) : TILES(1, false);
 #undef TILES
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return static_cast<int>(launch_tail<METERED>(
-      part, nonempty, class_i, scores, meter_clause, meter_class, B, R, C,
-      tc, splits, Nc, M, lanes, thresh, stream));
+  };
+  return run<METERED>(pass1, nonempty, class_i, part, scores, meter_clause,
+                      meter_class, B, K, R, C, tr, tc, Nc, M, thresh, splits,
+                      chunk, lanes, stream);
 }
 
 template <bool METERED>
@@ -604,27 +683,25 @@ int run_packed(const int8_t* lits, const uint8_t* bits, const float* levels,
                const uint8_t* nonempty, const float* class_i, float* part,
                float* scores, float* meter_clause, float* meter_class, int B,
                int K, int R, int C, int tr, int tc, int Nc, int M,
-               float thresh, int splits, int chunk, int lanes,
-               cudaStream_t stream) {
-  const int tiles_c = (tc + impact::BN - 1) / impact::BN;
-  if (check_plan(B, K, R, C, tr, tc, Nc, M, impact::BK, splits, chunk, lanes,
-                 tiles_c, impact::BB) != 0)
-    return BAD;
-  if (B == 0) return static_cast<int>(cudaGetLastError());
-  const int N = C * tc;
-  if (N > 0 && part == nullptr) return BAD;
-  if (N > 0) {
-    column_currents<<<dim3(C * tiles_c, (B + impact::BB - 1) / impact::BB,
-                           R * splits),
-                      impact::THREADS, 0, stream>>>(
-        lits, PackedCells{bits, levels}, part, B, K, C, tr, tc, tiles_c,
-        splits, chunk);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return static_cast<int>(launch_tail<METERED>(
-      part, nonempty, class_i, scores, meter_clause, meter_class, B, R, C,
-      tc, splits, Nc, M, lanes, thresh, stream));
+               float thresh, int lit_width, int code_width, int splits,
+               int chunk, int lanes, cudaStream_t stream) {
+  const bool codes_ok =
+      code_width == 1 ||
+      (code_width == 4 && reinterpret_cast<std::uintptr_t>(bits) % 4 == 0 &&
+       tc % 4 == 0);
+  if (!literals_ok(lits, lit_width, K, R, tr) || !codes_ok) return BAD;
+  const auto pass1 = [=]() {
+#define TILES(L, W)                                                        \
+  launch_pass1(packed_tiles<L, W>, B, R, C, tc, splits, chunk, stream,    \
+               lits, bits, levels, part, B, K, C, tr, tc)
+    if (lit_width == 16)
+      return code_width == 4 ? TILES(16, 4) : TILES(16, 1);
+    return code_width == 4 ? TILES(1, 4) : TILES(1, 1);
+#undef TILES
+  };
+  return run<METERED>(pass1, nonempty, class_i, part, scores, meter_clause,
+                      meter_class, B, K, R, C, tr, tc, Nc, M, thresh, splits,
+                      chunk, lanes, stream);
 }
 
 }  // namespace
@@ -669,24 +746,29 @@ extern "C" int fused_impact_metered_f32(
 }
 
 // The packed entries: bits (R, C, ceil(tr/4), tc) u8 and levels (2,) f32
-// in place of clause_i; the chunks are whole 32-row stages.
+// in place of clause_i, and code_width in place of vec_c: 4 for 4-byte
+// `cp.async` copies of the codes (base and tc multiples of 4), 1 for
+// plain loads.
 extern "C" int fused_impact_packed_f32(
     const int8_t* lits, const uint8_t* bits, const float* levels,
     const uint8_t* nonempty, const float* class_i, float* part,
     float* scores, int B, int K, int R, int C, int tr, int tc, int Nc, int M,
-    float thresh, int splits, int chunk, int lanes, cudaStream_t stream) {
+    float thresh, int lit_width, int code_width, int splits, int chunk,
+    int lanes, cudaStream_t stream) {
   return run_packed<false>(lits, bits, levels, nonempty, class_i, part,
                            scores, nullptr, nullptr, B, K, R, C, tr, tc, Nc,
-                           M, thresh, splits, chunk, lanes, stream);
+                           M, thresh, lit_width, code_width, splits, chunk,
+                           lanes, stream);
 }
 
 extern "C" int fused_impact_packed_metered_f32(
     const int8_t* lits, const uint8_t* bits, const float* levels,
     const uint8_t* nonempty, const float* class_i, float* part,
     float* scores, float* meter_clause, float* meter_class, int B, int K,
-    int R, int C, int tr, int tc, int Nc, int M, float thresh, int splits,
-    int chunk, int lanes, cudaStream_t stream) {
+    int R, int C, int tr, int tc, int Nc, int M, float thresh, int lit_width,
+    int code_width, int splits, int chunk, int lanes, cudaStream_t stream) {
   return run_packed<true>(lits, bits, levels, nonempty, class_i, part,
                           scores, meter_clause, meter_class, B, K, R, C, tr,
-                          tc, Nc, M, thresh, splits, chunk, lanes, stream);
+                          tc, Nc, M, thresh, lit_width, code_width, splits,
+                          chunk, lanes, stream);
 }

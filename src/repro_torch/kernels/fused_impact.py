@@ -18,8 +18,9 @@ allocates the kernel's scratch.
 The launch is planned here, once per shape and SM count (``plan``): the
 pass-1 tile, the split of each shard's live rows into chunks of whole
 stages for about one wave of blocks, and the tail's lanes a block.  The
-copy widths of the literals and the f32 clause currents are chosen per
-call from their pointers and strides (``copy_widths``).
+copy widths of the literals, the f32 clause currents and the packed codes
+are chosen per call from their pointers and strides (``copy_widths``,
+``code_width``).
 """
 from __future__ import annotations
 
@@ -38,28 +39,32 @@ SOURCE = "fused_impact.cu"
 _P, _I, _F = _build.PTR, _build.INT, _build.FLOAT
 # B, K, R, C, tr, tc, Nc, M, thresh
 _SHAPE_ARGS = [_I] * 8 + [_F]
-_F32_PLAN = [_I] * 5 + [_P]        # lit_width, vec_c, splits, chunk, lanes
-_PACKED_PLAN = [_I] * 3 + [_P]     # splits, chunk, lanes; then the stream
+# lit_width, vec_c (code_width when packed), splits, chunk, lanes; then the
+# stream
+_PLAN = [_I] * 5 + [_P]
 
 KERNEL = _build.CudaKernel(SOURCE, "fused_impact_f32",
-                           [_P] * 6 + _SHAPE_ARGS + _F32_PLAN)
+                           [_P] * 6 + _SHAPE_ARGS + _PLAN)
 KERNEL_METERED = _build.CudaKernel(
-    SOURCE, "fused_impact_metered_f32", [_P] * 8 + _SHAPE_ARGS + _F32_PLAN)
+    SOURCE, "fused_impact_metered_f32", [_P] * 8 + _SHAPE_ARGS + _PLAN)
 KERNEL_PACKED = _build.CudaKernel(
-    SOURCE, "fused_impact_packed_f32", [_P] * 7 + _SHAPE_ARGS + _PACKED_PLAN)
+    SOURCE, "fused_impact_packed_f32", [_P] * 7 + _SHAPE_ARGS + _PLAN)
 KERNEL_PACKED_METERED = _build.CudaKernel(
     SOURCE, "fused_impact_packed_metered_f32",
-    [_P] * 9 + _SHAPE_ARGS + _PACKED_PLAN)
+    [_P] * 9 + _SHAPE_ARGS + _PLAN)
 
-# Pass 1's tiles (lanes, clause columns, rows a stage): ``impact_tiles``
-# on f32 cells, ``column_currents<PackedCells>`` (``tile_mma.cuh``) on
-# packed ones.
+# Pass 1's tile (lanes, clause columns, rows a stage), of
+# ``impact_tiles`` on f32 cells and ``packed_tiles`` on 2-bit codes.
 F32_TILE = (64, 64, 16)
-PACKED_TILE = (32, 32, 32)
-# f32 chunks are at least this many stages deep, to fill the copy ring.
+# Chunks are at least this many stages deep, to fill the copy ring.
 MIN_SPLIT_STAGES = 4
-# Blocks an SM runs at once: a wave is this many per SM.
+# Blocks an SM runs at once: a wave of the f32 pass 1 and of the tail is
+# this many per SM ...
 BLOCKS_PER_SM = 2
+# ... and of the packed pass 1 (``PACKED_BLOCKS`` in the CUDA source),
+# measured on its own: three an SM (20 chunks of 80 rows at the paper
+# shape) made rows 4-5 slower than two (PERF.md, findings).
+PACKED_BLOCKS_PER_SM = 2
 # The tail: lanes a block, and the shared-memory words of their fired
 # bits (so at most 65,536 clause columns a lane).
 TAIL_MAX_LANES, TAIL_FIRED_WORDS = 4, 2048
@@ -92,20 +97,18 @@ def plan(B: int, K: int, R: int, C: int, tr: int, tc: int, sms: int,
     """The launch plan of a call on literals (B, K) and a clause grid
     (R, C, tr, tc) on a card with ``sms`` streaming multiprocessors.
 
-    f32 cells: about one wave of blocks, with chunks deep enough to fill
-    the copy ring.  Packed cells: the split the packed kernels have
-    always run (ceil(wave / tiles) chunks, as few as whole stages allow).
-    Raises ``ValueError`` past 65,536 clause columns."""
-    wave = BLOCKS_PER_SM * sms
-    tile_b, tile_n, stage = PACKED_TILE if packed else F32_TILE
+    Pass 1 takes about one wave of blocks (``BLOCKS_PER_SM`` an SM on f32
+    cells, ``PACKED_BLOCKS_PER_SM`` on packed ones), with chunks deep
+    enough to fill the copy ring; the tail's lanes follow a wave of
+    ``BLOCKS_PER_SM`` either way.  Raises ``ValueError`` past 65,536
+    clause columns."""
+    tile_b, tile_n, stage = F32_TILE
     live = max(0, min(tr, K))            # live rows of the fullest shard
     stages = _cdiv(live, stage)
     tiles = _cdiv(B, tile_b) * C * _cdiv(tc, tile_n) * R
-    if not tiles or not stages:
-        want = 1
-    elif packed:
-        want = min(max(1, _cdiv(wave, tiles)), stages)
-    else:
+    wave = (PACKED_BLOCKS_PER_SM if packed else BLOCKS_PER_SM) * sms
+    want = 1
+    if tiles and stages:
         want = max(1, min(wave // tiles, stages // MIN_SPLIT_STAGES))
     chunk = max(1, _cdiv(stages, want)) * stage
     splits = max(1, _cdiv(live, chunk))
@@ -113,7 +116,7 @@ def plan(B: int, K: int, R: int, C: int, tr: int, tc: int, sms: int,
     if words > TAIL_FIRED_WORDS:
         raise ValueError(f"{C * tc} clause columns: the kernel takes at "
                          f"most {32 * TAIL_FIRED_WORDS}")
-    lanes = min(TAIL_MAX_LANES, max(1, _cdiv(B, wave)))
+    lanes = min(TAIL_MAX_LANES, max(1, _cdiv(B, BLOCKS_PER_SM * sms)))
     lanes = 1 << (lanes.bit_length() - 1)          # 1, 2 or 4
     while lanes > 1 and lanes * words > TAIL_FIRED_WORDS:
         lanes //= 2
@@ -135,16 +138,34 @@ def copy_widths(literals: torch.Tensor, clause_i: torch.Tensor, R: int,
     return lit, 16 if vec else 4
 
 
-def describe(literals: torch.Tensor, clause_i: torch.Tensor) -> str:
-    """The path a CUDA call of ``fused_impact`` on these operands takes,
-    in words."""
+def code_width(bits: torch.Tensor) -> int:
+    """Bytes a copy of the contiguous packed codes (R, C, tr4, tc) moves
+    at once: 4 where their base pointer and tc are multiples of 4, else 1
+    (plain loads).  There are no 16-byte code copies: the 16 threads
+    that would copy a stage would decode 64 cells each while the block
+    waits, which measured slower (PERF.md, findings)."""
+    return 4 if bits.data_ptr() % 4 == 0 and bits.shape[-1] % 4 == 0 else 1
+
+
+def describe(literals: torch.Tensor, cells: torch.Tensor,
+             tr: int | None = None) -> str:
+    """The path a CUDA call on these operands takes, in words:
+    ``fused_impact``'s on clause_i (R, C, tr, tc), or with ``tr`` given,
+    ``fused_impact_packed``'s on the packed codes (R, C, tr4, tc)."""
     B, K = literals.shape
-    R, C, tr, tc = clause_i.shape
-    p = plan(B, K, R, C, tr, tc, sm_count(literals.device.index))
-    lit, cl = copy_widths(literals, clause_i, R, tr)
-    lits = f"{lit}-byte copies" if lit > 1 else "plain loads"
-    return (f"{p.tile_b}x{p.tile_n} tiles, literals by {lits}, cells by "
-            f"{cl}-byte copies, {p.splits} chunk(s) of {p.chunk} rows a "
+    R, C = cells.shape[:2]
+    tc = cells.shape[-1]
+    packed = tr is not None
+    if not packed:
+        tr = cells.shape[2]
+    p = plan(B, K, R, C, tr, tc, sm_count(literals.device.index), packed)
+    lit, width = copy_widths(literals, cells, R, tr)
+    if packed:
+        width = code_width(cells)
+    what = "codes" if packed else "cells"
+    how = lambda w: f"{w}-byte copies" if w > 1 else "plain loads"
+    return (f"{p.tile_b}x{p.tile_n} tiles, literals by {how(lit)}, {what} "
+            f"by {how(width)}, {p.splits} chunk(s) of {p.chunk} rows a "
             f"shard, {p.blocks} blocks; tail {p.tail_blocks} blocks of "
             f"{p.lanes} lane(s)")
 
@@ -195,11 +216,9 @@ def _launch(kernel, literals, cells, nonempty, class_i, grid, *,
     if B == 0:
         return tuple(outs) if metered else outs[0]
     p = plan(B, K, R, C, tr, tc, sm_count(dev.index), packed)
-    if packed:
-        plan_args = (p.splits, p.chunk, p.lanes)
-    else:
-        lit, cl = copy_widths(literals, cells[0], R, tr)
-        plan_args = (lit, int(cl == 16), p.splits, p.chunk, p.lanes)
+    lit, cl = copy_widths(literals, cells[0], R, tr)
+    width = code_width(cells[0]) if packed else int(cl == 16)
+    plan_args = (lit, width, p.splits, p.chunk, p.lanes)
     part = torch.empty((R * p.splits * B * C * tc,), dtype=torch.float32,
                        device=dev)
     kernel(literals.data_ptr(), *(t.data_ptr() for t in cells),

@@ -38,8 +38,9 @@ def clause_viol_ref(literals: torch.Tensor,
 
 def class_sum_ref(clauses: torch.Tensor,
                   weights: torch.Tensor) -> torch.Tensor:
-    """clauses (B, N) {0,1}; weights (N, M) int -> scores (B, M) int32.
-    An f64 product, exact while |scores| < 2**53."""
+    """clauses (B, N) int8 (any value; the paths pass {0,1}) or bool;
+    weights (N, M) int -> scores (B, M) int32.  An f64 product, exact
+    while |scores| < 2**53."""
     return (clauses.to(torch.float64)
             @ weights.to(torch.float64)).to(torch.int32)
 

@@ -6,8 +6,10 @@ and sizes the tail's blocks; the CUDA side only checks the plan, so its
 properties are held here on the CPU with the SM count as a parameter, at
 the shapes ``chip_smoke.py`` launches the kernels at and at edge cases:
 every shard's live rows are covered once, the paper shape fills about
-one wave, the packed plan is the split the packed kernels have always
-run, and the copy widths follow the operands' pointers and strides.
+one wave, the packed plan fills about one wave of
+``PACKED_BLOCKS_PER_SM`` blocks an SM with the f32 tile and stages, and
+the copy widths (literals, f32 cells, packed codes) follow the operands'
+pointers and strides.
 """
 import importlib
 import importlib.util
@@ -56,7 +58,7 @@ def test_chunks_cover_each_shards_live_rows_once(B, K, R, C, tr, tc, sms,
     assert p.splits == max(1, _cdiv(fullest, p.chunk))   # none empty
     tiles = _cdiv(B, p.tile_b) * C * _cdiv(tc, p.tile_n) * R
     assert p.blocks == tiles * p.splits
-    if not packed and p.splits > 1:                      # fills the ring
+    if p.splits > 1:                                     # fills the ring
         assert p.chunk >= fi.MIN_SPLIT_STAGES * p.stage
 
 
@@ -82,31 +84,41 @@ def test_paper_shape_fills_about_one_wave(sms):
     assert (p.lanes, p.tail_blocks) == (1, 128)
 
 
-def _packed_split(B, K, R, C, tr, tc, sms):
-    """The split the packed entries' C++ planner computed before the plan
-    moved to the host (``split_k`` over 32 x 32 tiles and 32-row stages,
-    aimed at two blocks an SM) -> (slices, chunk)."""
-    k = min(tr, K)
-    tiles = C * _cdiv(tc, 32) * _cdiv(B, 32) * R
-    if k <= 0 or tiles <= 0:
-        return 1, 32
-    stages = _cdiv(k, 32)
-    want = min(max(1, _cdiv(2 * sms, tiles)), stages)
-    chunk = _cdiv(stages, want) * 32
-    return _cdiv(k, chunk), chunk
+@pytest.mark.parametrize("sms", SMS)
+@pytest.mark.parametrize("B,K,R,C,tr,tc", SHAPES)
+def test_packed_plan_fills_about_one_wave_in_whole_stages(B, K, R, C, tr,
+                                                          tc, sms):
+    """The packed pass 1 runs the f32 tile and stages: chunks of whole
+    16-row stages, at least ``MIN_SPLIT_STAGES`` deep where split, and no
+    more blocks than a wave of ``PACKED_BLOCKS_PER_SM`` an SM, nor fewer
+    than 80% of what fits beside the last tile where the rows allow."""
+    p = fi.plan(B, K, R, C, tr, tc, sms, packed=True)
+    assert (p.tile_b, p.tile_n, p.stage) == fi.F32_TILE
+    assert p.chunk % 16 == 0
+    if p.splits > 1:
+        assert p.chunk >= fi.MIN_SPLIT_STAGES * p.stage
+    wave = fi.PACKED_BLOCKS_PER_SM * sms
+    tiles = _cdiv(B, 64) * C * _cdiv(tc, 64) * R
+    stages = _cdiv(max(0, min(tr, K)), 16)
+    assert p.blocks <= max(tiles, wave)
+    if tiles and wave // tiles <= stages // fi.MIN_SPLIT_STAGES:
+        assert p.blocks >= 0.8 * (wave - tiles)
+    # The tail keeps the f32 plan's lanes.
+    f = fi.plan(B, K, R, C, tr, tc, sms)
+    assert (p.lanes, p.tail_blocks) == (f.lanes, f.tail_blocks)
 
 
 @pytest.mark.parametrize("sms", SMS)
-@pytest.mark.parametrize("B,K,R,C,tr,tc", [s for s in SHAPES if s[0] > 0])
-def test_packed_plan_is_the_split_it_always_ran(B, K, R, C, tr, tc, sms):
-    p = fi.plan(B, K, R, C, tr, tc, sms, packed=True)
-    assert (p.tile_b, p.tile_n, p.stage) == fi.PACKED_TILE == (32, 32, 32)
-    assert (p.splits, p.chunk) == _packed_split(B, K, R, C, tr, tc, sms)
-
-
-def test_packed_paper_shape_keeps_its_320_blocks():
-    p = fi.plan(128, 1568, 1, 1, 2048, 512, 132, packed=True)
-    assert (p.splits, p.chunk, p.blocks) == (5, 320, 320)
+def test_packed_paper_shape_runs_224_blocks(sms):
+    """16 tiles of 64 x 64 at B = 128, 98 stages in 14 chunks of 112
+    rows: 224 blocks, 0.85 (132 SMs) or 0.98 (114) of a wave of two
+    blocks an SM, the measured best for the packed pass."""
+    assert fi.PACKED_BLOCKS_PER_SM == 2
+    p = fi.plan(128, 1568, 1, 1, 2048, 512, sms, packed=True)
+    assert (p.tile_b, p.tile_n, p.stage) == (64, 64, 16)
+    assert (p.splits, p.chunk, p.blocks) == (14, 112, 224)
+    assert 0.75 * fi.PACKED_BLOCKS_PER_SM * sms <= p.blocks
+    assert (p.lanes, p.tail_blocks) == (1, 128)
 
 
 def test_edge_cases_plan_without_error():
@@ -191,3 +203,56 @@ def test_chip_smoke_shapes_take_the_paths_they_are_meant_to(B, K, R, C, tr,
     want_lit = {1568: 16, 100: 1, 300: 1, 520: 1, 64: 16}[K]
     assert lit == want_lit
     assert cl == (16 if tc % 4 == 0 else 4)
+
+
+def _codes(shape, offset):
+    """Contiguous uint8 codes of ``shape`` ``offset`` bytes into a
+    buffer."""
+    n = 1
+    for d in shape:
+        n *= d
+    buf = torch.zeros(n + 32, dtype=torch.uint8)
+    assert buf.data_ptr() % 16 == 0
+    return buf[offset:offset + n].view(shape)
+
+
+@pytest.mark.parametrize("B,K,R,C,tr,tc", SHAPES[:len(chip_smoke.KERNEL_SHAPES)])
+def test_chip_smoke_shapes_take_the_code_paths_they_are_meant_to(B, K, R, C,
+                                                                 tr, tc):
+    """At chip_smoke's kernel shapes, codes on an aligned base or four
+    bytes off it take 4-byte copies where tc % 4 == 0 (512, 64, 256) and
+    plain loads at tc = 30 and 11; one or two bytes off, plain loads."""
+    shape = (R, C, -(-tr // 4), tc)
+    want = 4 if tc % 4 == 0 else 1
+    assert {16: 4, 64: 4, 256: 4, 512: 4, 30: 1, 11: 1}.get(tc) == want
+    assert fi.code_width(_codes(shape, 0)) == want
+    assert fi.code_width(_codes(shape, 4)) == want
+    assert fi.code_width(_codes(shape, 1)) == 1
+    assert fi.code_width(_codes(shape, 2)) == 1
+
+
+@pytest.mark.parametrize("offset,tc,width", [
+    (0, 512, 4), (8, 512, 4), (2, 512, 1), (3, 512, 1), (0, 20, 4),
+    (0, 18, 1), (12, 32, 4), (16, 6, 1)])
+def test_code_copy_width_follows_pointer_and_tc(offset, tc, width):
+    """4-byte code copies need the base and tc to be multiples of 4; no
+    code copy is wider (16-byte ones measured slower)."""
+    assert fi.code_width(_codes((1, 1, 8, tc), offset)) == width
+
+
+def test_describe_names_the_packed_path(monkeypatch):
+    """``describe`` on the packed codes (``tr`` given) names the code
+    path and the packed plan; on clause_i, the cell path and the f32
+    plan (132 SMs)."""
+    monkeypatch.setattr(fi, "sm_count", lambda index: 132)
+    lit = _lits(128, 1568, 0)
+    assert fi.describe(lit, _codes((1, 1, 512, 512), 1), 2048) == (
+        "64x64 tiles, literals by 16-byte copies, codes by plain loads, 14 "
+        "chunk(s) of 112 rows a shard, 224 blocks; tail 128 blocks of 1 "
+        "lane(s)")
+    assert "codes by 4-byte copies" in fi.describe(
+        lit, _codes((1, 1, 512, 512), 0), 2048)
+    assert fi.describe(lit, torch.zeros((1, 1, 2048, 512))) == (
+        "64x64 tiles, literals by 16-byte copies, cells by 16-byte copies, "
+        "14 chunk(s) of 112 rows a shard, 224 blocks; tail 128 blocks of 1 "
+        "lane(s)")
