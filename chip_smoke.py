@@ -116,16 +116,24 @@ REFERENCE_UPDATE_ROWS = 2 * 64
 FINETUNE_TOL_SEGMENTS = 5
 
 # (B, K, N, M) for the digital kernels: the quickstart's shape, then
-# ragged ones (K off every multiple of 32 and 128; 3000 literals take
-# three shared-memory stages).
+# ragged ones (K off every multiple of 32 and 128; 3000 literals take two
+# 2048-literal shared-memory stages), then the clause stage's plan edges
+# (``clause_eval.plan``): 17 lanes with K one literal past a stage and N
+# one column short of a tile, a lane past a 32-lane tile with exactly one
+# stage and two tiles of columns, and 512 lanes (256 blocks).
 DIGITAL_SHAPES = [(DIGITAL_BATCH, K, N_CLAUSES, M_CLASSES), (5, 70, 33, 4),
                   (37, 300, 77, 3), (9, 130, 129, 10),
-                  (100, 3000, N_CLAUSES, M_CLASSES)]
+                  (100, 3000, N_CLAUSES, M_CLASSES), (17, 2049, 31, 3),
+                  (33, 2048, 64, 5), (512, K, N_CLAUSES, M_CLASSES)]
 # (2B, K, n) for ta_feedback: the trainer's update, then ragged ones (2B
-# off every multiple of 32, several words).
+# off every multiple of 32, several words), then the plan's edges
+# (``ta_feedback.plan``): 2B one row past a 128-row pass (two passes),
+# exactly one pass with K and n off the 128 x 32 tile, and one cell.
 FEEDBACK_SHAPES = [(2 * ONLINE_BATCH, K, N_CLAUSES),
                    (REFERENCE_UPDATE_ROWS, K, N_CLAUSES), (42, 130, 129),
-                   (6, 33, 5), (100, 1000, N_CLAUSES), (300, 200, 77)]
+                   (6, 33, 5), (100, 1000, N_CLAUSES), (300, 200, 77),
+                   (REFERENCE_UPDATE_ROWS + 1, K, N_CLAUSES), (128, 96, 36),
+                   (1, 1, 1)]
 
 # Compressed path: prune against N_CALIBRATION training digits; on
 # variable devices the packed session's held-out accuracy must lie within
@@ -588,8 +596,9 @@ def max_int_err(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
 def check_training_kernels(device) -> dict[str, float]:
     """The kernels of the training path (ta_feedback and the digital CoTM
     family) against their plain versions on the same card tensors, exact,
-    at the path's shapes and ragged ones; returns the max absolute error
-    per kernel."""
+    at the path's shapes, ragged ones and the plans' edges, each bit for
+    bit equal to itself on a second launch; returns the max absolute
+    error per kernel."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.class_sum import class_sum
     from repro_torch.kernels.clause_eval import clause_eval
@@ -597,6 +606,12 @@ def check_training_kernels(device) -> dict[str, float]:
     from repro_torch.kernels.ta_feedback import ta_feedback
     errs = dict(ta_feedback=0.0, fused_cotm=0.0, clause_eval=0.0,
                 class_sum=0.0)
+
+    def twice(name, fn, want):
+        got = fn()
+        exact(f"{name} run to run", got, fn())
+        return max_int_err(name, got, want)
+
     for i, shape in enumerate(DIGITAL_SHAPES):
         lit, inc, ne, w = digital_operands(shape, device, seed=i)
         want_f = ref.clause_eval_ref(lit, inc, ne)
@@ -604,25 +619,86 @@ def check_training_kernels(device) -> dict[str, float]:
             fail(f"digital operands {shape}: no clause fires, or all do")
         errs["clause_eval"] = max(
             errs["clause_eval"],
-            max_int_err(f"clause_eval fired {shape}",
-                        clause_eval(lit, inc, ne), want_f),
-            max_int_err(f"clause_eval viol {shape}",
-                        clause_eval(lit, inc, ne, mode="viol"),
-                        ref.clause_viol_ref(lit, inc)))
+            twice(f"clause_eval fired {shape}",
+                  lambda: clause_eval(lit, inc, ne), want_f),
+            twice(f"clause_eval viol {shape}",
+                  lambda: clause_eval(lit, inc, ne, mode="viol"),
+                  ref.clause_viol_ref(lit, inc)))
         cl = want_f.to(torch.int8)
         errs["class_sum"] = max(errs["class_sum"], max_int_err(
             f"class_sum {shape}", class_sum(cl, w),
             ref.class_sum_ref(cl, w)))
-        errs["fused_cotm"] = max(errs["fused_cotm"], max_int_err(
-            f"fused_cotm {shape}", fused_cotm(lit, inc, w, ne),
+        errs["fused_cotm"] = max(errs["fused_cotm"], twice(
+            f"fused_cotm {shape}", lambda: fused_cotm(lit, inc, w, ne),
             ref.fused_cotm_ref(lit, inc, w, ne)))
     for i, shape in enumerate(FEEDBACK_SHAPES):
         ops = feedback_operands(shape, device, seed=10 + i)
-        errs["ta_feedback"] = max(errs["ta_feedback"], max_int_err(
-            f"ta_feedback {shape}", ta_feedback(*ops),
+        errs["ta_feedback"] = max(errs["ta_feedback"], twice(
+            f"ta_feedback {shape}", lambda: ta_feedback(*ops),
             ref.ta_feedback_ref(*ops)))
+    check_unaligned_training_operands(device)
     torch.cuda.synchronize()
     return errs
+
+
+def off_base(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous copy of ``t`` that starts ``offset`` elements past an
+    aligned base (a view into a larger buffer)."""
+    buf = torch.zeros(t.numel() + 16, dtype=t.dtype, device=t.device)
+    out = buf[offset:offset + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def check_unaligned_training_operands(device) -> None:
+    """``ta_feedback``, ``clause_eval`` and ``fused_cotm`` on operands one
+    element or one byte past an aligned base, which take the plain-load
+    paths (``ta_feedback.widths``, ``clause_eval.widths``), exact against
+    the plain versions and bit for bit equal on a second launch."""
+    import importlib
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.clause_eval import clause_eval
+    from repro_torch.kernels.fused_cotm import fused_cotm
+    tf = importlib.import_module("repro_torch.kernels.ta_feedback")
+    ce = importlib.import_module("repro_torch.kernels.clause_eval")
+    shape = (REFERENCE_UPDATE_ROWS, K, N_CLAUSES)
+    lit2, fired2, sel, match, hi, lo, include = feedback_operands(
+        shape, device, seed=40)
+    cases = {"hi and lo one int32 off": (lit2, fired2, sel, match,
+                                         off_base(hi, 1), off_base(lo, 1),
+                                         include),
+             "sel one byte off": (lit2, fired2, off_base(sel, 1), match,
+                                  hi, lo, include),
+             "literals one byte off": (off_base(lit2, 1), fired2, sel,
+                                       match, hi, lo, include)}
+    for label, ops in cases.items():
+        want = (1, 16) if "literals" not in label else (4, 1)
+        got_w = tf.widths(ops[0], (ops[2], ops[3], ops[1], ops[6]),
+                          (ops[4], ops[5], ops[4]))
+        if got_w != want:
+            fail(f"ta_feedback {label}: widths {got_w}, not {want}")
+        got = tf.ta_feedback(*ops)
+        exact(f"ta_feedback {label} run to run", got, tf.ta_feedback(*ops))
+        max_int_err(f"ta_feedback {label}", got, ref.ta_feedback_ref(*ops))
+    lit, inc, ne, w = digital_operands(
+        (DIGITAL_BATCH, K, N_CLAUSES, M_CLASSES), device, seed=41)
+    for label, (l_, i_), want in (
+            ("literals one byte off", (off_base(lit, 1), inc), (1, 4)),
+            ("include one byte off", (lit, off_base(inc, 1)), (16, 1))):
+        if ce.widths(l_, i_) != want:
+            fail(f"clause stage {label}: widths {ce.widths(l_, i_)}, not "
+                 f"{want}")
+        for name, fn, plain in (
+                ("clause_eval fired", lambda: clause_eval(l_, i_, ne),
+                 ref.clause_eval_ref(l_, i_, ne)),
+                ("clause_eval viol",
+                 lambda: clause_eval(l_, i_, ne, mode="viol"),
+                 ref.clause_viol_ref(l_, i_)),
+                ("fused_cotm", lambda: fused_cotm(l_, i_, w, ne),
+                 ref.fused_cotm_ref(l_, i_, w, ne))):
+            got = fn()
+            exact(f"{name} {label} run to run", got, fn())
+            max_int_err(f"{name} {label}", got, plain)
 
 
 # (B, N, M) of class_sum's own checks: the training path's, past one
@@ -1629,9 +1705,87 @@ def profile_packed(compressed: dict, calls: int = 50) -> None:
             print_fused_passes(f"{fn.__name__} x {calls}", *pass_times(prof))
 
 
+def profile_training(trained: dict, calls: int = 50) -> None:
+    """A short loop of ``calls`` calls of ``ta_feedback``, ``clause_eval``
+    (both modes) and ``fused_cotm`` at the training path's shapes under
+    ``torch.profiler``, printing each device kernel's microseconds a call
+    and the call's CUDA-event time, on aligned operands and on operands
+    one byte off an aligned base (the plain-load paths: literals and sel
+    for ``ta_feedback``; literals, include or both for the clause stage);
+    fails unless ``ta_feedback`` and ``clause_eval`` run one device kernel
+    a call, ``fused_cotm`` one kernel and the memset of its scores, and
+    the wrappers count one launch a call."""
+    import importlib
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.clause_eval import clause_eval
+    from repro_torch.kernels.fused_cotm import fused_cotm
+    from repro_torch.kernels.ta_feedback import ta_feedback
+    tf = importlib.import_module("repro_torch.kernels.ta_feedback")
+    ce = importlib.import_module("repro_torch.kernels.clause_eval")
+    lit, inc, ne, w = trained["digital_ops"]
+    fb = trained["feedback_ops"]
+    lit_odd, inc_odd = off_base(lit, 1), off_base(inc, 1)
+    fb_odd = (off_base(fb[0], 1), fb[1], off_base(fb[2], 1), *fb[3:])
+    got = (tf.widths(fb_odd[0], (fb_odd[2], fb_odd[3], fb_odd[1],
+                                 fb_odd[6]), (fb_odd[4], fb_odd[5],
+                                              fb_odd[4])),
+           ce.widths(lit_odd, inc), ce.widths(lit, inc_odd),
+           ce.widths(lit_odd, inc_odd))
+    if got != ((1, 1), (1, 4), (16, 1), (1, 1)):
+        fail(f"profile_training: plain-load widths {got}")
+    cases = (("ta_feedback", "ta_feedback_i32", lambda: ta_feedback(*fb),
+              0),
+             ("ta_feedback plain loads", "ta_feedback_i32",
+              lambda: ta_feedback(*fb_odd), 0),
+             ("clause_eval fired", "clause_eval_i8",
+              lambda: clause_eval(lit, inc, ne), 0),
+             ("clause_eval viol", "clause_eval_i8",
+              lambda: clause_eval(lit, inc, ne, mode="viol"), 0),
+             ("clause_eval fired, plain literal loads", "clause_eval_i8",
+              lambda: clause_eval(lit_odd, inc, ne), 0),
+             ("clause_eval fired, plain include loads", "clause_eval_i8",
+              lambda: clause_eval(lit, inc_odd, ne), 0),
+             ("clause_eval fired, plain loads", "clause_eval_i8",
+              lambda: clause_eval(lit_odd, inc_odd, ne), 0),
+             ("fused_cotm", "fused_cotm_i32",
+              lambda: fused_cotm(lit, inc, w, ne), 1),
+             ("fused_cotm plain loads", "fused_cotm_i32",
+              lambda: fused_cotm(lit_odd, inc_odd, w, ne), 1))
+    for label, sym, fn, memsets in cases:
+        fn()
+        torch.cuda.synchronize()
+        before = _build.launch_counts()[sym]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        launched = _build.launch_counts()[sym] - before
+        kern, seen = pass_times(prof)
+        short = {n: re.sub(r"\(.*", "", n.replace(
+            "(anonymous namespace)::", "")).replace("void ", "")
+                 for n in kern}
+        print(f"profile {label} x {calls}: {cuda_ms(fn):.4f} ms a call; "
+              + "; ".join(f"{short[n]} {seen[n]} calls, "
+                          f"{kern[n] / seen[n]:.2f} us a call"
+                          for n in sorted(kern, key=lambda n: -kern[n])))
+        sets = [n for n in kern if "memset" in n.lower()]
+        others = [n for n in kern if n not in sets]
+        if launched != calls:
+            fail(f"{label}: {launched} counted launches for {calls} calls")
+        if len(others) != 1 or seen[others[0]] != calls:
+            got = [(short[n], seen[n]) for n in others]
+            fail(f"{label}: device kernels {got} for {calls} calls, not "
+                 f"one a call")
+        if sum(seen[n] for n in sets) != memsets * calls:
+            fail(f"{label}: {sum(seen[n] for n in sets)} memsets for "
+                 f"{calls} calls, not {memsets} a call")
+
+
 # The redesigned kernels, by their mangled names in nvcc's report.
 RESOURCE_KERNELS = re.compile(
-    r"\d+((?:impact|packed|mvm)_[a-z]+|class_sum_kernel)(I\w*?EE)?")
+    r"\d+((?:impact|packed|mvm)_[a-z]+|class_sum_kernel|ta_feedback_kernel"
+    r"|clause_eval_kernel|fused_cotm_kernel)(I\w*?EE)?")
 
 
 def kernel_resources(source: str) -> list[str]:
@@ -1674,7 +1828,8 @@ def main() -> int:
             torch.backends.cudnn.allow_tf32:
         fail("TF32 is on: the port's f32 contract needs it off")
     print(f"phase build: nvcc for sm_90a, {kernels.build_all():.1f} s")
-    for source in ("crossbar_mvm.cu", "fused_impact.cu", "digital_cotm.cu"):
+    for source in ("crossbar_mvm.cu", "fused_impact.cu", "ta_feedback.cu",
+                   "digital_cotm.cu"):
         for line in kernel_resources(source):
             print(f"  {source} {line}")
 
@@ -1707,6 +1862,7 @@ def main() -> int:
     profile_engines(served, np.tile(digit_literals(1024, seed=SEED + 7),
                                     (8, 1)))
     profile_packed(compressed)
+    profile_training(trained)
     rows = (time_kernels(served, errs) + time_packed_kernels(compressed, errs)
             + time_training_kernels(trained, errs))
     for r in rows:

@@ -10,6 +10,10 @@ versions and the backend registry.
   and both fused (``fused_cotm``)
 * ``csrc/hopper_async.cuh`` — ``cp.async``, ``griddepcontrol`` and launch
   helpers
+* ``csrc/bit_pack.cuh``     — packing 0/1 bytes into words along the
+  strided axis (shared-memory tiles, a shuffle transpose) and the tensor
+  cores' binary AND + popcount product, for ``ta_feedback.cu`` and the
+  digital clause stage
 * ``crossbar_mvm.py`` / ``fused_impact.py`` / ``ta_feedback.py`` /
   ``clause_eval.py`` / ``class_sum.py`` / ``fused_cotm.py`` — the wrappers
   (launch counts, operand checks, CPU tensors to the plain versions)

@@ -133,6 +133,13 @@ def byte_view(t: torch.Tensor, name: str) -> torch.Tensor:
     return t.contiguous().view(torch.uint8)
 
 
+def bool_bytes(t: torch.Tensor, name: str) -> torch.Tensor:
+    """A bool / int8 / uint8 mask as contiguous bytes of 0 or 1 (a view of
+    a contiguous bool tensor, else a copy)."""
+    b = byte_view(t, name)
+    return b if t.dtype == torch.bool else (b != 0).view(torch.uint8)
+
+
 def crossbar_mvm(drive: torch.Tensor, g: torch.Tensor, *,
                  v_read: float = 2.0, nonlin: float = 1.5,
                  cutoff: float = 10e-9) -> torch.Tensor:

@@ -27,10 +27,16 @@ from repro_torch.impact import RuntimeSpec
 from repro_torch.kernels import (_build, backends, class_sum, clause_eval,
                                  fused_cotm, ref, ta_feedback)
 
-# (B, K, N, M): K off every multiple of 32 and 128, N and M ragged.
-SHAPES = [(5, 70, 33, 4), (37, 300, 77, 3), (9, 130, 129, 10)]
-# (2B, K, n): 2B off every multiple of 32.
-FEEDBACK_SHAPES = [(16, 70, 33), (42, 130, 129), (6, 33, 5)]
+# (B, K, N, M): K off every multiple of 32 and 128, N and M ragged; then
+# the CUDA clause stage's edges: 33 lanes (a lane past a 32-lane tile),
+# two whole 32-column tiles, and K past one 2048-literal stage.
+SHAPES = [(5, 70, 33, 4), (37, 300, 77, 3), (9, 130, 129, 10),
+          (33, 520, 64, 5), (16, 2080, 40, 3)]
+# (2B, K, n): 2B off every multiple of 32; then the CUDA kernel's edges:
+# one whole 128-row pass, 2B one row past it (two passes), and a tile's
+# worth of columns and literals plus one.
+FEEDBACK_SHAPES = [(16, 70, 33), (42, 130, 129), (6, 33, 5),
+                   (128, 96, 36), (130, 129, 33)]
 
 
 def _digital(B, K, N, M, seed=0):
