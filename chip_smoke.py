@@ -43,7 +43,20 @@ Phases, each of which must pass or the script exits non-zero:
    ``torch.profiler``, with each fused pass's device time a call), the
    packed passes' device time a call over a short loop of packed calls,
    then each kernel, its plain version and one PyTorch call for the same
-   function, in CUDA-event medians.
+   function, in CUDA-event medians;
+8. the co-resident path, with its own launch counters: (a) four members
+   of 512 literals, 128 clauses and 10 classes on variable devices share
+   the paper's 2048 x 512 clause tile (a 512 x 40 class tile), every
+   packing and metering on ``"cuda"``, each lane's fired bits, scores and
+   prediction against its member's standalone session, no score off its
+   class span, tenant bills summing to the batch meter, the ``"torch"``
+   co-resident session on the card, one sweep two ``crossbar_mvm``
+   launches, no new preparation while serving; (b) the reference's zoo
+   deployment (8 tenants, 44 classes, two SLO classes, capacity 16): a
+   parity pass, then a Poisson replay through ``replay_zoo_trace`` that
+   sweeps fewer times than 8 per-tenant engines; (c) a standby pool and
+   ``rebalance()``; then ``crossbar_mvm`` at both class-call shapes
+   against its plain version, with its plan and times.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -51,6 +64,7 @@ reference package.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -901,6 +915,18 @@ def serve_path(device) -> dict:
     for sym in SERVE_KERNELS:
         if out["launches"][sym] == 0:
             fail(f"{sym} was never launched on the serving path")
+
+    # "cuda-metered" serves predict through the metered kernel.
+    metered = system.compile(RuntimeSpec(
+        backend="cuda-metered", metering="off", device=str(device)))
+    before = counts()
+    got = metered.predict(batch)
+    if counts()["fused_impact_metered_f32"] == \
+            before["fused_impact_metered_f32"]:
+        fail('"cuda-metered" predict did not launch fused_impact_metered')
+    exact('predict "cuda-metered" vs "cuda"', got.predictions, preds["off"])
+    allclose('scores "cuda-metered" vs "cuda"', got.scores,
+             sessions["off"].predict(batch).scores, RTOL_SCORES)
 
     # Ideal devices: the analog clause bits are the digital CoTM's.
     ideal = build_system(params, cfg, None,
@@ -1783,6 +1809,560 @@ def profile_training(trained: dict, calls: int = 50) -> None:
 
 
 # The redesigned kernels, by their mangled names in nvcc's report.
+# -- phase 8 --------------------------------------------------------------
+
+# (a) The paper's clause tile shared by CO_TENANTS members of CO_K
+# literals, CO_N clauses and CO_M classes each: 2048 x 512 clauses, a
+# 512 x 40 class tile, on variable devices; CO_INVALID_EVERY-th lanes of
+# the slot table are free.
+CO_TENANTS, CO_K, CO_N, CO_M, CO_INVALID_EVERY = 4, 512, 128, 10, 16
+# (b) The reference's zoo deployment (benchmarks/impact_throughput.py:
+# multi_tenant_sweep and its call in main): 8 tenants of K = 128, n = 48,
+# m = 4 + t % 4 (M_tot = 44), include density 0.08, ideal devices, the
+# first two in a "gold" class; capacity 16, staged metering; 320 requests,
+# Poisson at 400 requests/s.
+ZOO_TENANTS, ZOO_K, ZOO_N, ZOO_DENSITY = 8, 128, 48, 0.08
+ZOO_CAPACITY, ZOO_REQUESTS, ZOO_RATE = 16, 320, 400.0
+# (c) The same tenants, six resident and a warm pool of two sessions.
+ZOO_MAX_RESIDENT, ZOO_STANDBY_POOL = 6, 2
+RTOL_CLASS_CALL = 1e-6    # crossbar_mvm's class call against its plain one
+CORESIDENT_KERNELS = ("crossbar_mvm_f32",)
+# (c) gates its routing on lanes that fire: at least this share of its
+# lanes must have a nonzero standalone score.
+ZOO_MIN_FIRING_SHARE = 0.9
+
+
+@contextlib.contextmanager
+def path_launches(tally: dict[str, int]):
+    """A window of the co-resident path: sets every launch count to 0,
+    yields the dict that it fills with the counts read at the window's
+    end, and adds them to ``tally``.  Checks, standalone sessions and
+    per-tenant engines run outside every window, so ``tally`` holds the
+    path's own launches and nothing else."""
+    from repro_torch import kernels
+    kernels.reset_launch_counts()
+    got: dict[str, int] = {}
+    yield got
+    got.update(kernels.launch_counts())
+    for k, v in got.items():
+        tally[k] = tally.get(k, 0) + v
+
+
+def member_params(seed: int, K_: int, n: int, m: int, *,
+                  density: float | None = None, n_states: int = 128):
+    """Untrained CoTM parameters from a seed.  With ``density`` each TA
+    includes its literal with that probability (the reference benchmark's
+    ``_random_cotm``); without it each clause includes 1 to 6 literals, so
+    that on literals ``[x, 1 - x]`` of random features a good share of the
+    clauses fire.  Integer weights in [-40, 40)."""
+    from repro_torch.convert import params_from_arrays
+    from repro_torch.core.cotm import CoTMConfig
+    rng = np.random.default_rng(seed)
+    if density is not None:
+        inc = rng.random((K_, n)) < density
+    else:
+        inc = np.zeros((K_, n), bool)
+        for j in range(n):
+            inc[rng.choice(K_, int(rng.integers(1, 7)), replace=False), j] = 1
+    ta = np.where(inc, n_states + 1, n_states)
+    w = rng.integers(-40, 40, (m, n))
+    cfg = CoTMConfig(n_literals=K_, n_clauses=n, n_classes=m,
+                     n_states=n_states)
+    return params_from_arrays(ta, w, device="cpu"), cfg
+
+
+def feature_literals(rng, rows: int, K_: int) -> np.ndarray:
+    """Literals ``[x, 1 - x]`` of ``K_ // 2`` random binary features."""
+    x = rng.random((rows, K_ // 2)) < 0.5
+    return np.concatenate([x, ~x], axis=1).astype(np.int8)
+
+
+def gate_predictions(name: str, got: torch.Tensor, want: torch.Tensor,
+                     want_scores: torch.Tensor) -> int:
+    """Predictions must equal the standalone session's.  A lane that
+    differs is printed with the standalone top-two gap, and fails unless
+    the class it predicts scores within RTOL_SCORES of the standalone top
+    score (a tie to f32 rounding).  Returns the number of such ties."""
+    got, want = got.cpu(), want.cpu()
+    bad = (got != want).nonzero().flatten().tolist()
+    for b in bad:
+        s = want_scores[b].double().cpu()
+        top2 = s.topk(min(2, s.numel())).values
+        g = int(got[b])
+        gap = (float(top2[0] - s[g]) if 0 <= g < s.numel()
+               else float("inf"))
+        print(f"  {name}: lane {b} predicts {g}, standalone "
+              f"{int(want[b])}; standalone top-two gap "
+              f"{float(top2[0] - top2[-1]):.3e}, its class {gap:.3e} "
+              f"under the top")
+        if not gap <= RTOL_SCORES * abs(float(top2[0])):
+            fail(f"{name}: lane {b} differs from its standalone session "
+                 f"by {gap:.3e}, more than a tie to f32 rounding")
+    return len(bad)
+
+
+def coresident_full_tile(device, tally: dict[str, int]) -> dict:
+    """(a) Four members share the paper's clause tile: every packing and
+    metering on ``"cuda"`` against each member's standalone session and
+    against the ``"torch"`` co-resident session on the card.  The
+    co-resident ``"cuda"`` session's calls add their launches to
+    ``tally``."""
+    from repro_torch.impact import (IMPACTConfig, RuntimeSpec, build_system,
+                                    build_coresident)
+    from repro_torch.impact.yflash import I_CSA_THRESHOLD as TH
+    from repro_torch.kernels import backends, packing, ref
+
+    t0 = time.perf_counter()
+    members = []
+    for t in range(CO_TENANTS):
+        params, cfg = member_params(SEED + 40 + t, CO_K, CO_N, CO_M)
+        gen = torch.Generator(device=device).manual_seed(SEED + 50 + t)
+        members.append(build_system(params, cfg, gen,
+                                    IMPACTConfig(variability=True),
+                                    device=device))
+    combined, plan = build_coresident(members)
+    torch.cuda.synchronize()
+    print(f"co-resident (a): {CO_TENANTS} members of (K, n, m) = ({CO_K}, "
+          f"{CO_N}, {CO_M}) on variable devices programmed and packed into "
+          f"one ({combined.n_literals} x {combined.n_clauses}) clause tile "
+          f"and ({combined.n_clauses} x {combined.n_classes}) class tile in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    rng = np.random.default_rng(SEED + 60)
+    B = CAPACITY
+    mids = np.arange(B, dtype=np.int32) % CO_TENANTS
+    valid = np.arange(B) % CO_INVALID_EVERY != CO_INVALID_EVERY - 1
+    lits = np.ones((B, combined.n_literals), np.int8)
+    for b in range(B):
+        sp = plan.spans[mids[b]]
+        lits[b, sp.lit_lo:sp.lit_hi] = feature_literals(rng, 1, CO_K)[0]
+    lanes = [np.flatnonzero(mids == t) for t in range(CO_TENANTS)]
+    rows = [lits[idx, sp.lit_lo:sp.lit_hi]
+            for idx, sp in zip(lanes, plan.spans)]
+    lit_t = torch.as_tensor(lits, device=device)
+    mid_t = torch.as_tensor(mids, device=device)
+    spans_t = torch.tensor(plan.clause_spans, dtype=torch.int32,
+                           device=device)
+    valid_t = torch.as_tensor(valid, device=device)
+    out = dict(members=members, combined=combined, plan=plan)
+
+    fired_share = {}
+    for pk in ("none", "2bit"):
+        # The fired bits on each lane's own span, exactly as its member's
+        # standalone clause stage fires them; none off its span.
+        def clause_operand(bk, system):
+            ci = system.clause_i
+            if pk == "none":
+                return ci
+            return packing.dequant_clause(*bk.pack_clause_operand(ci),
+                                          ci.shape[2])
+        bits = {}
+        for name in ("cuda", "torch"):
+            bk = backends.get_backend(name)
+            fired, _ = bk.impact_clause_bits(
+                lit_t, clause_operand(bk, combined), combined.nonempty,
+                thresh=TH)
+            bits[name] = fired & ref.coresident_lane_mask(
+                mid_t, spans_t, combined.n_clauses)
+        exact(f"co-resident fired bits cuda vs torch on the card ({pk})",
+              bits["cuda"], bits["torch"])
+        cuda_bk = backends.get_backend("cuda")
+        for t, (idx, sp, m) in enumerate(zip(lanes, plan.spans, members)):
+            solo, _ = cuda_bk.impact_clause_bits(
+                torch.as_tensor(rows[t], device=device),
+                clause_operand(cuda_bk, m), m.nonempty, thresh=TH)
+            own = bits["cuda"][torch.as_tensor(idx, device=device)]
+            exact(f"tenant {t} fired bits vs its standalone clause stage "
+                  f"({pk})", own[:, sp.col_lo:sp.col_hi], solo[:, :CO_N])
+            if bool(own[:, :sp.col_lo].any() or own[:, sp.col_hi:].any()):
+                fail(f"tenant {t}: a clause fired off its span ({pk})")
+        fired_share[pk] = float(bits["cuda"].float().sum(1).mean())
+        if pk == "none":
+            out["class_drive"] = bits["cuda"].float().contiguous()
+
+        for metering in ("off", "staged", "fused"):
+            label = f"packing={pk}, metering={metering}"
+
+            def spec(backend, capacity=B, coresident=plan):
+                return RuntimeSpec(backend=backend, metering=metering,
+                                   packing=pk, capacity=capacity,
+                                   device=str(device), coresident=coresident)
+            with path_launches(tally):
+                co = combined.compile(spec("cuda"))
+                traces = co.trace_count
+                pred = co.predict(lits, model_ids=mids)
+            with path_launches(tally) as got:
+                step = co.infer_step(lits, valid, model_ids=mids)
+            moved = {k: v for k, v in got.items() if v}
+            if moved != {"crossbar_mvm_f32": 2}:
+                fail(f"co-resident infer_step ({label}) launched {moved}, "
+                     f"not crossbar_mvm R + S = 2 times")
+            # Zero cross-tenant leakage: every score off the lane's own
+            # class span is exactly 0.
+            own_cls = torch.zeros_like(pred.scores, dtype=torch.bool)
+            for b in range(B):
+                sp = plan.spans[mids[b]]
+                own_cls[b, sp.cls_lo:sp.cls_hi] = True
+            if bool((pred.scores[~own_cls] != 0).any()):
+                fail(f"co-resident scores leak across tenants ({label})")
+            co_t = combined.compile(spec("torch"))
+            tp = co_t.predict(lits, model_ids=mids)
+            exact(f"co-resident predictions cuda vs torch ({label})",
+                  pred.predictions, tp.predictions)
+            allclose(f"co-resident scores cuda vs torch ({label})",
+                     pred.scores, tp.scores, RTOL_SCORES)
+            ties = 0
+            for t, (idx, sp, m) in enumerate(zip(lanes, plan.spans,
+                                                 members)):
+                solo = m.compile(spec("cuda", capacity=None,
+                                      coresident=None)).predict(rows[t])
+                idx_t = torch.as_tensor(idx, device=device)
+                allclose(f"tenant {t} scores vs standalone ({label})",
+                         pred.scores[idx_t, sp.cls_lo:sp.cls_hi],
+                         solo.scores, RTOL_SCORES)
+                ties += gate_predictions(
+                    f"tenant {t} predict ({label})",
+                    pred.predictions[idx_t], solo.predictions, solo.scores)
+                v = valid_t[idx_t]
+                ties += gate_predictions(
+                    f"tenant {t} infer_step ({label})",
+                    step.predictions[idx_t][v], solo.predictions[v],
+                    solo.scores[v])
+            if bool((step.predictions[~valid_t] != -1).any()):
+                fail(f"co-resident infer_step sentinel ({label})")
+            e_cl = step.e_clause_lanes.cpu().numpy().astype(np.float64)
+            e_cs = step.e_class_lanes.cpu().numpy().astype(np.float64)
+            if (e_cl[~valid] != 0).any() or (e_cs[~valid] != 0).any():
+                fail(f"an invalid co-resident lane billed energy ({label})")
+            meter = e_cl.sum() + e_cs.sum()
+            bills = sum(float(e_cl[idx][valid[idx]].sum()
+                              + e_cs[idx][valid[idx]].sum())
+                        for idx in lanes)
+            if metering != "off":
+                if not meter > 0 or not (abs(bills - meter)
+                                         <= RTOL_BILLS * meter):
+                    fail(f"tenant bills {bills!r} != batch meter {meter!r} "
+                         f"({label})")
+                with path_launches(tally):
+                    rep = co.infer_with_report(lits, valid=valid,
+                                               model_ids=mids)
+                exact(f"infer_with_report vs infer_step ({label})",
+                      rep.predictions, step.predictions)
+            with path_launches(tally):
+                for _ in range(2):
+                    co.infer_step(lits, valid, model_ids=mids)
+                    co.predict(lits, model_ids=mids)
+            if co.trace_count != traces + 1 + (metering != "off"):
+                fail(f"co-resident session prepared entries while serving "
+                     f"({label}): {traces} -> {co.trace_count}")
+            print(f"co-resident (a) {label}: predictions equal the "
+                  f"standalone sessions' ({ties} tie(s) to f32 rounding), "
+                  f"scores rtol {RTOL_SCORES}, none off the lane's span; "
+                  f"tenant bills {bills:.6e} J = batch meter; "
+                  f"trace_count {co.trace_count}")
+    print(f"co-resident (a): fired clauses a lane, mean "
+          + ", ".join(f"{v:.1f} ({k})" for k, v in fired_share.items()))
+    return out
+
+
+def zoo_members(device):
+    """The zoo's tenants on ideal devices, and each one's (K, n) include
+    mask."""
+    from repro_torch.impact import IMPACTConfig, build_system
+    systems, includes = [], []
+    for t in range(ZOO_TENANTS):
+        params, cfg = member_params(SEED + 100 + t, ZOO_K, ZOO_N, 4 + t % 4,
+                                    density=ZOO_DENSITY)
+        systems.append(build_system(
+            params, cfg, None, IMPACTConfig(variability=False,
+                                            finetune=False), device=device))
+        includes.append(params.ta_state.cpu().numpy() > cfg.n_states)
+    return systems, includes
+
+
+def firing_rows(rng, include: np.ndarray, rows: int) -> np.ndarray:
+    """Random literal rows on each of which four to eight random clauses
+    of ``include`` (K, n) have every included literal set to 1, so that
+    they fire: at include density 0.08 random rows fire almost none.
+    With fewer, the class tile's few current levels tie many top
+    scores."""
+    lits = rng.random((rows, include.shape[0])) < 0.5
+    for row in lits:
+        for j in rng.choice(include.shape[1], int(rng.integers(4, 9)),
+                            replace=False):
+            row[include[:, j]] = True
+    return lits.astype(np.int8)
+
+
+def zoo_deployment(device, systems, tally: dict[str, int]) -> dict:
+    """(b) The reference's multi-tenant deployment: a parity pass of mixed
+    batches against the standalone sessions, then a Poisson replay
+    against eight per-tenant engines.  The zoo's calls add their launches
+    to ``tally``."""
+    from repro_torch.impact import RuntimeSpec
+    from repro_torch.serve import (IMPACTEngine, ModelZoo, SLOClass,
+                                   latency_percentiles, poisson_arrivals,
+                                   replay_trace, replay_zoo_trace)
+    gold = SLOClass(name="gold", priority=0, max_wait_s=0.0)
+    std = SLOClass(name="standard", priority=1, target_occupancy=0.5,
+                   max_wait_s=0.02)
+    slo_of = lambda t: gold if t < 2 else std
+    spec = RuntimeSpec(backend="cuda", metering="staged", device=str(device))
+    with path_launches(tally):
+        zoo = ModelZoo.build(
+            [(f"t{t}", s, slo_of(t)) for t, s in enumerate(systems)], spec,
+            capacity=ZOO_CAPACITY, clock=time.perf_counter)
+        zoo.warmup()
+    oracle = [s.compile(spec) for s in systems]
+    rng = np.random.default_rng(SEED + 70)
+    tenant_of = rng.integers(ZOO_TENANTS, size=ZOO_REQUESTS)
+    rows = [(rng.random(systems[t].n_literals) < 0.5).astype(np.int8)
+            for t in tenant_of]
+    want = {}
+    for t in range(ZOO_TENANTS):
+        idx = np.flatnonzero(tenant_of == t)
+        if len(idx):
+            preds = oracle[t].predict(np.stack([rows[i] for i in idx]))
+            want.update(zip(idx.tolist(), preds.predictions.tolist()))
+    with path_launches(tally):
+        rid_of = {zoo.submit(f"t{t}", rows[i]): i
+                  for i, t in enumerate(tenant_of)}
+        done = dict(zoo.drain())
+    bad = [rid for rid, p in done.items() if p != want[rid_of[rid]]]
+    if len(done) != ZOO_REQUESTS or bad:
+        fail(f"zoo parity pass: {len(done)} of {ZOO_REQUESTS} done, "
+             f"{len(bad)} differ from the standalone sessions")
+    st = zoo.stats()
+    bill = sum(v["e_read_j"] for v in st["per_tenant"].values())
+    meter = st["energy"].read_energy_j
+    if not abs(bill - meter) <= RTOL_BILLS * meter:
+        fail(f"zoo: tenant bills {bill!r} != batch meter {meter!r}")
+
+    arrivals = poisson_arrivals(ZOO_REQUESTS, ZOO_RATE, seed=SEED)
+    reqs = [(f"t{t}", row) for t, row in zip(tenant_of, rows)]
+    sweeps0 = zoo.resident_sweeps + zoo.standby_sweeps
+    rec0 = len(zoo.request_records)
+    with path_launches(tally):
+        rep = replay_zoo_trace(zoo, reqs, arrivals)
+    co_sweeps = zoo.resident_sweeps + zoo.standby_sweeps - sweeps0
+    if rep["completed"] + rep["shed"] != ZOO_REQUESTS:
+        fail(f"replay_zoo_trace lost requests: {rep}")
+    slo_lat: dict[str, list[float]] = {}
+    for r in zoo.request_records[rec0:]:
+        slo_lat.setdefault(slo_of(int(r.tenant[1:])).name, []).append(
+            r.latency_s)
+    per_slo = {k: latency_percentiles(v) for k, v in sorted(slo_lat.items())}
+    engine_sweeps = 0
+    for t in range(ZOO_TENANTS):
+        idx = np.flatnonzero(tenant_of == t)
+        if not len(idx):
+            continue
+        slo = slo_of(t)
+        eng = IMPACTEngine(
+            systems[t].compile(RuntimeSpec(
+                backend="cuda", metering="staged", capacity=ZOO_CAPACITY,
+                device=str(device))),
+            max_wait_s=slo.max_wait_s, target_occupancy=slo.target_occupancy,
+            clock=time.perf_counter)
+        eng.warmup()
+        replay_trace(eng, np.stack([rows[i] for i in idx]),
+                     arrivals[idx] - arrivals[idx[0]])
+        engine_sweeps += len(eng.batch_stats)
+    if not co_sweeps < engine_sweeps:
+        fail(f"the zoo swept {co_sweeps} times, {ZOO_TENANTS} per-tenant "
+             f"engines {engine_sweeps}: co-residency saved no sweep")
+    print(f"co-resident (b) zoo, {ZOO_TENANTS} tenants of (K, n) = ({ZOO_K},"
+          f" {ZOO_N}), M_tot {zoo.session.system.n_classes}, capacity "
+          f"{ZOO_CAPACITY}, staged: parity pass {len(done)} requests equal "
+          f"the standalone sessions, tenant bills = batch meter; Poisson "
+          f"replay {ZOO_REQUESTS} requests at {ZOO_RATE:.0f} req/s: "
+          f"{rep['samples_per_s']:.1f} requests/s, shed {rep['shed']}, "
+          + "; ".join(f"{k} p50 {v['p50_s'] * 1e3:.3f} ms p99 "
+                      f"{v['p99_s'] * 1e3:.3f} ms (n={v['n']})"
+                      for k, v in per_slo.items())
+          + f"; sweeps {co_sweeps} co-resident vs {engine_sweeps} for "
+          f"{ZOO_TENANTS} per-tenant engines")
+    return dict(zoo=zoo, oracle=oracle, rows=rows, tenant_of=tenant_of,
+                replay=rep, per_slo=per_slo,
+                sweeps=(co_sweeps, engine_sweeps))
+
+
+def zoo_standby(device, systems, includes, oracle,
+                tally: dict[str, int]) -> None:
+    """(c) Six resident tenants and a warm pool of two: standby tenants
+    are served, the table drains, ``rebalance()`` promotes by traffic
+    EWMA, and every prediction still equals the standalone session's
+    (``gate_predictions``: the class tile's few current levels make exact
+    ties common on these rows).
+    Its rows fire clauses (``firing_rows``), so that a lane routed to the
+    wrong span or tenant changes its prediction; the zoo's calls add
+    their launches to ``tally``."""
+    from repro_torch.impact import RuntimeSpec
+    from repro_torch.serve import ModelZoo, SLOClass
+    with path_launches(tally):
+        zoo = ModelZoo.build(
+            [(f"t{t}", s, SLOClass(name="standard", max_wait_s=0.0))
+             for t, s in enumerate(systems)],
+            RuntimeSpec(backend="cuda", metering="staged",
+                        device=str(device)),
+            capacity=ZOO_CAPACITY, max_resident=ZOO_MAX_RESIDENT,
+            standby_pool=ZOO_STANDBY_POOL, clock=time.perf_counter)
+    rng = np.random.default_rng(SEED + 80)
+    lanes = dict(n=0, scored=0, tied=0, ties=0, classes=set())
+
+    def serve_round(counts: dict[int, int]) -> None:
+        batches = []
+        for t, n in counts.items():
+            rows = firing_rows(rng, includes[t], n)
+            solo = oracle[t].predict(rows)
+            lanes["n"] += n
+            lanes["scored"] += int((solo.scores != 0).any(1).sum())
+            top2 = solo.scores.double().topk(2, dim=1).values
+            lanes["tied"] += int((top2[:, 0] - top2[:, 1] <= RTOL_SCORES
+                                  * top2[:, 0].abs()).sum())
+            lanes["classes"].update((t, p) for p in
+                                    solo.predictions.tolist())
+            batches.append((t, rows, solo))
+        rids, got = [], {}
+        with path_launches(tally):
+            for t, rows, _ in batches:
+                rids.append([zoo.submit(f"t{t}", row) for row in rows])
+            got.update(zoo.drain())
+        if sorted(got) != sorted(r for ids in rids for r in ids):
+            fail(f"standby zoo: {len(got)} of {sum(map(len, rids))} "
+                 f"requests done")
+        for (t, _, solo), ids in zip(batches, rids):
+            lanes["ties"] += gate_predictions(
+                f"standby zoo tenant t{t}",
+                torch.tensor([got[r] for r in ids]), solo.predictions,
+                solo.scores)
+
+    standby = [t.tid for t in zoo.tenants if not t.resident]
+    serve_round({t: 3 for t in range(ZOO_TENANTS)})
+    if zoo.standby_sweeps == 0:
+        fail("no standby sweep served the standby tenants")
+    # Heavy traffic on the standby tenants, then rebalance: they join the
+    # resident set, and the two quietest residents leave it.
+    serve_round({int(tid[1:]): 40 for tid in standby})
+    if zoo.table.occupancy:
+        fail("the table did not drain before rebalance()")
+    with path_launches(tally):
+        moved = zoo.rebalance()
+    if not moved:
+        fail("rebalance() did not re-pick the resident set")
+    promoted = [t.tid for t in zoo.tenants if t.resident]
+    if not set(standby) <= set(promoted):
+        fail(f"rebalance kept {standby} in standby: resident {promoted}")
+    sweeps = zoo.standby_sweeps
+    serve_round({t: 3 for t in range(ZOO_TENANTS)})
+    share = lanes["scored"] / lanes["n"]
+    if share < ZOO_MIN_FIRING_SHARE:
+        fail(f"standby zoo: only {lanes['scored']} of {lanes['n']} lanes "
+             f"have a nonzero standalone score; the routing gate needs "
+             f"{ZOO_MIN_FIRING_SHARE:.0%}")
+    print(f"co-resident (c) standby: {ZOO_MAX_RESIDENT} resident, pool "
+          f"{ZOO_STANDBY_POOL}; {standby} served by {sweeps} standby sweeps, "
+          f"promoted by rebalance() (resident now {promoted}); predictions "
+          f"equal the standalone sessions before and after "
+          f"({zoo.standby_sweeps - sweeps} standby sweeps since) on "
+          f"{lanes['n']} lanes ({lanes['tied']} with a standalone top-two "
+          f"tie, {lanes['ties']} broken otherwise by the zoo), "
+          f"{lanes['scored']} with a nonzero score, "
+          f"{len(lanes['classes'])} distinct (tenant, class) predictions")
+
+
+def class_call_rows(full: dict, zoo: dict, launches: int) -> list[dict]:
+    """``crossbar_mvm`` at the co-resident class calls, (128, 512, 40) of
+    (a) and (16, 384, 44) of (b), against its plain version on the card
+    (rtol 1e-6, and bit for bit from launch to launch) on the path's fired
+    bits and on dense random bits, with its plan, its time, the plain
+    version's, the library's (``torch.matmul`` on the conductances with
+    the nonlinearity applied) and its bound, on the path's operands."""
+    from repro_torch.impact.yflash import I_CSA_THRESHOLD as TH
+    from repro_torch.kernels import backends, ref
+    from repro_torch.kernels.crossbar_mvm import crossbar_mvm, describe
+    z = zoo["zoo"]
+    zsys, zplan = z.session.system, z.plan
+    dev = zsys.device
+    rng = np.random.default_rng(SEED + 90)
+    mids = np.arange(ZOO_CAPACITY, dtype=np.int32) % zplan.n_tenants
+    lits = np.ones((ZOO_CAPACITY, zsys.n_literals), np.int8)
+    for b, t in enumerate(mids):
+        sp = zplan.spans[t]
+        lits[b, sp.lit_lo:sp.lit_hi] = rng.random(sp.lit_hi - sp.lit_lo) < 0.5
+    fired, _ = backends.get_backend("cuda").impact_clause_bits(
+        torch.as_tensor(lits, device=dev), zsys.clause_i, zsys.nonempty,
+        thresh=TH)
+    fired &= ref.coresident_lane_mask(
+        torch.as_tensor(mids, device=dev),
+        torch.tensor(zplan.clause_spans, dtype=torch.int32, device=dev),
+        zsys.n_clauses)
+    calls = [(full["class_drive"], full["combined"].class_i[0]),
+             (fired.float().contiguous(), zsys.class_i[0].contiguous())]
+    mvm = lambda d, g: crossbar_mvm(d, g, v_read=1.0, cutoff=0.0)
+    plain = lambda d, g: ref.crossbar_mvm_ref(d, g, v_read=1.0, cutoff=0.0)
+    rows = []
+    for d, g in calls:
+        shape = (*d.shape, g.shape[1])
+        dense = (torch.rand(d.shape, device=dev) < 0.5).float()
+        err = 0.0
+        for label, x in (("fired bits", d), ("dense bits", dense)):
+            a = mvm(x, g)
+            exact(f"crossbar_mvm class call {shape} on {label} run to run",
+                  a, mvm(x, g))
+            err = max(err, allclose(
+                f"crossbar_mvm class call {shape} on {label} vs plain", a,
+                plain(x, g), RTOL_CLASS_CALL))
+        # The library yardstick applies the nonlinearity (cutoff 0: none
+        # of the conductances is below it) and multiplies.
+        g_eff = lambda g=g: g * torch.where(g < 0.0, 1.5, 1.0)
+        b_ms, b_by = bound_ms(
+            (d.numel() + g.numel() + d.shape[0] * g.shape[1]) * 4,
+            2.0 * d.shape[0] * d.shape[1] * g.shape[1])
+        row = dict(shape=shape, max_abs_err=err, launches=launches,
+                   ms=cuda_ms(lambda: mvm(d, g)),
+                   plain_ms=cuda_ms(lambda: plain(d, g)),
+                   library_ms=cuda_ms(lambda: torch.matmul(d, g_eff())),
+                   bound_ms=b_ms, bound_by=b_by)
+        rows.append(row)
+        print(f"crossbar_mvm co-resident class call {shape} "
+              f"({int(d.sum())} fired bits): {row['ms']:.4f} ms (plain "
+              f"{row['plain_ms']:.4f}, library {row['library_ms']:.4f}, "
+              f"bound {b_ms:.6f} ms by {b_by}), max abs err {err:.3e}, "
+              f"bitwise run to run; {launches} crossbar_mvm launches on the "
+              f"co-resident path; {describe(d, g)}")
+    return rows
+
+
+def coresident_path(device) -> dict:
+    """Phase 8: co-residency and the multi-tenant zoo at full tile width,
+    riding ``crossbar_mvm``.  Each deployment's launch counts are read in
+    windows around the co-resident path's own calls (``path_launches``),
+    so checks, standalone sessions and per-tenant engines add none, and
+    before the class calls are checked and timed."""
+    tallies: dict[str, dict[str, int]] = {"a": {}, "b": {}, "c": {}}
+    full = coresident_full_tile(device, tallies["a"])
+    systems, includes = zoo_members(device)
+    zoo = zoo_deployment(device, systems, tallies["b"])
+    zoo_standby(device, systems, includes, zoo["oracle"], tallies["c"])
+    launches: dict[str, int] = {}
+    for name, tally in tallies.items():
+        for sym in CORESIDENT_KERNELS:
+            if tally.get(sym, 0) == 0:
+                fail(f"{sym} was never launched on the co-resident path's "
+                     f"deployment ({name})")
+        for k, v in tally.items():
+            launches[k] = launches.get(k, 0) + v
+    print("co-resident path launches: "
+          + "; ".join(f"({name}) " + ", ".join(
+              f"{k} {v}" for k, v in tally.items() if v)
+              for name, tally in tallies.items())
+          + "; in all " + ", ".join(f"{k} {v}" for k, v in launches.items()
+                                    if v))
+    rows = class_call_rows(full, zoo, launches["crossbar_mvm_f32"])
+    return dict(launches=launches, class_calls=rows, zoo=zoo)
+
+
 RESOURCE_KERNELS = re.compile(
     r"\d+((?:impact|packed|mvm)_[a-z]+|class_sum_kernel|ta_feedback_kernel"
     r"|clause_eval_kernel|fused_cotm_kernel)(I\w*?EE)?")
@@ -1869,6 +2449,12 @@ def main() -> int:
         print(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
               f"ms by {r['bound_by']}), {r['launches']} launches on the path")
+
+    t0 = time.perf_counter()
+    coresident = coresident_path(device)
+    print(f"phase co-resident path: done in {time.perf_counter() - t0:.1f} "
+          f"s; crossbar_mvm launches "
+          f"{coresident['launches']['crossbar_mvm_f32']}")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

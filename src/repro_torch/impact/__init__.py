@@ -2,7 +2,8 @@
 system, the energy model and the compiled-session runtime."""
 from .energy import EnergyReport
 from .pipeline import IMPACTConfig, IMPACTSystem, build_system
-from .runtime import InferenceResult, InferenceSession, RuntimeSpec
+from .runtime import (CoResidentPlan, InferenceResult, InferenceSession,
+                      RuntimeSpec, TenantSpan, build_coresident)
 from .tiles import (ClassTile, ClauseTile, encode_class_tile,
                     encode_clause_tile, weight_targets)
 from .yflash import (DeviceVariation, G_HCS_BOOL, G_LCS, I_CSA_THRESHOLD,
@@ -10,7 +11,8 @@ from .yflash import (DeviceVariation, G_HCS_BOOL, G_LCS, I_CSA_THRESHOLD,
 
 __all__ = [
     "EnergyReport", "IMPACTConfig", "IMPACTSystem", "build_system",
-    "InferenceResult", "InferenceSession", "RuntimeSpec",
+    "InferenceResult", "InferenceSession", "RuntimeSpec", "TenantSpan",
+    "CoResidentPlan", "build_coresident",
     "ClassTile", "ClauseTile", "encode_class_tile", "encode_clause_tile",
     "weight_targets", "DeviceVariation", "G_HCS_BOOL", "G_LCS",
     "I_CSA_THRESHOLD", "erase_pulse", "program_pulse", "pulse_until",

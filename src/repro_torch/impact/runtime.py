@@ -1,6 +1,5 @@
 """Compiled-session runtime: ``RuntimeSpec`` -> ``InferenceSession`` (the
-PyTorch port of ``repro.impact.runtime`` for one device, no
-co-residency).
+PyTorch port of ``repro.impact.runtime`` for one device).
 
 A frozen ``RuntimeSpec`` (backend name, metering mode, precision,
 packing, slot capacity, device) is resolved ONCE by
@@ -27,6 +26,15 @@ Routing follows the reference's ``_scores_expr`` / ``_metered_expr``:
 
 Invalid lanes predict the sentinel -1 and bill exactly 0.
 
+Co-residency (``RuntimeSpec(coresident=plan)``, ``build_coresident``):
+several small single-tile systems packed block-diagonally onto one grid,
+served by one session whose entries take a per-lane ``model_ids`` (B,)
+tensor selecting each lane's tenant.  The sweeps run the backend's
+co-resident primitives, which gate each lane's fired bits to its own
+clause-column span before the class stage; predictions are tenant-local
+(the argmax over the lane's own class span, rebased to it), and the
+per-lane meters are tenant-pure.
+
 A session holds the system's weight-side operands on its device: the
 clause currents, or under ``packing="2bit"`` (and on the ``"cuda-packed"``
 backend, whatever the spec's ``packing``) their 2-bit packed operand
@@ -45,7 +53,7 @@ from typing import Any, Callable
 import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
-from ..kernels import backends, packing
+from ..kernels import backends, packing, ref
 from . import energy as energy_mod
 from .energy import EnergyReport
 from .yflash import I_CSA_THRESHOLD, T_READ, V_READ
@@ -60,6 +68,78 @@ LITERAL_DTYPE = torch.int8
 
 
 @dataclasses.dataclass(frozen=True)
+class TenantSpan:
+    """Half-open block spans of one resident tenant inside a co-resident
+    combined grid: literal rows ``[lit_lo, lit_hi)``, clause columns
+    ``[col_lo, col_hi)``, class columns ``[cls_lo, cls_hi)``.  Made by
+    ``build_coresident``: the spans are the block-diagonal placement, and
+    every cell off the blocks is 0 A."""
+    lit_lo: int
+    lit_hi: int
+    col_lo: int
+    col_hi: int
+    cls_lo: int
+    cls_hi: int
+
+    def __post_init__(self):
+        for lo, hi, what in ((self.lit_lo, self.lit_hi, "literal"),
+                             (self.col_lo, self.col_hi, "clause"),
+                             (self.cls_lo, self.cls_hi, "class")):
+            if not 0 <= lo < hi:
+                raise ValueError(f"tenant {what} span [{lo}, {hi}) is "
+                                 f"empty or negative")
+
+
+@dataclasses.dataclass(frozen=True)
+class CoResidentPlan:
+    """Hashable placement of T tenants on one shared crossbar grid:
+    ordered, non-overlapping ``TenantSpan`` blocks.  Tenant t's model id
+    is its index here; a co-resident session's entries take a per-lane
+    ``model_ids`` (B,) operand selecting each lane's tenant.  A frozen
+    ``RuntimeSpec`` carries the plan, so the session cache works
+    unchanged."""
+    spans: tuple[TenantSpan, ...]
+
+    def __post_init__(self):
+        object.__setattr__(self, "spans", tuple(self.spans))
+        if not self.spans:
+            raise ValueError("a CoResidentPlan needs at least one tenant")
+        for a, b in zip(self.spans, self.spans[1:]):
+            if (b.lit_lo < a.lit_hi or b.col_lo < a.col_hi
+                    or b.cls_lo < a.cls_hi):
+                raise ValueError(
+                    "tenant spans must be ordered and non-overlapping "
+                    f"(got {a} then {b})")
+
+    @property
+    def n_tenants(self) -> int:
+        return len(self.spans)
+
+    @property
+    def clause_spans(self) -> tuple[tuple[int, int], ...]:
+        return tuple((s.col_lo, s.col_hi) for s in self.spans)
+
+    @property
+    def class_spans(self) -> tuple[tuple[int, int], ...]:
+        return tuple((s.cls_lo, s.cls_hi) for s in self.spans)
+
+    @property
+    def literal_spans(self) -> tuple[tuple[int, int], ...]:
+        return tuple((s.lit_lo, s.lit_hi) for s in self.spans)
+
+    def validate_against(self, system) -> None:
+        last = self.spans[-1]
+        if (last.lit_hi > system.n_literals
+                or last.col_hi > system.n_clauses
+                or last.cls_hi > system.n_classes):
+            raise ValueError(
+                f"co-resident plan {last} exceeds the combined grid "
+                f"(K={system.n_literals}, n={system.n_clauses}, "
+                f"M={system.n_classes}) — compile the plan against the "
+                f"system build_coresident returned it with")
+
+
+@dataclasses.dataclass(frozen=True)
 class RuntimeSpec:
     """Declarative, hashable description of ONE inference runtime.
 
@@ -71,8 +151,12 @@ class RuntimeSpec:
     ``packing`` is ``"none"`` (f32 clause currents) or ``"2bit"`` (the
     compressed datapath: the clause operand packed once per session).
 
-    ``coresident`` and a ``topology`` with a mesh are not ported yet and
-    raise ``NotImplementedError``.
+    ``coresident`` (a ``CoResidentPlan`` from ``build_coresident``)
+    compiles the multi-tenant datapath: every entry takes a per-lane
+    ``model_ids`` operand, predictions are tenant-local and the per-lane
+    meters tenant-pure.  It composes with ``packing="2bit"``.  A
+    ``topology`` with a mesh is not ported yet and raises
+    ``NotImplementedError``.
     """
     backend: str = "cuda"
     metering: str = "staged"
@@ -82,13 +166,13 @@ class RuntimeSpec:
     batch_sizes: tuple[int, ...] = ()
     device: str = DEFAULT_DEVICE
     topology: Any = None
-    coresident: Any = None
+    coresident: CoResidentPlan | None = None
 
     def __post_init__(self):
-        if self.coresident is not None:
-            raise NotImplementedError(
-                "coresident= is not ported yet (ROADMAP Queue 1, item 10: "
-                "co-residency and the multi-tenant zoo)")
+        if self.coresident is not None and not isinstance(self.coresident,
+                                                          CoResidentPlan):
+            raise TypeError(f"coresident must be a CoResidentPlan (from "
+                            f"build_coresident), got {self.coresident!r}")
         if self.topology is not None:
             raise NotImplementedError(
                 "topology= (a device mesh) is not ported yet (ROADMAP "
@@ -136,6 +220,18 @@ class InferenceSession:
         self.system = system
         self.backend = backends.get_backend(spec.backend)
         self.device = resolve_device(spec.device)
+        # Co-residency: the plan is validated against the combined grid
+        # once, and its span tables become small constants on the device
+        # that the per-lane model ids index.
+        self.coresident = spec.coresident
+        if self.coresident is not None:
+            self.coresident.validate_against(system)
+            self._clause_spans = torch.tensor(
+                self.coresident.clause_spans, dtype=torch.int32,
+                device=self.device)
+            self._class_spans = torch.tensor(
+                self.coresident.class_spans, dtype=torch.int32,
+                device=self.device)
         self.refresh_operands()
         self._exes: dict[tuple[str, int], Callable] = {}
         self._traces: collections.Counter = collections.Counter()
@@ -206,37 +302,81 @@ class InferenceSession:
 
     def input_bytes(self, entry: str, batch: int) -> int:
         """Bytes of the ``(entry, batch)`` entry's input tensors per sweep:
-        the literals, the valid mask (all but ``predict``) and the
-        weight-side operands, as the reference counts them."""
+        the literals, the valid mask (all but ``predict``), the (B,)
+        int32 model ids of a co-resident session and the weight-side
+        operands, as the reference counts them."""
         n = batch * self.system.n_literals * LITERAL_DTYPE.itemsize
         if entry != "predict":
             n += batch * torch.bool.itemsize
+        if self.coresident is not None:
+            n += batch * torch.int32.itemsize
         for op in self._operands():
             n += op.numel() * op.element_size()
         return int(n)
 
     # -- entry points -------------------------------------------------------
-    def predict(self, literals) -> InferenceResult:
-        """Fused crossbar -> CSA -> class-sum scores + argmax."""
+    def _model_ids(self, model_ids, batch: int) -> tuple[torch.Tensor, ...]:
+        """The per-lane tenant selector as the entry's extra operand: ``()``
+        on a single-tenant session (which refuses one), a (B,) int32
+        tensor on the session's device on a co-resident one (which needs
+        one, each id naming a tenant of the plan)."""
+        if self.coresident is None:
+            if model_ids is not None:
+                raise ValueError(
+                    "model_ids= only applies to a co-resident session "
+                    "(RuntimeSpec(coresident=...))")
+            return ()
+        if model_ids is None:
+            raise ValueError(
+                "a co-resident session needs model_ids (B,) int32 — "
+                "which tenant does each lane belong to?")
+        mids = torch.as_tensor(model_ids)
+        if mids.shape != (batch,):
+            raise ValueError(f"model_ids shape {tuple(mids.shape)} does not "
+                             f"match the batch ({batch},)")
+        if mids.dtype.is_floating_point or mids.dtype == torch.bool:
+            raise ValueError(f"model_ids must be integers, got {mids.dtype}")
+        # Checked here: an index out of the span table would be a device
+        # fault in the gather on a card.
+        if batch and (int(mids.min()) < 0
+                      or int(mids.max()) >= self.coresident.n_tenants):
+            raise ValueError(
+                f"model_ids must lie in [0, {self.coresident.n_tenants}) "
+                f"(the plan's tenants), got [{int(mids.min())}, "
+                f"{int(mids.max())}]")
+        return (mids.to(device=self.device, dtype=torch.int32),)
+
+    def predict(self, literals, model_ids=None) -> InferenceResult:
+        """Fused crossbar -> CSA -> class-sum scores + argmax.  On a
+        co-resident session ``model_ids`` (B,) selects each lane's tenant:
+        predictions are tenant-local class indices and ``scores`` the
+        combined (B, M_total) currents, zero outside each lane's own class
+        span."""
         lits = self._lits(literals)
-        preds, scores = self._exe("predict", lits.shape[0])(lits)
+        mids = self._model_ids(model_ids, lits.shape[0])
+        preds, scores = self._exe("predict", lits.shape[0])(lits, *mids)
         return InferenceResult(predictions=preds, scores=scores)
 
-    def infer_step(self, literals, valid) -> InferenceResult:
+    def infer_step(self, literals, valid, model_ids=None) -> InferenceResult:
         """One scheduler sweep over a fixed-capacity slot buffer: invalid
         lanes predict -1 and bill exactly zero; per-lane energies are
-        zeros under ``metering="off"``."""
+        zeros under ``metering="off"``.  On a co-resident session
+        ``model_ids`` selects each lane's tenant."""
         lits = self._lits(literals)
         v = self._valid(valid, lits.shape[0])
-        preds, e_cl, e_cs = self._exe("infer_step", lits.shape[0])(lits, v)
+        mids = self._model_ids(model_ids, lits.shape[0])
+        preds, e_cl, e_cs = self._exe("infer_step", lits.shape[0])(lits, v,
+                                                                   *mids)
         return InferenceResult(predictions=preds, e_clause_lanes=e_cl,
                                e_class_lanes=e_cs)
 
-    def infer_with_report(self, literals, valid=None) -> InferenceResult:
+    def infer_with_report(self, literals, valid=None,
+                          model_ids=None) -> InferenceResult:
         """Metered inference with the paper's batch-level ``EnergyReport``
         (one fused pass under ``"fused"``, the staged per-shard path under
         ``"staged"``).  Padding lanes (``valid`` False) are excluded from
-        the accounting and predict -1."""
+        the accounting and predict -1.  On a co-resident session
+        ``model_ids`` selects each lane's tenant."""
         if not self.meters_energy:
             raise RuntimeError(
                 "this session was compiled with metering='off' — "
@@ -245,7 +385,9 @@ class InferenceSession:
         lits = self._lits(literals)
         B = lits.shape[0]
         v = self._valid(valid, B)
-        preds, i_cl_sum, i_cs_sum = self._exe("infer_with_report", B)(lits, v)
+        mids = self._model_ids(model_ids, B)
+        preds, i_cl_sum, i_cs_sum = self._exe("infer_with_report", B)(
+            lits, v, *mids)
         sys_ = self.system
         e_clause = float(V_READ * i_cl_sum * T_READ)
         e_class = float(V_READ * i_cs_sum * T_READ)
@@ -342,32 +484,111 @@ class InferenceSession:
         return (scores, i_clause.sum(dim=(1, 2, 3)),
                 i_class.sum(dim=(1, 2)))
 
+    # -- co-resident expressions --------------------------------------------
+    def _co_pred(self, scores: torch.Tensor,
+                 model_ids: torch.Tensor) -> torch.Tensor:
+        """Tenant-local argmax: each lane's argmax over its own class
+        span, rebased to the span, so a co-resident lane predicts what its
+        tenant's standalone session would."""
+        spans = self._class_spans[model_ids.long()].long()     # (B, 2)
+        col = torch.arange(scores.shape[1], device=scores.device)[None, :]
+        mask = (col >= spans[:, :1]) & (col < spans[:, 1:])
+        masked = torch.where(mask, scores, -torch.inf)
+        return torch.argmax(masked, dim=-1) - spans[:, 0]
+
+    def _co_scores_expr(self, literals: torch.Tensor,
+                        model_ids: torch.Tensor) -> torch.Tensor:
+        """Co-resident twin of ``_scores_expr``: the backend's co-resident
+        primitives (packed or not), which gate fired bits to each lane's
+        own clause-column span before the class stage."""
+        if self._packed is not None:
+            return self.backend.fused_impact_coresident_packed(
+                literals, self._packed, self._nonempty, self._class_i,
+                model_ids, self._clause_spans, thresh=I_CSA_THRESHOLD,
+                tr=self.system.clause_i.shape[2])
+        return self.backend.fused_impact_coresident(
+            literals, self._clause_i, self._nonempty, self._class_i,
+            model_ids, self._clause_spans, thresh=I_CSA_THRESHOLD)
+
+    def _co_metered_expr(self, literals: torch.Tensor, valid: torch.Tensor,
+                         model_ids: torch.Tensor):
+        """Metered co-resident core, routed as ``_metered_expr``: under
+        ``"fused"`` the backend's co-resident metered primitive, invalid
+        lanes masked after (exact: the meters are per-lane); under
+        ``"staged"`` the per-shard pair with the lane mask and the valid
+        mask on the fired bits before the class drive.  Valid lanes see
+        the same composition either way."""
+        tr = self.system.clause_i.shape[2]
+        if self.spec.metering == "fused":
+            if self._packed is not None:
+                scores, i_cl, i_cs = (
+                    self.backend.fused_impact_coresident_packed_metered(
+                        literals, self._packed, self._nonempty,
+                        self._class_i, model_ids, self._clause_spans,
+                        thresh=I_CSA_THRESHOLD, tr=tr))
+            else:
+                scores, i_cl, i_cs = (
+                    self.backend.fused_impact_coresident_metered(
+                        literals, self._clause_i, self._nonempty,
+                        self._class_i, model_ids, self._clause_spans,
+                        thresh=I_CSA_THRESHOLD))
+            v = valid.to(scores.dtype)
+            return scores, i_cl * v, i_cs * v
+        clause_i = (self._clause_i if self._packed is None else
+                    packing.dequant_clause(*self._packed, tr))
+        fired, i_clause = self.backend.impact_clause_bits(
+            literals, clause_i, self._nonempty, thresh=I_CSA_THRESHOLD)
+        # The CSA gating step of co-residency, then the valid lanes.
+        fired = (fired & ref.coresident_lane_mask(
+            model_ids, self._clause_spans, self.system.n_clauses)
+            & valid[:, None])
+        i_clause = i_clause * valid[:, None, None, None]
+        scores, i_class = self.backend.impact_class_scores(fired,
+                                                           self._class_i)
+        return (scores, i_clause.sum(dim=(1, 2, 3)),
+                i_class.sum(dim=(1, 2)))
+
     def _ta_feedback_fn(self, lit2, fired2, sel, match, hi, lo, include):
         return self.backend.ta_feedback(lit2, fired2, sel, match, hi, lo,
                                         include)
 
-    def _predict_fn(self, literals):
+    def _predict_fn(self, literals, *model_ids):
+        if self.coresident is not None:
+            scores = self._co_scores_expr(literals, *model_ids)
+            return self._co_pred(scores, *model_ids), scores
         scores = self._scores_expr(literals)
         return torch.argmax(scores, dim=-1), scores
 
-    def _infer_step_fn(self, literals, valid):
+    def _infer_step_fn(self, literals, valid, *model_ids):
+        co = self.coresident is not None
         if not self.meters_energy:
-            scores = self._scores_expr(literals)
+            scores = (self._co_scores_expr(literals, *model_ids) if co
+                      else self._scores_expr(literals))
             zeros = torch.zeros((literals.shape[0],), dtype=torch.float32,
                                 device=literals.device)
-            return (torch.where(valid, torch.argmax(scores, dim=-1), -1),
-                    zeros, zeros)
-        scores, i_cl, i_cs = self._metered_expr(literals, valid)
-        e_cl, e_cs = energy_mod.per_lane_read_energy(i_cl, i_cs)
-        return (torch.where(valid, torch.argmax(scores, dim=-1), -1),
-                e_cl, e_cs)
+            e_cl = e_cs = zeros
+        else:
+            scores, i_cl, i_cs = (
+                self._co_metered_expr(literals, valid, *model_ids) if co
+                else self._metered_expr(literals, valid))
+            e_cl, e_cs = energy_mod.per_lane_read_energy(i_cl, i_cs)
+        preds = (self._co_pred(scores, *model_ids) if co
+                 else torch.argmax(scores, dim=-1))
+        return torch.where(valid, preds, -1), e_cl, e_cs
 
-    def _infer_with_report_fn(self, literals, valid):
-        scores, i_cl_lane, i_cs_lane = self._metered_expr(literals, valid)
+    def _infer_with_report_fn(self, literals, valid, *model_ids):
+        if self.coresident is not None:
+            scores, i_cl_lane, i_cs_lane = self._co_metered_expr(
+                literals, valid, *model_ids)
+            preds = self._co_pred(scores, *model_ids)
+        else:
+            scores, i_cl_lane, i_cs_lane = self._metered_expr(literals,
+                                                              valid)
+            preds = torch.argmax(scores, dim=-1)
         # Sentinel invalid lanes like infer_step: the staged and fused
         # lowerings see different scores on an excluded lane.
-        return (torch.where(valid, torch.argmax(scores, dim=-1), -1),
-                i_cl_lane.sum(), i_cs_lane.sum())
+        return (torch.where(valid, preds, -1), i_cl_lane.sum(),
+                i_cs_lane.sum())
 
     def __repr__(self) -> str:
         return (f"InferenceSession(backend={self.spec.backend!r}, "
@@ -376,3 +597,84 @@ class InferenceSession:
                 f"packing={self.spec.packing!r}, "
                 f"capacity={self.spec.capacity}, "
                 f"compiled={self.compiled_shapes()})")
+
+
+def build_coresident(systems) -> tuple[Any, CoResidentPlan]:
+    """Pack several small single-tile systems block-diagonally onto one
+    shared crossbar grid -> ``(combined IMPACTSystem, CoResidentPlan)``,
+    on the members' device.
+
+    Tenant t's clause grid occupies literal rows ``[lit_lo, lit_hi)`` x
+    clause columns ``[col_lo, col_hi)`` and its class grid clause rows
+    ``[col_lo, col_hi)`` x class columns ``[cls_lo, cls_hi)``.  Every cell
+    off the blocks holds exactly 0 S / 0 A (no device), so cross-tenant
+    current leakage is exactly zero.  Only each member's real ``[:K, :n]``
+    and ``[:n, :M]`` regions are copied (its tile padding is dropped),
+    which keeps scores and argmax equal to its standalone session's.
+
+    Members must be single-tile (R = C = S = 1): a model big enough to
+    shard owns the fabric.  The combined grid must fit one tile of the
+    first member's ``IMPACTConfig``.  Compile with
+    ``combined.compile(RuntimeSpec(coresident=plan, ...))``; tenant t's
+    lanes pass ``model_ids == t``.
+    """
+    systems = list(systems)
+    if not systems:
+        raise ValueError("build_coresident needs at least one system")
+    from .pipeline import IMPACTSystem   # pipeline imports this module
+
+    for i, s in enumerate(systems):
+        R, C = s.clause_i.shape[0], s.clause_i.shape[1]
+        S = s.class_i.shape[0]
+        if (R, C, S) != (1, 1, 1):
+            raise ValueError(
+                f"co-residency packs single-tile systems; member {i} has "
+                f"a (R={R}, C={C}, S={S}) shard grid — a model that "
+                f"large should own the fabric (shard it) instead of "
+                f"co-residing")
+    dev = systems[0].device
+    if any(s.device != dev for s in systems):
+        raise ValueError(f"co-resident members must share one device, got "
+                         f"{sorted({str(s.device) for s in systems})}")
+    K_tot = sum(s.n_literals for s in systems)
+    n_tot = sum(s.n_clauses for s in systems)
+    M_tot = sum(s.n_classes for s in systems)
+    cfg = systems[0].cfg
+    if (K_tot > cfg.max_tile_rows or n_tot > cfg.max_tile_cols
+            or n_tot > cfg.max_class_rows):
+        raise ValueError(
+            f"combined co-resident grid (K={K_tot}, n={n_tot}) does not "
+            f"fit one tile (max_tile_rows={cfg.max_tile_rows}, "
+            f"max_tile_cols={cfg.max_tile_cols}, "
+            f"max_class_rows={cfg.max_class_rows}) — fewer residents per "
+            f"fabric, or bigger tiles")
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    clause_g = torch.zeros((1, 1, K_tot, n_tot), **f32)
+    clause_i = torch.zeros((1, 1, K_tot, n_tot), **f32)
+    nonempty = torch.zeros((n_tot,), dtype=torch.bool, device=dev)
+    class_g = torch.zeros((1, n_tot, M_tot), **f32)
+    class_i = torch.zeros((1, n_tot, M_tot), **f32)
+    spans = []
+    k0 = c0 = m0 = 0
+    prog = erase = 0.0
+    for s in systems:
+        K, n, M = s.n_literals, s.n_clauses, s.n_classes
+        clause_g[0, 0, k0:k0 + K, c0:c0 + n] = s.clause_g[0, 0, :K, :n]
+        clause_i[0, 0, k0:k0 + K, c0:c0 + n] = s.clause_i[0, 0, :K, :n]
+        nonempty[c0:c0 + n] = s.nonempty[:n]
+        class_g[0, c0:c0 + n, m0:m0 + M] = s.class_g[0, :n, :M]
+        class_i[0, c0:c0 + n, m0:m0 + M] = s.class_i[0, :n, :M]
+        spans.append(TenantSpan(lit_lo=k0, lit_hi=k0 + K,
+                                col_lo=c0, col_hi=c0 + n,
+                                cls_lo=m0, cls_hi=m0 + M))
+        k0, c0, m0 = k0 + K, c0 + n, m0 + M
+        prog += float(s.encode_stats.get("program_energy_j", 0.0))
+        erase += float(s.encode_stats.get("erase_energy_j", 0.0))
+    combined = IMPACTSystem(
+        clause_g=clause_g, nonempty=nonempty, class_g=class_g,
+        clause_i=clause_i, class_i=class_i, n_literals=K_tot,
+        n_clauses=n_tot, n_classes=M_tot, cfg=cfg,
+        encode_stats=dict(program_energy_j=prog, erase_energy_j=erase,
+                          coresident_members=len(systems)))
+    return combined, CoResidentPlan(spans=tuple(spans))

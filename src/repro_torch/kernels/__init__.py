@@ -19,14 +19,16 @@ versions and the backend registry.
   (launch counts, operand checks, CPU tensors to the plain versions)
 * ``_build.py``  — ``nvcc`` build into ``build/torch_kernels/`` + ``ctypes``
 * ``backends.py`` — registry: ``"cuda"`` (kernels), ``"cuda-packed"``
-  (packed kernels for every fused call; its sessions pack once) and
+  (packed kernels for every fused call; its sessions pack once),
+  ``"cuda-metered"`` (the metered kernel for every fused call) and
   ``"torch"`` (plain)
 * ``packing.py``  — the 2-bit ternary clause operand
 * ``ref.py``      — the plain PyTorch versions
 """
 from . import backends, packing, ref
 from ._build import build_all, launch_counts, reset_launch_counts
-from .backends import available_backends, get_backend, register_backend
+from .backends import (available_backends, get_backend, register_backend,
+                       unregister_backend)
 from .class_sum import class_sum
 from .clause_eval import clause_eval
 from .crossbar_mvm import crossbar_mvm
@@ -36,7 +38,8 @@ from .fused_impact import (fused_impact, fused_impact_metered,
 from .ta_feedback import ta_feedback
 
 __all__ = ["backends", "packing", "ref", "available_backends",
-           "get_backend", "register_backend", "build_all", "launch_counts",
+           "get_backend", "register_backend", "unregister_backend",
+           "build_all", "launch_counts",
            "reset_launch_counts", "class_sum", "clause_eval", "crossbar_mvm",
            "fused_cotm", "fused_impact", "fused_impact_metered",
            "fused_impact_packed", "fused_impact_packed_metered",

@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the crossbar and digital CoTM kernels (the
-port of ``repro.kernels.ref``, co-resident oracles aside).
+port of ``repro.kernels.ref``), and the co-resident oracles built on them.
 
 Each hand-written CUDA kernel in this package computes the function of
 the same name here.  The CPU tests hold these against the JAX oracles,
@@ -181,6 +181,63 @@ def fused_impact_packed_metered_ref(literals: torch.Tensor,
     clause_i = packing.dequant_clause(bits, levels, tr)
     return fused_impact_metered_ref(literals, clause_i, nonempty, class_i,
                                     thresh=thresh)
+
+
+def coresident_lane_mask(model_ids: torch.Tensor, clause_spans: torch.Tensor,
+                         n: int) -> torch.Tensor:
+    """Per-lane ownership mask over the combined clause columns.
+
+    model_ids (B,) int indexes clause_spans (T, 2) int32 rows of ``[lo,
+    hi)`` clause-column spans, one per resident tenant, on the same device
+    -> (B, n) bool, True exactly on lane b's own tenant's columns.
+
+    A lane drives only its own tenant's literal rows, so every foreign
+    clause column draws exactly 0 A; 0 A is below the CSA threshold, so a
+    foreign nonempty column would read as fired and drive foreign class
+    rows.  Gating the fired bits to the lane's own span keeps the class
+    stage, and so the class meter, tenant-pure: cross-tenant leakage is
+    exactly zero by construction.
+    """
+    spans = clause_spans[model_ids.long()]                  # (B, 2)
+    col = torch.arange(n, dtype=torch.int32, device=spans.device)[None, :]
+    return (col >= spans[:, :1]) & (col < spans[:, 1:])
+
+
+def fused_impact_coresident_ref(literals: torch.Tensor,
+                                clause_i: torch.Tensor,
+                                nonempty: torch.Tensor,
+                                class_i: torch.Tensor,
+                                model_ids: torch.Tensor,
+                                clause_spans: torch.Tensor, *,
+                                thresh: float) -> torch.Tensor:
+    """``fused_impact_ref`` on a block-diagonal combined grid, with the
+    per-lane clause-column mask between the clause and class stages:
+    scores land only in each lane's own tenant's class columns, and every
+    cross-tenant score is exactly 0."""
+    fired, _ = impact_clause_bits_ref(literals, clause_i, nonempty,
+                                      thresh=thresh)
+    fired = fired & coresident_lane_mask(model_ids, clause_spans,
+                                         fired.shape[1])
+    scores, _ = impact_class_scores_ref(fired, class_i)
+    return scores
+
+
+def fused_impact_coresident_metered_ref(
+        literals: torch.Tensor, clause_i: torch.Tensor,
+        nonempty: torch.Tensor, class_i: torch.Tensor,
+        model_ids: torch.Tensor, clause_spans: torch.Tensor, *,
+        thresh: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(scores, clause meter (B,), class meter (B,))`` of the co-resident
+    sweep, in the units of ``fused_impact_metered_ref``.  Both meters are
+    tenant-pure: foreign clause columns draw 0 A (their literal rows
+    float), and the lane mask zeroes foreign fired bits before they drive
+    class rows; off-block cells hold 0 A and never bill."""
+    fired, i_col = impact_clause_bits_ref(literals, clause_i, nonempty,
+                                          thresh=thresh)
+    fired = fired & coresident_lane_mask(model_ids, clause_spans,
+                                         fired.shape[1])
+    scores, i_cls = impact_class_scores_ref(fired, class_i)
+    return scores, i_col.sum(dim=(1, 2, 3)), i_cls.sum(dim=(1, 2))
 
 
 def crossbar_mvm_ref(drive: torch.Tensor, g: torch.Tensor, *,

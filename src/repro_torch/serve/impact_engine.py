@@ -151,6 +151,11 @@ class IMPACTEngine:
                 raise ValueError(
                     f"max_batch={max_batch} does not match the session's "
                     f"compiled capacity {session.capacity}")
+        if session.coresident is not None:
+            raise ValueError(
+                "IMPACTEngine is the single-tenant front — a co-resident "
+                "session routes per-lane model ids and needs the "
+                "multi-tenant router (serve.zoo.ModelZoo)")
         self.session = session
         self.system = session.system
         self.impl = session.spec.backend

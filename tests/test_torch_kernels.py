@@ -200,14 +200,19 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors():
 
 
 def test_registry_contract():
-    assert backends.available_backends() == ("cuda", "cuda-packed", "torch")
+    assert backends.available_backends() == ("cuda", "cuda-metered",
+                                             "cuda-packed", "torch")
     for name in backends.available_backends():
         bk = backends.get_backend(name)
         assert bk.name == name
         for p in backends.REQUIRED_PRIMITIVES:
             assert callable(getattr(bk, p)), (name, p)
     assert {"pack_clause_operand", "fused_impact_packed",
-            "fused_impact_packed_metered"} <= set(backends.REQUIRED_PRIMITIVES)
+            "fused_impact_packed_metered", "fused_impact_coresident",
+            "fused_impact_coresident_metered",
+            "fused_impact_coresident_packed",
+            "fused_impact_coresident_packed_metered",
+            } <= set(backends.REQUIRED_PRIMITIVES)
     with pytest.raises(ValueError):
         backends.get_backend("pallas")
     with pytest.raises(ValueError):

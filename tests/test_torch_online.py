@@ -36,7 +36,8 @@ from repro_torch.convert import params_from_arrays, system_from_arrays
 from repro_torch.core.cotm import CoTMConfig
 from repro_torch.core.cotm import predict as digital_predict
 from repro_torch.core.train import FeedbackDraws
-from repro_torch.impact import IMPACTConfig, RuntimeSpec, build_system
+from repro_torch.impact import (IMPACTConfig, RuntimeSpec, build_coresident,
+                                build_system)
 from repro_torch.impact.runtime import InferenceSession
 from repro_torch.serve import IMPACTEngine
 from repro_torch.serve.tracing import Tracer, validate_events
@@ -269,27 +270,20 @@ def test_interleaved_train_serve_improves_and_reconciles():
 def test_trainer_rejects_sessions_it_cannot_write():
     """The trainer refuses a packed session (``packing="2bit"``, or any
     session on ``"cuda-packed"``: the write path targets the f32
-    conductance grid) and a co-resident one, as the reference does;
-    co-resident specs are not ported yet and raise at the spec."""
+    conductance grid) and a co-resident one (a write would re-program the
+    shared fabric), as the reference does
+    (``tests/test_online_training.py``)."""
     cfg, params, system, _, _ = _port_deployed(False, pretrain=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RuntimeSpec(device="cpu", coresident=object())
     for spec in (RuntimeSpec(device="cpu", packing="2bit"),
                  RuntimeSpec(backend="cuda-packed", device="cpu")):
         with pytest.raises(ValueError, match="unpacked"):
             OnlineTrainer(system.compile(spec), params, cfg,
                           generator=torch.Generator())
-    session = system.compile(RuntimeSpec(device="cpu"))
-
-    class Spec:
-        coresident = object()
-        packing = "none"
-
-    class CoResident:
-        spec, system = Spec(), session.system
-
+    combined, plan = build_coresident([system, system])
+    co = combined.compile(RuntimeSpec(backend="torch", device="cpu",
+                                      coresident=plan))
     with pytest.raises(ValueError, match="single-tenant"):
-        OnlineTrainer(CoResident(), params, cfg, generator=torch.Generator())
+        OnlineTrainer(co, params, cfg, generator=torch.Generator())
 
 
 def test_packed_sessions_are_repacked_after_a_write():

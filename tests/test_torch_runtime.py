@@ -18,7 +18,7 @@ from repro.impact import IMPACTConfig as JConfig
 from repro.impact import RuntimeSpec as JSpec
 from repro.impact.pipeline import IMPACTSystem as JSystem
 from repro_torch.convert import system_from_arrays
-from repro_torch.impact import RuntimeSpec
+from repro_torch.impact import RuntimeSpec, build_coresident
 from repro_torch.impact.yflash import read_current
 
 # (B, K, n, M, R, tr, C, tc, S, sr): a sharded ragged grid and a one-tile
@@ -153,9 +153,28 @@ def test_session_shapes_are_prepared_once(pair):
     assert "fused" in repr(sess)
 
 
+@pytest.mark.parametrize("packing", ["none", "2bit"])
+def test_coresident_specs_compile(packing):
+    """A ``CoResidentPlan`` compiles, alone and with ``packing="2bit"``
+    (the reference's co-resident specs; ``tests/test_torch_coresident.py``
+    holds the sessions against it)."""
+    members = [system_from_arrays(_arrays(4, 24, 8, 3 + i, 1, 24, 1, 8, 1,
+                                          8, seed=i)[0], device="cpu")
+               for i in range(2)]
+    combined, plan = build_coresident(members)
+    sess = combined.compile(RuntimeSpec(device="cpu", packing=packing,
+                                        capacity=4, coresident=plan))
+    assert sess.coresident is plan and sess.packed == (packing == "2bit")
+    assert sess.trace_count == 1 and sess.is_compiled("infer_step", 4)
+    lits = np.ones((4, combined.n_literals), np.int8)
+    res = sess.infer_step(lits, np.ones(4, bool),
+                          model_ids=np.array([0, 1, 0, 1], np.int32))
+    assert (res.predictions.numpy() >= 0).all()
+    with pytest.raises(TypeError, match="CoResidentPlan"):
+        RuntimeSpec(device="cpu", packing=packing, coresident=object())
+
+
 @pytest.mark.parametrize("kwargs,exc", [
-    (dict(packing="2bit", coresident=object()), NotImplementedError),
-    (dict(coresident=object()), NotImplementedError),
     (dict(topology=object()), NotImplementedError),
     (dict(metering="always"), ValueError),
     (dict(precision="bfloat16"), ValueError),
