@@ -56,7 +56,21 @@ Phases, each of which must pass or the script exits non-zero:
    parity pass, then a Poisson replay through ``replay_zoo_trace`` that
    sweeps fewer times than 8 per-tenant engines; (c) a standby pool and
    ``rebalance()``; then ``crossbar_mvm`` at both class-call shapes
-   against its plain version, with its plan and times.
+   against its plain version, with its plan and times;
+9. the cost model, the static audit and the adaptive programmer: (a)
+   each ``bench_section`` family (``predict`` on ``"torch"`` and
+   ``"cuda"``, ``infer_step`` under each metering) and a 2-bit fused
+   session calibrated at B = 8 on warm sweeps, every predicted/measured
+   ratio at B = 32 and 128 within ``DEFAULT_BAND`` and metered-fused at
+   least off, beside the ratios of a unit-weight proxy; (b) ``audit()``
+   of every prepared entry of phases 4 and 6 and the trainer's session,
+   the SASS of every library (no TF32, f64 only in ``impact_tail``),
+   each kernel's registers, shared memory, spills and blocks an SM
+   against its planner's ``BLOCKS_PER_SM`` and the shared-memory
+   estimate, and every entry swept under ``set_sync_debug_mode("error")``;
+   (c) the trained class tile programmed with ``adaptive=True`` on
+   variable and ideal devices beside the two-phase schedule, the ideal
+   one equal to the CPU run.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -156,13 +170,6 @@ FEEDBACK_SHAPES = [(2 * ONLINE_BATCH, K, N_CLAUSES),
 # column against 4.1 uA).
 N_CALIBRATION, PACKED_ACC_TOL = 1000, 0.01
 RTOL_PACKED_METERS = 1e-5     # packed vs unpacked meters, ideal devices
-
-# Published peaks of one H100 SXM (NVIDIA data sheet, 700 W): f32 outside
-# the tensor cores, int8 on the tensor cores (dense; the 0/1 contractions
-# of the digital kernels are exact there), and HBM3 bandwidth.
-PEAK_F32_FLOPS = 67e12
-PEAK_INT8_OPS = 1979e12
-PEAK_HBM_BYTES = 3.35e12
 
 
 class GcTimer:
@@ -1083,6 +1090,7 @@ def train_path(device) -> dict:
     spec = RuntimeSpec(backend="cuda", metering="fused", capacity=CAPACITY,
                        device=str(device))
     session = system_on.compile(spec)
+    out["online_session"] = session
     trainer = OnlineTrainer(session, deployed, cfg, generator=gen_on,
                             variability=True)
     engine = IMPACTEngine(session, clock=time.perf_counter)
@@ -1364,26 +1372,22 @@ def cuda_ms(fn, iters: int = 30) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def bound_ms(bytes_moved: float, ops: float,
-             peak: float = PEAK_F32_FLOPS) -> tuple[float, str]:
-    t_b = bytes_moved / PEAK_HBM_BYTES * 1e3
-    t_o = ops / peak * 1e3
-    return (t_o, "operations") if t_o >= t_b else (t_b, "bytes")
-
-
-def needed_columns(ne: torch.Tensor, drawing: torch.Tensor,
-                   ) -> tuple[int, int]:
-    """The clause columns a fused function needs on this run's data: only
-    nonempty columns can fire, so the scores need their cells and class
-    rows alone; the clause meter also needs every column that draws
-    current (the leaking padding columns, not the pruned ones, which
-    hold no device).  -> (for the scores, for the metered kernel)."""
-    return int(ne.sum()), int((drawing | ne).sum())
+def bound_ms(work: tuple[float, float], int_ops: bool = False,
+             ) -> tuple[float, str]:
+    """The bound of ``work`` = (operations, bytes) from ``kernels/work.py``
+    in ms: f32 operations at the FFMA peak, or 0/1 counts at the int8
+    tensor-core peak (``int_ops``)."""
+    from repro_torch.kernels import work as wk
+    ops, moved = work
+    t, by = wk.bound_s(moved, ops, wk.PEAK_INT8_OPS if int_ops
+                       else wk.PEAK_F32_FLOPS)
+    return t * 1e3, by
 
 
 def time_kernels(served: dict, errs: dict) -> list[dict]:
     from repro_torch.impact.yflash import I_CSA_THRESHOLD as TH
     from repro_torch.kernels import ref
+    from repro_torch.kernels import work as wk
     from repro_torch.kernels.crossbar_mvm import crossbar_mvm, describe
     from repro_torch.kernels.fused_impact import (fused_impact,
                                                   fused_impact_metered)
@@ -1401,7 +1405,7 @@ def time_kernels(served: dict, errs: dict) -> list[dict]:
     if R != 1 or Kl > tr:
         fail(f"the timed layout must be one row shard, got R={R}, tr={tr}")
     # The work the function needs: the K driven rows of the clause tile
-    # (rows past K have no drive) over the columns ``needed_columns``
+    # (rows past K have no drive) over the columns ``wk.needed_columns``
     # counts.
     live = min(C * tc, S * sr)
     drive = 1.0 - lits.float()                             # (B, K)
@@ -1413,24 +1417,22 @@ def time_kernels(served: dict, errs: dict) -> list[dict]:
         fired = (torch.matmul(drive, ccur) < TH) & ne
         return torch.matmul(fired[:, :live].float(), wcur)
 
-    n_ne, n_meter = needed_columns(ne, ccur.ne(0).any(dim=0))
+    needed = wk.needed_columns(ne, ccur.ne(0).any(dim=0))
     print(f"fused_impact at the serving shape {tuple(lits.shape)} x "
           f"{tuple(ci.shape)}: {fused_path(lits, ci)}")
     rows = []
-    for name, fn, plain, extra_out, n_cols in (
+    for name, fn, plain, metered in (
             ("fused_impact", lambda: fused_impact(*args, thresh=TH),
-             lambda: ref.fused_impact_ref(*args, thresh=TH), 0, n_ne),
+             lambda: ref.fused_impact_ref(*args, thresh=TH), False),
             ("fused_impact_metered",
              lambda: fused_impact_metered(*args, thresh=TH),
-             lambda: ref.fused_impact_metered_ref(*args, thresh=TH), 2 * B,
-             n_meter)):
-        in_bytes = (lits.numel() + Kl * n_cols * 4 + ne.numel()
-                    + n_ne * M * 4)
-        flops = 2.0 * B * Kl * n_cols + 2.0 * B * n_ne * M
-        print(f"{name} work: {flops:.0f} flop on {in_bytes} B in ({n_cols} "
-              f"of {C * tc} clause columns x {Kl} driven rows, {n_ne} "
-              f"nonempty class rows)")
-        b_ms, b_by = bound_ms(in_bytes + (B * M + extra_out) * 4, flops)
+             lambda: ref.fused_impact_metered_ref(*args, thresh=TH), True)):
+        work = wk.fused_impact(B, Kl, R, tr, C * tc, S * sr, M,
+                               metered=metered, needed=needed)
+        print(f"{name} work: {work[0]:.0f} flop on {work[1]:.0f} B in and "
+              f"out ({needed[metered]} of {C * tc} clause columns x {Kl} "
+              f"driven rows, {needed[0]} nonempty class rows)")
+        b_ms, b_by = bound_ms(work)
         rows.append(dict(
             name=name, route="cuda",
             source="src/repro_torch/kernels/csrc/fused_impact.cu",
@@ -1445,10 +1447,9 @@ def time_kernels(served: dict, errs: dict) -> list[dict]:
     fired = ref.impact_clause_bits_ref(lits, ci, ne, thresh=TH)[0]
     calls = ((drive.contiguous(), ccur),
              (fired[:, :live].float().contiguous(), wcur))
-    by = sum(d.numel() * 4 + g.numel() * 4 + d.shape[0] * g.shape[1] * 4
-             for d, g in calls)
-    fl = sum(2.0 * d.shape[0] * d.shape[1] * g.shape[1] for d, g in calls)
-    b_ms, b_by = bound_ms(by, fl)
+    works = [wk.crossbar_mvm(*d.shape, g.shape[1]) for d, g in calls]
+    b_ms, b_by = bound_ms((sum(w[0] for w in works),
+                           sum(w[1] for w in works)))
     eff = [(d, g * 1.0) for d, g in calls]   # cutoff 0: effective = g
 
     def mvm():
@@ -1467,9 +1468,7 @@ def time_kernels(served: dict, errs: dict) -> list[dict]:
         c_ms = cuda_ms(lambda d=d, g=g: crossbar_mvm(d, g, v_read=1.0,
                                                      cutoff=0.0))
         c_lib = cuda_ms(lambda d=d, g=g_eff: torch.matmul(d, g))
-        c_bound, c_by = bound_ms(
-            (d.numel() + g.numel() + d.shape[0] * g.shape[1]) * 4,
-            2.0 * d.shape[0] * d.shape[1] * g.shape[1])
+        c_bound, c_by = bound_ms(wk.crossbar_mvm(*d.shape, g.shape[1]))
         print(f"crossbar_mvm {label} call {tuple(d.shape)}x"
               f"{tuple(g.shape)}: {c_ms:.4f} ms, bound {c_bound:.5f} ms by "
               f"{c_by} ({100 * c_bound / c_ms:.1f}% of it), library "
@@ -1499,6 +1498,7 @@ def time_packed_kernels(compressed: dict, errs: dict) -> list[dict]:
     the driven rows, over the columns each function needs."""
     from repro_torch.impact.yflash import I_CSA_THRESHOLD as TH
     from repro_torch.kernels import packing, ref
+    from repro_torch.kernels import work as wk
     from repro_torch.kernels.fused_impact import (
         describe, fused_impact_packed, fused_impact_packed_metered)
     system = compressed["system"]
@@ -1526,30 +1526,26 @@ def time_packed_kernels(compressed: dict, errs: dict) -> list[dict]:
         return torch.matmul(fired[:, :live].float(), wcur)
 
     # A column draws current where any of its codes is not DEAD.
-    n_ne, n_meter = needed_columns(
+    needed = wk.needed_columns(
         ne, bits_live[0].ne(0).any(dim=1).reshape(C * tc))
 
-    def work(n_clause_cols: int) -> tuple[int, float]:
-        in_bytes = (lits.numel() + k4 * n_clause_cols + levels.numel() * 4
-                    + ne.numel() + n_ne * M * 4)
-        return in_bytes, 2.0 * B * Kl * n_clause_cols + 2.0 * B * n_ne * M
-
     rows = []
-    for name, sym, fn, plain, extra_out, n_cols, repl in (
+    for name, sym, fn, plain, metered, repl in (
             ("fused_impact_packed", "fused_impact_packed_f32",
              lambda: fused_impact_packed(*args, thresh=TH, tr=tr),
              lambda: ref.fused_impact_packed_ref(*args, thresh=TH, tr=tr),
-             0, n_ne, "src/repro/kernels/fused_impact.py:280"),
+             False, "src/repro/kernels/fused_impact.py:280"),
             ("fused_impact_packed_metered", "fused_impact_packed_metered_f32",
              lambda: fused_impact_packed_metered(*args, thresh=TH, tr=tr),
              lambda: ref.fused_impact_packed_metered_ref(*args, thresh=TH,
                                                          tr=tr),
-             2 * B, n_meter, "src/repro/kernels/fused_impact.py:453")):
-        in_bytes, flops = work(n_cols)
-        print(f"{name} work: {flops:.0f} flop on {in_bytes} B in ({n_cols} "
-              f"of {C * tc} clause columns x {Kl} driven rows, {n_ne} "
-              f"nonempty class rows)")
-        b_ms, b_by = bound_ms(in_bytes + (B * M + extra_out) * 4, flops)
+             True, "src/repro/kernels/fused_impact.py:453")):
+        work = wk.fused_impact(B, Kl, R, tr, C * tc, S * sr, M,
+                               metered=metered, packed=True, needed=needed)
+        print(f"{name} work: {work[0]:.0f} flop on {work[1]:.0f} B in and "
+              f"out ({needed[metered]} of {C * tc} clause columns x {Kl} "
+              f"driven rows, {needed[0]} nonempty class rows)")
+        b_ms, b_by = bound_ms(work)
         rows.append(dict(
             name=name, route="cuda",
             source="src/repro_torch/kernels/csrc/fused_impact.cu",
@@ -1571,6 +1567,7 @@ def time_training_kernels(trained: dict, errs: dict) -> list[dict]:
     counts), with the bound from the bytes and the 0/1 operations at the
     int8 tensor-core rate."""
     from repro_torch.kernels import ref
+    from repro_torch.kernels import work as wk
     from repro_torch.kernels.class_sum import class_sum
     from repro_torch.kernels.clause_eval import clause_eval
     from repro_torch.kernels.fused_cotm import fused_cotm
@@ -1592,8 +1589,6 @@ def time_training_kernels(trained: dict, errs: dict) -> list[dict]:
     def lib_class():
         return torch.matmul(cl_f, w_f)
 
-    in_clause = B * Kl + Kl * N + N
-    ops_clause, ops_class = 2.0 * B * Kl * N, 2.0 * B * N * M
     fb = trained["feedback_ops"]
     lit2, fired2, sel, match, hi, lo, include = fb
     B2, n = fired2.shape
@@ -1614,22 +1609,21 @@ def time_training_kernels(trained: dict, errs: dict) -> list[dict]:
         ("ta_feedback", "ta_feedback_i32", "ta_feedback.cu",
          "src/repro/kernels/fused_impact.py:394",
          lambda: ta_feedback(*fb), lambda: ref.ta_feedback_ref(*fb),
-         lib_feedback, B2 * Kl + 3 * B2 * n + 9 * Kl * n + 4 * Kl * n,
-         3 * 2.0 * Kl * n * B2),
+         lib_feedback, wk.ta_feedback(B2, Kl, n)),
         ("fused_cotm", "fused_cotm_i32", "digital_cotm.cu",
          "src/repro/kernels/fused_cotm.py:40",
          lambda: fused_cotm(lit, inc, w, ne),
          lambda: ref.fused_cotm_ref(lit, inc, w, ne), lib_fused,
-         in_clause + 4 * N * M + 4 * B * M, ops_clause + ops_class),
+         wk.fused_cotm(B, Kl, N, M)),
         ("clause_eval", "clause_eval_i8", "digital_cotm.cu",
          "src/repro/kernels/clause_eval.py:40",
          lambda: clause_eval(lit, inc, ne),
          lambda: ref.clause_eval_ref(lit, inc, ne), lib_clause,
-         in_clause + B * N, ops_clause),
+         wk.clause_eval(B, Kl, N)),
         ("class_sum", "class_sum_i32", "digital_cotm.cu",
          "src/repro/kernels/class_sum.py:30", lambda: class_sum(cl, w),
          lambda: ref.class_sum_ref(cl, w), lib_class,
-         B * N + 4 * N * M + 4 * B * M, ops_class),
+         wk.class_sum(B, N, M)),
     )
     ref_fb = feedback_operands((REFERENCE_UPDATE_ROWS, Kl, n), lit.device)
     print(f"training-path kernel shapes: ta_feedback (2B, K, n) = "
@@ -1640,9 +1634,10 @@ def time_training_kernels(trained: dict, errs: dict) -> list[dict]:
           f"{cuda_ms(lambda: ta_feedback(*ref_fb)):.4f} ms (plain "
           f"{cuda_ms(lambda: ref.ta_feedback_ref(*ref_fb)):.4f} ms)")
     rows = []
-    for name, sym, src, repl, fn, plain, lib, by, ops in table:
-        b_ms, b_by = bound_ms(by, ops, PEAK_INT8_OPS)
-        print(f"{name} work: {ops:.0f} 0/1 operations on {by} B")
+    for name, sym, src, repl, fn, plain, lib, work in table:
+        b_ms, b_by = bound_ms(work, int_ops=True)
+        print(f"{name} work: {work[0]:.0f} 0/1 operations on {work[1]:.0f} "
+              f"B")
         rows.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{src}", replaces=repl,
@@ -2280,6 +2275,7 @@ def class_call_rows(full: dict, zoo: dict, launches: int) -> list[dict]:
     the nonlinearity applied) and its bound, on the path's operands."""
     from repro_torch.impact.yflash import I_CSA_THRESHOLD as TH
     from repro_torch.kernels import backends, ref
+    from repro_torch.kernels import work as wk
     from repro_torch.kernels.crossbar_mvm import crossbar_mvm, describe
     z = zoo["zoo"]
     zsys, zplan = z.session.system, z.plan
@@ -2316,9 +2312,7 @@ def class_call_rows(full: dict, zoo: dict, launches: int) -> list[dict]:
         # The library yardstick applies the nonlinearity (cutoff 0: none
         # of the conductances is below it) and multiplies.
         g_eff = lambda g=g: g * torch.where(g < 0.0, 1.5, 1.0)
-        b_ms, b_by = bound_ms(
-            (d.numel() + g.numel() + d.shape[0] * g.shape[1]) * 4,
-            2.0 * d.shape[0] * d.shape[1] * g.shape[1])
+        b_ms, b_by = bound_ms(wk.crossbar_mvm(*d.shape, g.shape[1]))
         row = dict(shape=shape, max_abs_err=err, launches=launches,
                    ms=cuda_ms(lambda: mvm(d, g)),
                    plain_ms=cuda_ms(lambda: plain(d, g)),
@@ -2363,27 +2357,272 @@ def coresident_path(device) -> dict:
     return dict(launches=launches, class_calls=rows, zoo=zoo)
 
 
-RESOURCE_KERNELS = re.compile(
-    r"\d+((?:impact|packed|mvm)_[a-z]+|class_sum_kernel|ta_feedback_kernel"
-    r"|clause_eval_kernel|fused_cotm_kernel)(I\w*?EE)?")
+# -- phase 9 --------------------------------------------------------------
+
+COST_BATCHES = (8, 32, 128)    # calibrated at the first
+COST_SWEEPS = 200              # timed sweeps a (session, batch)
+
+
+def host_sweep_s(fn, sweeps: int = COST_SWEEPS) -> float:
+    """Median host wall of ``fn`` (a warm sweep) followed by a
+    synchronize, in seconds."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(sweeps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return statistics.median(walls)
+
+
+def cost_model_phase(system, card: str) -> dict:
+    """(a) The cost model on the card: the reference's ``bench_section``
+    families (``predict`` on ``"torch"`` and ``"cuda"``, ``infer_step``
+    on ``"cuda"`` under each metering) plus ``infer_step`` of a
+    ``packing="2bit"`` fused session, each calibrated at B = 8 on the
+    median host wall of warm synchronized sweeps and predicting B = 32
+    and 128; gates: every predicted/measured ratio within the band,
+    metered-fused raw cost at least off's at every batch.  Also the
+    ratios a unit-weight flops + bytes proxy would give from the same
+    counts (printed, not a model)."""
+    from repro_torch.impact import RuntimeSpec, SweepCostModel
+    from repro_torch.impact.costmodel import DEFAULT_BAND, bench_section
+    dev = str(system.device)
+    lits = digit_literals(max(COST_BATCHES), seed=SEED + 11)
+    valid = np.ones(max(COST_BATCHES), bool)
+    lits_dev = torch.as_tensor(lits, device=system.device)
+    valid_dev = torch.as_tensor(valid, device=system.device)
+    specs = {f"predict/{b}": (RuntimeSpec(backend=b, metering="off",
+                                          device=dev), "predict")
+             for b in ("torch", "cuda")}
+    specs.update({f"infer_step/cuda-{m}": (RuntimeSpec(
+        backend="cuda", metering=m, device=dev), "infer_step")
+        for m in ("off", "fused", "staged")})
+    specs["infer_step/cuda-fused-2bit"] = (RuntimeSpec(
+        backend="cuda", metering="fused", packing="2bit", device=dev),
+        "infer_step")
+    measured: dict[str, dict[int, float]] = {}
+    for family, (spec, entry) in specs.items():
+        sess = system.compile(spec)
+        measured[family] = {}
+        for B in COST_BATCHES:
+            if entry == "predict":
+                host = lambda: sess.predict(lits[:B])
+                dev_fn = lambda: sess.predict(lits_dev[:B])
+            else:
+                host = lambda: sess.infer_step(lits[:B], valid[:B])
+                dev_fn = lambda: sess.infer_step(lits_dev[:B], valid_dev[:B])
+            measured[family][B] = host_sweep_s(host)
+            print(f"cost model {family} B={B}: host wall "
+                  f"{measured[family][B] * 1e3:.4f} ms a sweep (median of "
+                  f"{COST_SWEEPS}), device time {cuda_ms(dev_fn):.4f} ms "
+                  f"(CUDA events), {card}")
+    bench = dict(
+        results={f"{b}_b{B}": dict(us_per_batch=measured[f"predict/{b}"][B]
+                                   * 1e6) for b in ("torch", "cuda")
+                 for B in COST_BATCHES},
+        metered=dict(results={
+            f"metered_{m}_b{B}": dict(
+                us_per_batch=measured[f"infer_step/cuda-{m}"][B] * 1e6)
+            for m in ("off", "fused", "staged") for B in COST_BATCHES}))
+    sec = bench_section(system, bench, batch_sizes=COST_BATCHES)
+    packed = SweepCostModel(system.compile(
+        specs["infer_step/cuda-fused-2bit"][0]))
+    packed.calibrate(COST_BATCHES[0],
+                     measured["infer_step/cuda-fused-2bit"][COST_BATCHES[0]])
+    for B in COST_BATCHES:
+        pred = packed.predict_s(B)
+        sec["entries"][f"infer_step/cuda-fused-2bit_b{B}"] = dict(
+            predicted_s=pred,
+            measured_s=measured["infer_step/cuda-fused-2bit"][B],
+            ratio_pred_over_meas=pred
+            / measured["infer_step/cuda-fused-2bit"][B])
+    lo, hi = DEFAULT_BAND
+    for key, e in sec["entries"].items():
+        family, B = key.rsplit("_b", 1)
+        spec, entry = specs[family]
+        est = SweepCostModel(system.compile(spec), entry).estimate(int(B))
+        ref = SweepCostModel(system.compile(spec), entry).estimate(
+            COST_BATCHES[0])
+        unit = (measured[family][COST_BATCHES[0]]
+                * (est.flops + est.bytes_accessed)
+                / (ref.flops + ref.bytes_accessed) / measured[family][int(B)])
+        e["unit_weight_ratio"] = unit
+        print(f"cost model {key}: predicted / measured "
+              f"{e['ratio_pred_over_meas']:.3f} ({e['predicted_s'] * 1e3:.4f}"
+              f" / {e['measured_s'] * 1e3:.4f} ms; {est.launches:.0f} "
+              f"launches, bound {est.bound_s * 1e6:.3f} us, {est.flops:.0f} "
+              f"flop, {est.bytes_accessed:.0f} B); a unit-weight flops + "
+              f"bytes proxy would give {unit:.3f}")
+        if not lo < e["ratio_pred_over_meas"] < hi:
+            fail(f"cost model {key}: predicted / measured "
+                 f"{e['ratio_pred_over_meas']:.3f} outside {DEFAULT_BAND}")
+    for key, o in sec["orderings"].items():
+        print(f"cost model ordering {key}: raw cost ratio "
+              f"{o['raw_cost_ratio']:.4f}")
+        if o["raw_cost_ratio"] < o.get("must_be_at_least", 0.0):
+            fail(f"cost model ordering {key} fell below 1: "
+                 f"{o['raw_cost_ratio']}")
+    return sec
+
+
+def audit_phase(sessions, card: str) -> dict:
+    """(b) The static audit on the card: ``audit()`` of every prepared
+    entry of ``sessions`` (on the card: with each kernel's occupancy and
+    its library's SASS); the SASS of every library (no TF32 anywhere, f64
+    arithmetic only in the kernels ``ir_audit.F64_REDUCTIONS`` declares);
+    each compiled kernel's registers, shared memory, spills and blocks an
+    SM against its planner's assumption and ``analysis.smem``'s estimate;
+    and each prepared entry swept once on zeros under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync)."""
+    from repro_torch.analysis import ir_audit, smem
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    audited = 0
+    for sess in sessions:
+        report = sess.audit()
+        audited += len(report.fingerprints)
+        if not report.ok:
+            fail(f"audit of {sess!r}: "
+                 + "; ".join(str(f) for f in report.findings))
+        if sess.device.type != "cuda":
+            continue
+        for e, b in sess.compiled_shapes():
+            ins = sess.zero_inputs(e, b)
+            fn = sess.entry_fn(e)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                fn(*ins)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"audit: {audited} prepared entries of {len(sessions)} sessions "
+          f"ok (precision, host I/O, working set, occupancy, SASS); each "
+          f"card entry swept once under sync debug mode 'error' "
+          f"({time.perf_counter() - t0:.1f} s)")
+    tables = {src: _build.resource_table(src) for src in _build.SOURCES}
+    f64 = {}
+    for src in _build.SOURCES:
+        text = _build.sass(src)
+        bad = ir_audit.scan_sass(text, source=src)
+        if bad:
+            fail("SASS: " + "; ".join(str(f) for f in bad))
+        f64[src] = ir_audit.f64_kernels(text)
+    if {k.split("<")[0] for v in f64.values() for k in v} != set(
+            ir_audit.F64_REDUCTIONS):
+        fail(f"f64 arithmetic in {f64}, declared: "
+             f"{ir_audit.F64_REDUCTIONS}")
+    print(f"SASS ({_build.cuobjdump()} -sass): no TF32 instruction in "
+          f"{len(_build.SOURCES)} libraries; f64 arithmetic only in "
+          + ", ".join(k for v in f64.values() for k in v))
+    sets = smem.all_working_sets()
+    bad = ir_audit.resource_findings(sets, tables, entry="all kernels")
+    planned = smem.planned_blocks()
+    rows = []
+    for ws in sets:
+        for name, r in sorted(tables[ws.source].items()):
+            if name.split("<")[0] != ws.variant:
+                continue
+            blocks = smem.blocks_per_sm(r.registers, ws.threads,
+                                        r.smem + ws.smem_dynamic)
+            rows.append(dict(kernel=name, registers=r.registers,
+                             smem=r.smem, spills=r.spill_stores
+                             + r.spill_loads, blocks_per_sm=blocks,
+                             planned=planned.get(ws.variant),
+                             estimate=ws.smem_static))
+            print(f"  {ws.source} {name}: {r.registers} registers x "
+                  f"{ws.threads} threads, {r.smem} B static shared memory "
+                  f"(estimate {ws.smem_static} B"
+                  + (f", + {ws.smem_dynamic} B dynamic" if ws.smem_dynamic
+                     else "")
+                  + f"), spills {r.spill_stores} / {r.spill_loads} B, "
+                  f"{blocks} blocks an SM"
+                  + (f" (planned {planned[ws.variant]})"
+                     if ws.variant in planned else ""))
+    if bad:
+        fail("occupancy / shared memory: "
+             + "; ".join(str(f) for f in bad))
+    print(f"occupancy: every planner's BLOCKS_PER_SM fits its kernels' "
+          f"reported registers and shared memory; every estimate covers "
+          f"the reported shared memory; {card}")
+    return dict(kernels=rows, f64=f64)
+
+
+def adaptive_phase(trained: dict, device, card: str) -> dict:
+    """(c) ``tune_adaptive`` on the card: phase 5's trained class tile
+    programmed with ``adaptive=True`` on variable and on ideal devices,
+    beside the fixed two-phase schedule on the same generator seed; gate:
+    on ideal devices the card's conductances and pulse counts equal the
+    port's own CPU run (rtol 1e-6, as ``tests/test_torch_adaptive.py``)."""
+    from repro_torch.core.cotm import to_unipolar
+    from repro_torch.impact.tiles import encode_class_tile, weight_targets
+    params, _ = trained["model"]
+    w = to_unipolar(params.weights)[0].T.contiguous()            # (n, m)
+    target = weight_targets(w, int(w.max()))
+    out = {}
+    for label, variability in (("variable", True), ("ideal", False)):
+        for schedule, adaptive in (("two-phase", False),
+                                   ("adaptive", True)):
+            gen = (torch.Generator(device=device).manual_seed(SEED + 21)
+                   if variability else None)
+            t0 = time.perf_counter()
+            tile, st = encode_class_tile(w, gen, variability=variability,
+                                         adaptive=adaptive)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            pulses = sum(int(st[k].sum()) for k in (
+                "pretune_prog", "pretune_erase", "finetune_prog",
+                "finetune_erase") if k in st)
+            err = float(((tile.g - target).abs().mean()
+                         / st["segment_size"]))
+            out[(label, schedule)] = dict(tile=tile, stats=st, pulses=pulses)
+            print(f"class tile {tuple(w.shape)} on {label} devices, "
+                  f"{schedule}: {pulses} pulses ({pulses / w.numel():.2f} a "
+                  f"cell), {st['n_unconverged']} unconverged, mean |G - "
+                  f"target| {err:.3f} segments, {secs:.2f} s host wall; "
+                  f"{card}")
+    tile, st = out[("ideal", "adaptive")]["tile"], out[("ideal",
+                                                        "adaptive")]["stats"]
+    cpu_tile, cpu_st = encode_class_tile(w.cpu(), None, variability=False,
+                                         adaptive=True)
+    err = allclose("tune_adaptive on the card vs the CPU (ideal devices)",
+                   tile.g.cpu(), cpu_tile.g, 1e-6)
+    for k in ("pretune_prog", "pretune_erase"):
+        exact(f"tune_adaptive {k} on the card vs the CPU", st[k].cpu(),
+              cpu_st[k])
+    print(f"tune_adaptive on ideal devices: the card's conductances match "
+          f"the CPU run (max abs err {err:.3e} S), pulse counts equal")
+    return out
+
+
+def static_path(served: dict, trained: dict, compressed: dict,
+                device, card: str) -> dict:
+    """Phase 9: the cost model, the static audit and the adaptive
+    programmer on the card."""
+    t0 = time.perf_counter()
+    cost = cost_model_phase(served["system"], card)
+    sessions = [s for sys_ in (served["system"], compressed["system"])
+                for s in sys_._sessions.values() if s.compiled_shapes()]
+    sessions.append(trained["online_session"])
+    audit = audit_phase(sessions, card)
+    adaptive = adaptive_phase(trained, device, card)
+    print(f"phase cost model, audit and adaptive tuning: done in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return dict(cost=cost, audit=audit, adaptive=adaptive)
 
 
 def kernel_resources(source: str) -> list[str]:
-    """Each kernel of ``source`` that ``RESOURCE_KERNELS`` names, with its
-    registers, spills and shared memory, from the build's ``nvcc
-    --resource-usage`` report."""
+    """Each kernel of ``source`` with its registers, shared memory and
+    spills, from the build's ``nvcc --resource-usage`` report."""
     from repro_torch.kernels import _build
-    out, name = [], None
-    for line in _build.resource_usage(source).splitlines():
-        if "_Z" in line:   # a kernel's header line: its mangled name
-            m = RESOURCE_KERNELS.search(line)
-            name = None
-            if m:          # the kernel and its template arguments
-                args = re.findall(r"L[ib](\d+)E", m.group(2) or "")
-                name = m.group(1) + (f"<{','.join(args)}>" if args else "")
-        elif name and ("registers" in line or "spill" in line):
-            out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
-    return out
+    return [f"{name}: {r.registers} registers, {r.smem} B smem, stack "
+            f"{r.stack} B, spill stores {r.spill_stores} B, spill loads "
+            f"{r.spill_loads} B"
+            for name, r in _build.resource_table(source).items()]
 
 
 def main() -> int:
@@ -2455,6 +2694,8 @@ def main() -> int:
     print(f"phase co-resident path: done in {time.perf_counter() - t0:.1f} "
           f"s; crossbar_mvm launches "
           f"{coresident['launches']['crossbar_mvm_f32']}")
+
+    static_path(served, trained, compressed, device, card)
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

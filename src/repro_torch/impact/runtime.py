@@ -26,6 +26,17 @@ Routing follows the reference's ``_scores_expr`` / ``_metered_expr``:
 
 Invalid lanes predict the sentinel -1 and bill exactly 0.
 
+The session also prices and audits what it serves, launching nothing of
+its own and preparing nothing: ``cost_analysis(entry, batch)`` sums the
+work of the primitives the entry is routed to (``kernels.work``: flops,
+bytes, the ``"cuda"`` launches and their bound on an H100), which
+``impact.costmodel`` calibrates; ``ir_text(entry, batch)`` is the entry's
+op trace, one line for each primitive named by the kernel it launches on
+``"cuda"`` and one for each aten op around them, recorded once on zero
+inputs of the entry's shapes; ``audit()`` runs ``analysis.ir_audit`` over
+those traces, the kernels' working sets (``RuntimeSpec.smem_budget_bytes``)
+and, on a card, the compiled kernels.
+
 Co-residency (``RuntimeSpec(coresident=plan)``, ``build_coresident``):
 several small single-tile systems packed block-diagonally onto one grid,
 served by one session whose entries take a per-lane ``model_ids`` (B,)
@@ -53,7 +64,8 @@ from typing import Any, Callable
 import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
-from ..kernels import backends, packing, ref
+from ..kernels import backends, packing, ref, work
+from ..kernels.crossbar_mvm import sm_count
 from . import energy as energy_mod
 from .energy import EnergyReport
 from .yflash import I_CSA_THRESHOLD, T_READ, V_READ
@@ -157,6 +169,10 @@ class RuntimeSpec:
     meters tenant-pure.  It composes with ``packing="2bit"``.  A
     ``topology`` with a mesh is not ported yet and raises
     ``NotImplementedError``.
+
+    ``smem_budget_bytes`` is the shared memory a block of any kernel the
+    session launches may use, as the audit prices it
+    (``analysis.smem``); None means an H100's 232,448 B.
     """
     backend: str = "cuda"
     metering: str = "staged"
@@ -167,6 +183,7 @@ class RuntimeSpec:
     device: str = DEFAULT_DEVICE
     topology: Any = None
     coresident: CoResidentPlan | None = None
+    smem_budget_bytes: int | None = None
 
     def __post_init__(self):
         if self.coresident is not None and not isinstance(self.coresident,
@@ -188,6 +205,9 @@ class RuntimeSpec:
                              f"got {self.packing!r}")
         if self.capacity is not None and self.capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {self.capacity}")
+        if self.smem_budget_bytes is not None and self.smem_budget_bytes < 1:
+            raise ValueError(f"smem_budget_bytes must be >= 1, "
+                             f"got {self.smem_budget_bytes}")
         object.__setattr__(self, "batch_sizes",
                            tuple(int(b) for b in self.batch_sizes))
         if any(b < 1 for b in self.batch_sizes):
@@ -234,6 +254,7 @@ class InferenceSession:
                 device=self.device)
         self.refresh_operands()
         self._exes: dict[tuple[str, int], Callable] = {}
+        self._irs: dict[tuple[str, int], str] = {}
         self._traces: collections.Counter = collections.Counter()
         # The serving sweep and any declared predict shapes are prepared
         # before the first request arrives.
@@ -275,6 +296,173 @@ class InferenceSession:
         """Ensure the ``(entry, batch)`` entry is prepared (nothing runs)."""
         self._exe(entry, batch)
 
+    # -- cost and audit -----------------------------------------------------
+    def route(self, entry: str) -> str:
+        """The primitives ``entry`` runs: ``"fused"`` or ``"fused_metered"``
+        (on the packed operand when ``packed``), ``"staged"`` (the
+        per-shard ``crossbar_mvm`` pair; every co-resident entry) or
+        ``"ta_feedback"``.  Raises for an entry this session does not
+        serve, as the entry itself would."""
+        if entry not in self._ENTRIES:
+            raise ValueError(f"unknown entry point {entry!r}")
+        if entry == "ta_feedback":
+            return "ta_feedback"
+        if entry == "infer_with_report" and not self.meters_energy:
+            raise RuntimeError("this session was compiled with "
+                               "metering='off': it has no infer_with_report")
+        metered = entry != "predict" and self.meters_energy
+        if self.coresident is not None or (metered and
+                                           self.spec.metering == "staged"):
+            return "staged"
+        # "cuda-metered" serves every fused call through the metered kernel.
+        if metered or self.backend.name == "cuda-metered":
+            return "fused_metered"
+        return "fused"
+
+    @property
+    def sm_count(self) -> int:
+        """SMs of the session's card, or of an H100 (``work.H100_SMS``)
+        for a session on the CPU: the count the launch plans are priced
+        for."""
+        if self.device.type == "cuda":
+            return sm_count(self.device.index or 0)
+        return work.H100_SMS
+
+    def mvm_calls(self) -> list[tuple[int, int]]:
+        """(K, N) of each ``crossbar_mvm`` call of one staged sweep: one a
+        row shard over its driven rows, then one a class shard over its
+        rows that hold a clause column (``Backend.impact_clause_bits`` /
+        ``impact_class_scores``)."""
+        sys_ = self.system
+        R, C, tr, tc = sys_.clause_i.shape
+        S, sr, M = sys_.class_i.shape
+        calls = [(k, C * tc) for k in work.live_rows(sys_.n_literals, R, tr)]
+        return calls + [(max(0, min(sr, C * tc - s * sr)), M)
+                        for s in range(S)]
+
+    def _needed(self) -> tuple[int, int]:
+        """``work.needed_columns`` on this session's operands (read from
+        the card once per ``refresh_operands``)."""
+        if self._needed_cols is None:
+            sys_ = self.system
+            R, C, tr, tc = sys_.clause_i.shape
+            rows = work.live_rows(sys_.n_literals, R, tr)
+            drawing = torch.zeros((C, tc), dtype=torch.bool,
+                                  device=self.device)
+            for r, k in enumerate(rows):
+                if self._packed is not None:
+                    codes = self._packed.bits[r, :, :-(-k // 4)]
+                else:
+                    codes = self._clause_i[r, :, :k]
+                drawing |= codes.ne(0).any(dim=1)
+            self._needed_cols = work.needed_columns(self._nonempty,
+                                                    drawing.reshape(-1))
+        return self._needed_cols
+
+    def work_items(self, entry: str, batch: int) -> list[work.Item]:
+        """The work of one ``(entry, batch)`` call, one item a primitive
+        it is routed to (the staged path's dequantize of a packed operand
+        included), counted from shapes by ``kernels.work`` over the
+        columns this system's data needs.  Nothing runs and nothing is
+        prepared."""
+        sys_ = self.system
+        route = self.route(entry)
+        B, K = batch, sys_.n_literals
+        if route == "ta_feedback":
+            n = sys_.n_clauses
+            return [work.Item("ta_feedback_i32",
+                              *work.ta_feedback(B, K, n),
+                              work.launches_one(K, n), work.PEAK_INT8_OPS)]
+        R, C, tr, tc = sys_.clause_i.shape
+        S, sr, M = sys_.class_i.shape
+        if route == "staged":
+            items = []
+            if self._packed is not None:
+                items.append(work.Item("dequant_clause",
+                                       *work.dequant_clause(R, C, tr, tc),
+                                       0))
+            sms = self.sm_count
+            items += [work.Item("crossbar_mvm_f32", *work.crossbar_mvm(B, k, n),
+                                work.launches_mvm(B, k, n, sms))
+                      for k, n in self.mvm_calls()]
+            return items
+        metered = route == "fused_metered"
+        packed = self._packed is not None
+        name = ("fused_impact" + ("_packed" if packed else "")
+                + ("_metered" if metered else "") + "_f32")
+        return [work.Item(name, *work.fused_impact(
+            B, K, R, tr, C * tc, S * sr, M, metered=metered, packed=packed,
+            needed=self._needed()), work.launches_fused(B, C * tc))]
+
+    def cost_analysis(self, entry: str, batch: int) -> dict[str, float]:
+        """The work of the ``(entry, batch)`` call, summed over ``work_items``:
+        ``{"flops", "bytes_accessed", "launches", "bound_s"}`` floats,
+        ``launches`` the device launches of the port's kernels on
+        ``"cuda"`` and ``bound_s`` the least time an H100 could take for
+        them (each primitive's larger of operations over its peak and
+        bytes over the memory rate).  Launches nothing and prepares
+        nothing: ``trace_count`` does not move."""
+        items = self.work_items(entry, batch)
+        return dict(flops=float(sum(i.flops for i in items)),
+                    bytes_accessed=float(sum(i.bytes for i in items)),
+                    launches=float(sum(i.launches for i in items)),
+                    bound_s=float(sum(i.bound_s for i in items)))
+
+    def zero_inputs(self, entry: str, batch: int) -> tuple[torch.Tensor, ...]:
+        """Zero tensors of the ``(entry, batch)`` entry's own operand
+        shapes and dtypes on the session's device: the inputs ``ir_text``
+        runs the entry on."""
+        sys_ = self.system
+        z = lambda shape, dtype: torch.zeros(shape, dtype=dtype,
+                                             device=self.device)
+        K, n = sys_.n_literals, sys_.n_clauses
+        if entry == "ta_feedback":
+            return (z((batch, K), LITERAL_DTYPE),
+                    *(z((batch, n), torch.bool) for _ in range(3)),
+                    z((K, n), torch.int32), z((K, n), torch.int32),
+                    z((K, n), torch.bool))
+        args = (z((batch, K), LITERAL_DTYPE),)
+        if entry != "predict":
+            args += (z((batch,), torch.bool),)
+        if self.coresident is not None:
+            args += (z((batch,), torch.int32),)
+        return args
+
+    def entry_fn(self, entry: str) -> Callable:
+        """The function that serves ``entry`` on this session's routing,
+        taking the entry's tensor operands on the session's device (as
+        ``zero_inputs`` makes them); prepares nothing."""
+        self.route(entry)
+        return getattr(self, f"_{entry}_fn")
+
+    def ir_text(self, entry: str, batch: int) -> str:
+        """The ``(entry, batch)`` entry's op trace, the counterpart of the
+        reference's StableHLO text: one line for each primitive it is
+        routed to, named by the kernel that primitive launches on
+        ``"cuda"``, and one for each aten op outside them, with dtypes
+        and shapes (``analysis.ir_audit.record_ops``).  Recorded the first
+        time it is asked for, by running the entry once on
+        ``zero_inputs``; prepares nothing."""
+        key = (entry, batch)
+        if key not in self._irs:
+            from ..analysis import ir_audit
+            self._irs[key] = ir_audit.record_ops(
+                self.entry_fn(entry), self.zero_inputs(entry, batch))
+        return self._irs[key]
+
+    def audit(self, entry: str | None = None, batch: int | None = None, *,
+              baselines=None):
+        """Static audit of what this session serves
+        (``analysis.ir_audit.audit_session``): the op traces' precision
+        ladder and host isolation, the kernels' shared memory against
+        ``spec.smem_budget_bytes``, fingerprints (diffed against
+        ``baselines`` when given), and on a card the compiled kernels'
+        occupancy and SASS.  Audits every prepared ``(entry, batch)``, or
+        the one pair given, which it does not prepare."""
+        from ..analysis import ir_audit
+        return ir_audit.audit_session(self, entry, batch,
+                                      baselines=baselines)
+
     def refresh_operands(self) -> None:
         """(Re-)read the system's clause currents (packed, when the session
         is ``packed``), nonempty mask and class currents onto the
@@ -291,6 +479,7 @@ class InferenceSession:
             self._packed = None
         self._nonempty = sys_._nonempty_eff().to(self.device)
         self._class_i = sys_.class_i.to(self.device).contiguous()
+        self._needed_cols: tuple[int, int] | None = None
 
     def _operands(self) -> tuple[torch.Tensor, ...]:
         """The weight-side operands a sweep reads: ``(clause_i, nonempty,

@@ -139,11 +139,11 @@ def encode_class_tile(weights_unipolar: torch.Tensor,
 
     Pre-tune: 500 us pulses to within +/-20 segments of target;
     fine-tune: 50 us pulses to within +/-5 segments (Figs. 6, 12, 13).
+
+    ``adaptive=True`` (beyond the paper) replaces the fixed two-phase
+    schedule with the closed-loop width-selecting programmer
+    (``yflash.tune_adaptive``) driving straight to the fine tolerance.
     """
-    if adaptive:
-        raise NotImplementedError(
-            "adaptive=True needs yflash.tune_adaptive, which is not ported "
-            "yet (ROADMAP Queue 1, item 2: tune_adaptive)")
     n, m = weights_unipolar.shape
     dev = weights_unipolar.device
     if w_max is None:
@@ -154,6 +154,16 @@ def encode_class_tile(weights_unipolar: torch.Tensor,
     var = (DeviceVariation.sample(generator, (n, m)) if variability
            else DeviceVariation.none((n, m), device=dev))
     g0 = _erased((n, m), variability, generator, dev)
+
+    if adaptive:
+        tol = finetune_tol_segments * seg
+        g2, p_a, e_a = yflash.tune_adaptive(
+            g0, target, tol, var=var, generator=generator,
+            max_pulses=max_pulses, c2c=variability)
+        stats = dict(pretune_prog=p_a, pretune_erase=e_a,
+                     segment_size=seg, w_max=w_max, adaptive=True,
+                     n_unconverged=int((torch.abs(g2 - target) > tol).sum()))
+        return ClassTile(g=g2), stats
 
     tol_pre = pretune_tol_segments * seg
     g1, p_pre, e_pre = yflash.pulse_until(

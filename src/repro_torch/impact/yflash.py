@@ -12,8 +12,7 @@ Models the 180 nm two-terminal Y-Flash device of the paper [16-18]:
 
 Randomness comes from an explicit ``torch.Generator`` that lives on the
 same device as the conductances; draws are consumed in a fixed order, so
-a seeded generator reproduces a programming run.  ``tune_adaptive`` (the
-closed-loop width-selecting programmer) is not ported yet.
+a seeded generator reproduces a programming run.
 """
 from __future__ import annotations
 
@@ -141,4 +140,50 @@ def pulse_until(g: torch.Tensor, *, target_lo: torch.Tensor,
         g = torch.where(too_high, g_p, torch.where(too_low, g_e, g))
         n_prog += too_high.to(torch.int32)
         n_erase += too_low.to(torch.int32)
+    return g, n_prog, n_erase
+
+
+def tune_adaptive(g: torch.Tensor, target: torch.Tensor, tol, *,
+                  var: DeviceVariation, generator: torch.Generator | None,
+                  widths: tuple[float, ...] = (500e-6, 50e-6, 5e-6),
+                  max_pulses: int = 64, c2c: bool = True,
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Closed-loop programmer with a per-cell choice of pulse width
+    (beyond the paper's fixed two-phase schedule).  Returns (G,
+    prog_pulse_counts, erase_pulse_counts) with int32 counts.
+
+    Each iteration lands every candidate move deterministically (program
+    and erase at each width, in that order), picks per cell the one that
+    lands closest to ``target`` (the first on a tie), and applies it with
+    its own C2C draw: program noise (``C2C_SIGMA``) first, then erase
+    noise (``C2C_SIGMA_HCS``), each a full draw of ``g``'s shape, from
+    ``generator``.  Cells within ``tol`` of ``target`` are frozen, and the
+    loop stops once every cell is, or after ``max_pulses`` iterations.
+    ``c2c=False`` (ideal devices) draws nothing: ``generator`` may be
+    None.
+    """
+    n_prog = torch.zeros(g.shape, dtype=torch.int32, device=g.device)
+    n_erase = torch.zeros_like(n_prog)
+    width_of = torch.tensor(widths, dtype=torch.float32, device=g.device)
+    floor = G_MIN * var.g_floor
+    ceil = G_MAX * var.g_ceil
+    for _ in range(max_pulses):
+        done = torch.abs(g - target) <= tol
+        if bool(done.all()):
+            break
+        landing = torch.stack([pulse(g, w, var) for w in widths
+                               for pulse in (program_pulse, erase_pulse)])
+        best = torch.argmin(torch.abs(landing - target), dim=0)
+        is_prog = best % 2 == 0
+        width = width_of[best // 2]
+        decay = torch.exp(-width / (TAU_PROG * var.tau_prog))
+        rate = 1.0 - torch.exp(-width / (TAU_ERASE * var.tau_erase))
+        if c2c:
+            decay = decay * _lognormal(C2C_SIGMA, g.shape, generator)
+            rate = rate * _lognormal(C2C_SIGMA_HCS, g.shape, generator)
+        g_prog = torch.addcmul(floor, g - floor, torch.clamp(decay, 0.0, 1.0))
+        g_erase = torch.addcmul(g, ceil - g, torch.clamp(rate, 0.0, 1.0))
+        g = torch.where(done, g, torch.where(is_prog, g_prog, g_erase))
+        n_prog += (~done & is_prog).to(torch.int32)
+        n_erase += (~done & ~is_prog).to(torch.int32)
     return g, n_prog, n_erase

@@ -17,16 +17,27 @@ all of them.
 
 ``CudaKernel`` wraps one C entry point: it sets the ``ctypes`` argument
 types, raises when the entry returns a non-zero ``cudaError_t`` and counts
-its launches in ``launches``.
+its launches in ``launches``.  ``primitive(kernel)`` marks the Python
+wrapper that launches it, so that a ``launch_hook`` (the session's op
+trace, ``InferenceSession.ir_text``) sees each wrapper call as one line
+named by its kernel, on the card and on the CPU alike.
+
+What was compiled can be read back: ``resource_table`` parses the
+``--resource-usage`` report into each kernel's registers, shared memory
+and spills, and ``sass`` disassembles a library with ``cuobjdump``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
+from dataclasses import dataclass
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -115,6 +126,103 @@ def resource_usage(source: str) -> str:
     return _target(source).with_suffix(".txt").read_text()
 
 
+@dataclass(frozen=True)
+class Resources:
+    """One compiled kernel's resources, as ``--resource-usage`` reports
+    them: registers a thread, static shared memory a block (bytes), and
+    the bytes of its stack frame and spills."""
+    registers: int
+    smem: int
+    stack: int
+    spill_stores: int
+    spill_loads: int
+
+
+def kernel_name(mangled: str) -> str:
+    """A readable name of a mangled kernel symbol: the function's name
+    and its integer template arguments, as ``impact_tail<1>`` for
+    ``_ZN48_GLOBAL__N__5b68df1e_15_fused_impact_cu_968572f211impact_tailILb1EEEv...``
+    (the anonymous namespace a source's kernels live in is dropped)."""
+    m = re.match(r"_Z(N?)", mangled)
+    if m is None:
+        return mangled
+    i, parts = m.end(), []
+    while i < len(mangled) and mangled[i].isdigit():
+        d = re.match(r"\d+", mangled[i:]).group(0)
+        start = i + len(d)
+        parts.append(mangled[start:start + int(d)])
+        i = start + int(d)
+        if not m.group(1):
+            break
+    names = [p for p in parts if not p.startswith("_GLOBAL__N")]
+    if not names:
+        return mangled
+    args = []
+    if mangled[i:i + 1] == "I":
+        for a in re.finditer(r"L[a-z](\d+)E", mangled[i + 1:]):
+            if a.start() != sum(len(x.group(0)) for x in args):
+                break
+            args.append(a)
+    return names[-1] + (f"<{','.join(a.group(1) for a in args)}>"
+                        if args else "")
+
+
+def parse_resources(text: str) -> dict[str, Resources]:
+    """Each kernel's ``Resources`` in a ``--resource-usage`` report, by
+    ``kernel_name``.  A report without a kernel is an error."""
+    fields: dict[str, dict[str, int]] = {}
+    name = None
+    for line in text.splitlines():
+        sym = re.search(r"(_Z\w+)", line)
+        if sym is not None:
+            name = kernel_name(sym.group(1))
+            fields.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        for key, pat in (("registers", r"Used (\d+) registers"),
+                         ("smem", r"(\d+) bytes smem"),
+                         ("stack", r"(\d+) bytes stack frame"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads")):
+            m = re.search(pat, line)
+            if m is not None:
+                fields[name][key] = int(m.group(1))
+    table = {k: Resources(**{f: v.get(f, 0) for f in Resources.__annotations__})
+             for k, v in fields.items() if "registers" in v}
+    if not table:
+        raise ValueError("no kernel's registers in the resource report")
+    return table
+
+
+def resource_table(source: str) -> dict[str, Resources]:
+    """``parse_resources`` of ``source``'s build report."""
+    return parse_resources(resource_usage(source))
+
+
+def cuobjdump() -> str:
+    """Path of ``cuobjdump``, next to ``nvcc()``; raises where it is
+    missing."""
+    tool = Path(nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        raise RuntimeError(f"cuobjdump not found beside nvcc ({tool}): it "
+                           f"disassembles the built kernels")
+    return str(tool)
+
+
+@functools.lru_cache(maxsize=None)
+def _sass(target: Path) -> str:
+    return subprocess.run([cuobjdump(), "-sass", str(target)],
+                          capture_output=True, text=True, check=True).stdout
+
+
+def sass(source: str) -> str:
+    """The SASS of ``source``'s library (``cuobjdump -sass``), built
+    first if needed."""
+    library(source)
+    return _sass(_target(source))
+
+
 # ctypes spellings of the C argument types: every pointer (and the stream)
 # is c_void_p, or ctypes would pass it as a 32-bit int and cut it.
 PTR = ctypes.c_void_p
@@ -132,6 +240,34 @@ def entry(source: str, symbol: str, argtypes: list, restype=None):
         fn.restype = restype
         _ENTRIES[(source, symbol)] = fn
     return fn
+
+
+_HOOKS: list = []
+
+
+@contextlib.contextmanager
+def launch_hook(hook):
+    """Within the block, each call of a ``primitive`` wrapper goes to
+    ``hook(symbol, fn, args, kwargs)``, which must call ``fn(*args,
+    **kwargs)`` and return its result."""
+    _HOOKS.append(hook)
+    try:
+        yield
+    finally:
+        _HOOKS.remove(hook)
+
+
+def primitive(kernel: "CudaKernel"):
+    """Mark the Python wrapper of ``kernel``: outside a ``launch_hook``
+    the call is the wrapper's own."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            if _HOOKS:
+                return _HOOKS[-1](kernel.symbol, fn, args, kwargs)
+            return fn(*args, **kwargs)
+        return wrapper
+    return deco
 
 
 class CudaKernel:

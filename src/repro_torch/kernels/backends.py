@@ -55,6 +55,9 @@ class Backend:
     implement the primitives and ``register_backend`` an instance."""
 
     name: str = ""
+    #: A reference lowering launches no kernel of its own (the plain
+    #: versions): the audit prices no working set for it.
+    reference: bool = False
     #: A session on this backend holds the 2-bit packed clause operand
     #: (packed once, in ``InferenceSession.refresh_operands``) even when
     #: its spec asks for ``packing="none"``.
@@ -342,6 +345,7 @@ class TorchBackend(Backend):
     """The plain PyTorch versions (``kernels.ref``): the parity oracle."""
 
     name = "torch"
+    reference = True
 
     def clause_eval(self, literals, include, nonempty, *, mode="fired"):
         if mode == "viol":

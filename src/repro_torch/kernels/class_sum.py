@@ -16,6 +16,11 @@ from . import _build
 from .crossbar_mvm import check, on_cuda
 from .ref import class_sum_ref
 
+# The kernel's block (``csrc/digital_cotm.cu``): lanes a block (a warp
+# each), classes a pass and clauses a stage of the int32 weights it
+# stages in shared memory (rows padded by 4 words).
+CS_LANES, CS_CLASSES, CS_CLAUSES = 8, 16, 512
+
 KERNEL = _build.CudaKernel("digital_cotm.cu", "class_sum_i32",
                            [_build.PTR] * 3 + [_build.INT] * 4
                            + [_build.PTR])
@@ -28,6 +33,7 @@ def clause_width(clauses: torch.Tensor) -> int:
     return 4 if clauses.data_ptr() % 4 == 0 and N % 4 == 0 else 1
 
 
+@_build.primitive(KERNEL)
 def class_sum(clauses: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """clauses (B, N) int8 (or bool), weights (N, M) int32 -> scores
     (B, M) int32."""

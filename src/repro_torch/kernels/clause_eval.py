@@ -114,6 +114,7 @@ def clause_operands(literals: torch.Tensor, include: torch.Tensor,
             widths(literals, inc))
 
 
+@_build.primitive(KERNEL)
 def clause_eval(literals: torch.Tensor, include: torch.Tensor,
                 nonempty: torch.Tensor | None = None, *,
                 mode: str = "fired") -> torch.Tensor:

@@ -27,8 +27,14 @@ NARROW_MAX_N, NARROW_MAX_LANES = 15, 4
 MIN_SPLIT_STAGES = 4
 # Blocks an SM runs at once, on either path (256 threads and up to 100
 # registers each; 27 KB of shared memory a tile block): a wave is this
-# many per SM.
+# many per SM.  ``analysis.smem`` checks it against the registers and
+# shared memory each compiled kernel reports.
 BLOCKS_PER_SM = 2
+# The kernels' blocks: threads of a tile block (a 4 x 4 register tile a
+# thread), its copy ring's depth and the padding of a drive row in
+# shared memory; threads of a narrow block and of a reduce block.
+THREADS, STAGES, APAD = 256, 3, STAGE_K + 4
+NARROW_THREADS, REDUCE_THREADS = 256, 256
 
 TILES, NARROW = 0, 1
 
@@ -140,6 +146,7 @@ def bool_bytes(t: torch.Tensor, name: str) -> torch.Tensor:
     return b if t.dtype == torch.bool else (b != 0).view(torch.uint8)
 
 
+@_build.primitive(KERNEL)
 def crossbar_mvm(drive: torch.Tensor, g: torch.Tensor, *,
                  v_read: float = 2.0, nonlin: float = 1.5,
                  cutoff: float = 10e-9) -> torch.Tensor:

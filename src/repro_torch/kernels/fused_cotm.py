@@ -29,6 +29,7 @@ KERNEL = _build.CudaKernel(SOURCE, "fused_cotm_i32",
                            + [_build.PTR])
 
 
+@_build.primitive(KERNEL)
 def fused_cotm(literals: torch.Tensor, include: torch.Tensor,
                weights: torch.Tensor,
                nonempty: torch.Tensor | None = None) -> torch.Tensor:

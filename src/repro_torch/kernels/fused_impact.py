@@ -68,6 +68,12 @@ PACKED_BLOCKS_PER_SM = 2
 # The tail: lanes a block, and the shared-memory words of their fired
 # bits (so at most 65,536 clause columns a lane).
 TAIL_MAX_LANES, TAIL_FIRED_WORDS = 4, 2048
+# The blocks of both passes: threads of a pass-1 block (a 4 x 4 register
+# tile a thread), its copy ring's depth; threads of a tail block and the
+# classes of one pass of its class stage (f64 partial sums in shared
+# memory).
+THREADS, STAGES = 256, 3
+TAIL_THREADS, TAIL_CLASSES = 512, 16
 
 
 @dataclass(frozen=True)
@@ -228,6 +234,7 @@ def _launch(kernel, literals, cells, nonempty, class_i, grid, *,
     return tuple(outs) if metered else outs[0]
 
 
+@_build.primitive(KERNEL)
 def fused_impact(literals: torch.Tensor, clause_i: torch.Tensor,
                  nonempty: torch.Tensor, class_i: torch.Tensor, *,
                  thresh: float) -> torch.Tensor:
@@ -241,6 +248,7 @@ def fused_impact(literals: torch.Tensor, clause_i: torch.Tensor,
                    packed=False)
 
 
+@_build.primitive(KERNEL_METERED)
 def fused_impact_metered(literals: torch.Tensor, clause_i: torch.Tensor,
                          nonempty: torch.Tensor, class_i: torch.Tensor, *,
                          thresh: float,
@@ -256,6 +264,7 @@ def fused_impact_metered(literals: torch.Tensor, clause_i: torch.Tensor,
                    clause_i.shape, thresh=thresh, metered=True, packed=False)
 
 
+@_build.primitive(KERNEL_PACKED)
 def fused_impact_packed(literals: torch.Tensor, bits: torch.Tensor,
                         levels: torch.Tensor, nonempty: torch.Tensor,
                         class_i: torch.Tensor, *, thresh: float,
@@ -272,6 +281,7 @@ def fused_impact_packed(literals: torch.Tensor, bits: torch.Tensor,
                    thresh=thresh, metered=False, packed=True)
 
 
+@_build.primitive(KERNEL_PACKED_METERED)
 def fused_impact_packed_metered(literals: torch.Tensor, bits: torch.Tensor,
                                 levels: torch.Tensor, nonempty: torch.Tensor,
                                 class_i: torch.Tensor, *, thresh: float,

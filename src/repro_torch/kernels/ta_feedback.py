@@ -89,6 +89,7 @@ def widths(lit2: torch.Tensor, byte_ops: tuple[torch.Tensor, ...],
     return 4 if wide else 1, 16 if lit else 1
 
 
+@_build.primitive(KERNEL)
 def ta_feedback(lit2: torch.Tensor, fired2: torch.Tensor, sel: torch.Tensor,
                 match: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor,
                 include: torch.Tensor) -> torch.Tensor:

@@ -41,7 +41,9 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
         "import sys\n"
         "import repro_torch, repro_torch.convert, repro_torch.core, "
         "repro_torch.data.synthetic, repro_torch.impact, repro_torch.kernels,"
-        " repro_torch.serve, repro_torch.train, repro_torch.quickstart\n"
+        " repro_torch.serve, repro_torch.train, repro_torch.quickstart, "
+        "repro_torch.analysis, repro_torch.impact.costmodel, "
+        "repro_torch.kernels.work\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"
