@@ -70,7 +70,22 @@ Phases, each of which must pass or the script exits non-zero:
    estimate, and every entry swept under ``set_sync_debug_mode("error")``;
    (c) the trained class tile programmed with ``adaptive=True`` on
    variable and ideal devices beside the two-phase schedule, the ideal
-   one equal to the CPU run.
+   one equal to the CPU run;
+10. graphs: every prepared entry of the sessions of phases 4, 6 and 8
+   and the trainer's, each serving session's entries also at B = 1, 8
+   and its capacity, is one captured CUDA graph: (a) a call equals the
+   eager body (``entry_fn``) bit for bit on literals that fire clauses;
+   (b) a result is unchanged by the next call; (c) after one online
+   update every session of the trainer's system (both packings, three
+   meterings) serves the new operands; (d) no entry is prepared again
+   over the phase, nor over phase 4's bursts; (e) a graphed call counts
+   the launches an eager one does; (f) a graphed call on device-resident
+   operands syncs nothing under ``set_sync_debug_mode("error")``; (g)
+   ``audit()`` is ok with its graph check, and each graph's nodes are
+   printed; (h) host walls of phase 9 (a)'s families graphed against the
+   eager body at B = 8, 32 and 128, the host time of one replay and one
+   copy in, and the engine's requests/s graphed against the eager body
+   under each metering.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -861,9 +876,11 @@ def serve_path(device) -> dict:
     burst = np.tile(lits, (ENGINE_REQUESTS // len(lits), 1))
     gc_timer = GcTimer()
     gc.callbacks.append(gc_timer)
+    out["burst_traces"] = {}
     for m, sess in sessions.items():
         eng = IMPACTEngine(sess, clock=time.perf_counter)
         eng.run(lits[:2 * CAPACITY])
+        traces = sess.trace_count
         rps, sweep_ms, shares = [], [], []
         for _ in range(ENGINE_WINDOWS):
             q0 = len(eng.request_records)
@@ -884,6 +901,7 @@ def serve_path(device) -> dict:
                     fail(f"engine {m}: request bills {bills!r} != batch "
                          f"meter {meter!r}")
         served[m] = p
+        out["burst_traces"][m] = (traces, sess.trace_count)
         out[f"engine_{m}"] = dict(rps=statistics.median(rps),
                                   sweep_ms=statistics.median(sweep_ms),
                                   engine=eng)
@@ -1158,6 +1176,7 @@ def train_path(device) -> dict:
                            match, hi, lo, inc_t)
     out["model"] = (params, cfg)
     out["data"] = (lit_tr, lit_ho, y_ho)
+    out["trainer"] = trainer
     return out
 
 
@@ -2183,7 +2202,7 @@ def zoo_deployment(device, systems, tally: dict[str, int]) -> dict:
 
 
 def zoo_standby(device, systems, includes, oracle,
-                tally: dict[str, int]) -> None:
+                tally: dict[str, int]):
     """(c) Six resident tenants and a warm pool of two: standby tenants
     are served, the table drains, ``rebalance()`` promotes by traffic
     EWMA, and every prediction still equals the standalone session's
@@ -2264,6 +2283,7 @@ def zoo_standby(device, systems, includes, oracle,
           f"tie, {lanes['ties']} broken otherwise by the zoo), "
           f"{lanes['scored']} with a nonzero score, "
           f"{len(lanes['classes'])} distinct (tenant, class) predictions")
+    return zoo
 
 
 def class_call_rows(full: dict, zoo: dict, launches: int) -> list[dict]:
@@ -2338,7 +2358,8 @@ def coresident_path(device) -> dict:
     full = coresident_full_tile(device, tallies["a"])
     systems, includes = zoo_members(device)
     zoo = zoo_deployment(device, systems, tallies["b"])
-    zoo_standby(device, systems, includes, zoo["oracle"], tallies["c"])
+    standby = zoo_standby(device, systems, includes, zoo["oracle"],
+                          tallies["c"])
     launches: dict[str, int] = {}
     for name, tally in tallies.items():
         for sym in CORESIDENT_KERNELS:
@@ -2354,7 +2375,16 @@ def coresident_path(device) -> dict:
           + "; in all " + ", ".join(f"{k} {v}" for k, v in launches.items()
                                     if v))
     rows = class_call_rows(full, zoo, launches["crossbar_mvm_f32"])
-    return dict(launches=launches, class_calls=rows, zoo=zoo)
+    # Every session of the path, for phase 10: the co-resident ones, the
+    # zoos' (standby pools included) and the members' standalone ones.
+    sessions = {id(s): s for sys_ in (full["combined"], *full["members"],
+                                      *systems)
+                for s in sys_._sessions.values()}
+    for z in (zoo["zoo"], standby):
+        for s in (z.session, *z._standby_sessions.values()):
+            sessions[id(s)] = s
+    return dict(launches=launches, class_calls=rows, zoo=zoo,
+                sessions=list(sessions.values()))
 
 
 # -- phase 9 --------------------------------------------------------------
@@ -2615,6 +2645,395 @@ def static_path(served: dict, trained: dict, compressed: dict,
     return dict(cost=cost, audit=audit, adaptive=adaptive)
 
 
+# -- phase 10 -------------------------------------------------------------
+
+# (a) Every serving session's entries also at these batches (a session's
+# capacity stands in for CAPACITY where it has one).
+GRAPH_BATCHES = (1, 8, CAPACITY)
+# A clause cell that reads above this current is an include (HCS, ~uA;
+# LCS reads ~nA): ``firing_rows`` sets its literal so the clause fires.
+INCLUDE_A = 1e-7
+# (h) Timed calls a median, two medians a (family, batch, way); engine
+# windows of this many requests, three a way and metering mode.
+GRAPH_SWEEPS, GRAPH_ENGINE_REQUESTS = 100, 16384
+
+
+def includes(system) -> np.ndarray:
+    """The (K, n) include mask a programmed system's clause cells hold."""
+    R, C, tr, tc = system.clause_i.shape
+    ci = system.clause_i.permute(0, 2, 1, 3).reshape(R * tr, C * tc)
+    return (ci[:system.n_literals, :system.n_clauses]
+            > INCLUDE_A).cpu().numpy()
+
+
+def graph_operands(sess, entry: str, B: int, rng, inc=None) -> list:
+    """Numpy operands of one ``(entry, B)`` call: literal rows that fire
+    clauses of each lane's model (``firing_rows``), every 16th lane
+    invalid, co-resident lanes round robin over the tenants; random TA
+    feedback operands for ``ta_feedback``."""
+    sys_ = sess.system
+    K_, n = sys_.n_literals, sys_.n_clauses
+    if entry == "ta_feedback":
+        bits = lambda *shape, p=0.5: rng.random(shape) < p
+        draws = lambda: rng.integers(0, 2 ** 31 - 1, (K_, n), dtype=np.int32)
+        return [bits(B, K_).astype(np.int8), bits(B, n, p=0.3),
+                bits(B, n), bits(B, n), draws(), draws(),
+                bits(K_, n, p=0.05)]
+    inc = includes(sys_) if inc is None else inc
+    plan = sess.coresident
+    if plan is None:
+        args = [firing_rows(rng, inc, B)]
+    else:
+        mids = (np.arange(B) % plan.n_tenants).astype(np.int32)
+        lits = np.ones((B, K_), np.int8)
+        for b, t in enumerate(mids):
+            sp = plan.spans[t]
+            lits[b, sp.lit_lo:sp.lit_hi] = firing_rows(
+                rng, inc[sp.lit_lo:sp.lit_hi, sp.col_lo:sp.col_hi], 1)[0]
+        args = [lits]
+    if entry != "predict":
+        args.append(np.arange(B) % 16 != 15)
+    if plan is not None:
+        args.append(mids)
+    return args
+
+
+def on_device(sess, entry: str, args: list) -> list[torch.Tensor]:
+    """The operands on the session's card in the entry's dtypes."""
+    specs = sess.input_specs(entry, args[0].shape[0])
+    return [torch.as_tensor(x, device=sess.device).to(d)
+            for x, (_, d) in zip(args, specs)]
+
+
+def reported(preds, i_cl_sum, i_cs_sum) -> tuple:
+    """``infer_with_report``'s outputs as its report carries them."""
+    from repro_torch.impact.yflash import T_READ, V_READ
+    return (preds, float(V_READ * i_cl_sum * T_READ),
+            float(V_READ * i_cs_sum * T_READ))
+
+
+def graphed_call(sess, entry: str, args: list) -> tuple:
+    """One call through the session's entry point, as a tuple."""
+    if entry == "ta_feedback":
+        return (sess.ta_feedback(*args),)
+    mids = {"model_ids": args[-1]} if sess.coresident is not None else {}
+    if sess.coresident is not None:
+        args = args[:-1]
+    if entry == "predict":
+        r = sess.predict(*args, **mids)
+        return r.predictions, r.scores
+    if entry == "infer_step":
+        r = sess.infer_step(*args, **mids)
+        return r.predictions, r.e_clause_lanes, r.e_class_lanes
+    r = sess.infer_with_report(*args, **mids)
+    return (r.predictions, r.report.clause_energy_j,
+            r.report.class_energy_j)
+
+
+def eager_call(sess, entry: str, args: list) -> tuple:
+    """The entry's eager body (``entry_fn``) on the same operands, moved
+    to the card per call as a session did before its graphs."""
+    out = sess.entry_fn(entry)(*on_device(sess, entry, args))
+    out = out if isinstance(out, tuple) else (out,)
+    return reported(*out) if entry == "infer_with_report" else out
+
+
+def same(name: str, got: tuple, want: tuple) -> None:
+    """Bit for bit: tensors ``torch.equal``, report sums ``==``."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        if isinstance(w, torch.Tensor):
+            exact(f"{name} output {i}", g, w)
+        elif g != w:
+            fail(f"{name} output {i}: {g!r} != {w!r}")
+
+
+class EagerSession:
+    """A session whose ``infer_step`` runs the eager body: the host path
+    before graphs, for phase 10 (h)'s engine windows."""
+
+    def __init__(self, session):
+        self._session = session
+
+    def __getattr__(self, name):
+        return getattr(self._session, name)
+
+    def infer_step(self, literals, valid, model_ids=None):
+        from repro_torch.impact.runtime import InferenceResult
+        preds, e_cl, e_cs = eager_call(self._session, "infer_step",
+                                       [literals, valid])
+        return InferenceResult(predictions=preds, e_clause_lanes=e_cl,
+                               e_class_lanes=e_cs)
+
+
+def graph_entries(sessions) -> list[tuple]:
+    """(session, entry, batch) of every prepared entry with a lane, and
+    of each serving session's entries at ``GRAPH_BATCHES``."""
+    keys = []
+    for sess in sessions:
+        if not sess.graphed:
+            continue
+        shapes = set(sess.compiled_shapes())
+        if sess.capacity is not None:
+            for e in {e for e, _ in shapes if e != "ta_feedback"}:
+                shapes |= {(e, min(b, sess.capacity)) for b in GRAPH_BATCHES}
+        keys += [(sess, e, b) for e, b in sorted(shapes) if b > 0]
+    return keys
+
+
+def check_graphs(keys, rng) -> dict:
+    """(a), (b), (e), (f) on every (session, entry, batch) of ``keys``:
+    the graphed call bit for bit equal to the eager body on literals
+    that fire clauses, a result unchanged by the next call, the same
+    launches counted a call either way, and no host sync in a graphed
+    call on device-resident operands."""
+    from repro_torch import kernels
+    fired: dict[int, list[float]] = {}
+    moved = 0
+    incs: dict[int, np.ndarray] = {}
+    for sess, e, b in keys:
+        inc = incs.setdefault(id(sess.system), includes(sess.system))
+        args = graph_operands(sess, e, b, rng, inc)
+        other = graph_operands(sess, e, b, rng, inc)
+        name = f"{sess!r} {e}@{b}"
+        got = graphed_call(sess, e, args)
+        same(f"(a) {name} graphed vs eager", got, eager_call(sess, e, args))
+        if e == "predict":
+            fired.setdefault(b, []).append(
+                float((got[1] != 0).any(1).float().mean()))
+        held = tuple(x.clone() if isinstance(x, torch.Tensor) else x
+                     for x in got)
+        graphed_call(sess, e, other)
+        same(f"(b) {name} result after the next call", got, held)
+        c0 = kernels.launch_counts()
+        graphed_call(sess, e, args)
+        c1 = kernels.launch_counts()
+        eager_call(sess, e, args)
+        c2 = kernels.launch_counts()
+        d_graph = {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
+        d_eager = {k: c2[k] - c1[k] for k in c2 if c2[k] != c1[k]}
+        if d_graph != d_eager:
+            fail(f"(e) {name}: a graphed call counts {d_graph}, an eager "
+                 f"one {d_eager}")
+        moved += sum(d_graph.values())
+        graph = sess.graph(e, b)
+        dev = on_device(sess, e, args)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            graph(*dev)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    # A lone lane may draw only clauses that pruning retired.
+    wide = [f for b, v in fired.items() if b >= 8 for f in v]
+    if not wide or min(wide) <= 0.0:
+        fail(f"(a) predict lanes with a nonzero score, by batch: {fired}")
+    shares = [f for v in fired.values() for f in v]
+    return dict(fired=(min(wide), statistics.median(shares)),
+                launches=moved)
+
+
+def refresh_check(trained: dict, rng) -> None:
+    """(c) One online update of phase 5's trainer refreshes every session
+    of its system in place; each graph then serves the new operands: its
+    replay equals the eager body, which reads them, bit for bit."""
+    from repro_torch.impact import RuntimeSpec
+    trainer = trained["trainer"]
+    system = trainer.system
+    dev = str(system.device)
+    for metering, pk in (("off", "none"), ("staged", "none"),
+                         ("fused", "2bit"), ("staged", "2bit")):
+        system.compile(RuntimeSpec(backend="cuda", metering=metering,
+                                   packing=pk, capacity=CAPACITY, device=dev))
+    sessions = list(system._sessions.values())
+    keys = graph_entries(sessions)
+    inc = includes(system)
+    operands = {k: graph_operands(k[0], k[1], k[2], rng, inc) for k in keys}
+    before = {k: graphed_call(k[0], k[1], a) for k, a in operands.items()}
+    cells = system.clause_i.clone()
+    _, lit_ho, y_ho = trained["data"]
+    trainer.update(lit_ho[:ONLINE_BATCH], y_ho[:ONLINE_BATCH])
+    if torch.equal(cells, system.clause_i):
+        fail("(c) the online update wrote no cell")
+    changed = 0
+    for (sess, e, b), args in operands.items():
+        got = graphed_call(sess, e, args)
+        same(f"(c) {sess!r} {e}@{b} after refresh_operands", got,
+             eager_call(sess, e, args))
+        changed += any(not torch.equal(g, w) if isinstance(w, torch.Tensor)
+                       else g != w for g, w in zip(got, before[sess, e, b]))
+    if not changed:
+        fail("(c) no refreshed graph's result moved with the update")
+    print(f"phase 10 (c): one online update ({trainer.records[-1]['n_flips']}"
+          f" flips) refreshed {len(sessions)} sessions in place; "
+          f"{len(keys)} graphed entries equal the eager body on the new "
+          f"operands, {changed} of them moved")
+
+
+def graph_walls(system, card: str) -> dict:
+    """(h) Host walls of phase 9 (a)'s families, graphed against the eager
+    body, at COST_BATCHES (``host_sweep_s``, numpy literals in; the mean
+    of two medians each way); the host time of one replay and of one
+    operand's copy in."""
+    from repro_torch.impact import RuntimeSpec
+    dev = str(system.device)
+    lits = digit_literals(max(COST_BATCHES), seed=SEED + 11)
+    valid = np.ones(max(COST_BATCHES), bool)
+    families = {f"predict/{b}": (RuntimeSpec(backend=b, metering="off",
+                                             device=dev), "predict")
+                for b in ("torch", "cuda")}
+    families.update({f"infer_step/cuda-{m}": (RuntimeSpec(
+        backend="cuda", metering=m, device=dev), "infer_step")
+        for m in ("off", "fused", "staged")})
+    families["infer_step/cuda-fused-2bit"] = (RuntimeSpec(
+        backend="cuda", metering="fused", packing="2bit", device=dev),
+        "infer_step")
+    walls = {}
+    for family, (spec, entry) in families.items():
+        sess = system.compile(spec)
+        for B in COST_BATCHES:
+            args = [lits[:B]] + ([valid[:B]] if entry != "predict" else [])
+            ways = {"graphed": lambda: graphed_call(sess, entry, args),
+                    "eager": lambda: eager_call(sess, entry, args)}
+            got = {w: [] for w in ways}
+            for way in ("graphed", "eager", "eager", "graphed"):
+                got[way].append(host_sweep_s(ways[way], GRAPH_SWEEPS))
+            g, e = (statistics.mean(got[w]) for w in ways)
+            walls[family, B] = (g, e)
+            print(f"phase 10 (h) {family} B={B}: host wall graphed "
+                  f"{g * 1e3:.4f} ms ("
+                  + " / ".join(f"{t * 1e3:.4f}" for t in got["graphed"])
+                  + f"), eager body {e * 1e3:.4f} ms ("
+                  + " / ".join(f"{t * 1e3:.4f}" for t in got["eager"])
+                  + f"), {e / g:.2f}x; medians of {GRAPH_SWEEPS}, in the "
+                  f"order graphed, eager, eager, graphed; {card}")
+    graph = system.compile(families["predict/cuda"][0]).graph(
+        "predict", COST_BATCHES[0])
+    x = lits[:COST_BATCHES[0]]
+    for label, fn in (("replay", graph.replay),
+                      ("copy in", lambda: graph.copy_in(x))):
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        t = []
+        for _ in range(GRAPH_SWEEPS):
+            t0 = time.perf_counter()
+            fn()
+            t.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+        walls[label] = statistics.median(t)
+        print(f"phase 10 (h) one {label} of predict@{COST_BATCHES[0]}, host "
+              f"time without a synchronize: {walls[label] * 1e6:.2f} us "
+              f"(median of {GRAPH_SWEEPS}); {card}")
+    return walls
+
+
+def engine_rates(served: dict, card: str) -> dict:
+    """(h) Phase 4's engine on each metering's session, graphed against
+    the eager body, windows of GRAPH_ENGINE_REQUESTS in the order
+    graphed, eager, eager, graphed, graphed, eager; requests/s, host
+    clock."""
+    from repro_torch.serve import IMPACTEngine
+    lits = digit_literals(1024, seed=SEED + 7)
+    burst = np.tile(lits, (GRAPH_ENGINE_REQUESTS // len(lits), 1))
+    rates = {}
+    for m in ("off", "fused", "staged"):
+        sess = served[f"engine_{m}"]["engine"].session
+        engines = {"graphed": IMPACTEngine(sess, clock=time.perf_counter),
+                   "eager": IMPACTEngine(EagerSession(sess),
+                                         clock=time.perf_counter)}
+        got = {k: [] for k in engines}
+        for eng in engines.values():
+            eng.run(lits[:2 * CAPACITY])
+        for way in ("graphed", "eager", "eager", "graphed", "graphed",
+                    "eager"):
+            t0 = time.perf_counter()
+            p, _ = engines[way].run(burst)
+            got[way].append(len(p) / (time.perf_counter() - t0))
+        rates[m] = got
+        med = {w: statistics.median(v) for w, v in got.items()}
+        print(f"phase 10 (h) IMPACTEngine metering={m}: requests/s graphed "
+              + " / ".join(f"{r:.1f}" for r in got["graphed"])
+              + f" (median {med['graphed']:.1f}), eager body "
+              + " / ".join(f"{r:.1f}" for r in got["eager"])
+              + f" (median {med['eager']:.1f}), "
+              f"{med['graphed'] / med['eager']:.2f}x "
+              f"({GRAPH_ENGINE_REQUESTS} requests a window); {card}")
+    return rates
+
+
+def graph_path(served: dict, trained: dict, compressed: dict,
+               coresident: dict, card: str) -> dict:
+    """Phase 10: every prepared entry of phases 4, 6 and 8 and the
+    trainer's session is one CUDA graph, held to its eager body: (a)
+    bitwise at its batches and at GRAPH_BATCHES on literals that fire
+    clauses, (b) a result survives the next call, (c) refreshed operands
+    are read, (d) nothing is prepared again (here, and over phase 4's
+    bursts), (e) launches counted a call as eagerly, (f) no host sync,
+    (g) ``audit()`` ok with the graph check; (h) host walls and
+    requests/s, graphed against the eager body."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 110)
+    for m, (a, b) in served["burst_traces"].items():
+        if a != b:
+            fail(f"(d) phase 4's bursts, metering={m}, prepared entries: "
+                 f"trace_count {a} -> {b}")
+    sessions = {id(s): s for sys_ in (served["system"], compressed["system"])
+                for s in sys_._sessions.values()}
+    online = trained["online_session"]
+    sessions[id(online)] = online
+    for s in coresident["sessions"]:
+        sessions[id(s)] = s
+    sessions = [s for s in sessions.values() if s.compiled_shapes()]
+    keys = graph_entries(sessions)
+    for sess, e, b in keys:
+        sess.warm(b, e)
+    traces = {id(s): s.trace_count for s in sessions}
+    checked = check_graphs(keys, rng)
+    backends = sorted({s.spec.backend for s in sessions})
+    print(f"phase 10 (a), (b), (e), (f): {len(keys)} graphed entries of "
+          f"{len(sessions)} sessions (backends {', '.join(backends)}; "
+          f"packings, meterings and co-resident specs of phases 4, 6 and 8 "
+          f"and the trainer's) equal their eager bodies bit for bit, keep "
+          f"their results over the next call, count {checked['launches']} "
+          f"launches as the eager calls do, and sync nothing; predict "
+          f"lanes with a nonzero score: min {checked['fired'][0]:.3f} at "
+          f"B >= 8, median {checked['fired'][1]:.3f}")
+    refresh_check(trained, rng)
+
+    nodes: dict[str, int] = {}
+    audited = 0
+    for sess in sessions:
+        report = sess.audit()
+        audited += len(report.fingerprints)
+        if not report.ok:
+            fail(f"(g) audit of {sess!r}: "
+                 + "; ".join(str(f) for f in report.findings))
+        for e, b in sess.compiled_shapes():
+            g = sess.graph(e, b)
+            if g is not None:
+                key = f"{sess.spec.backend} {sess.route(e)}"
+                nodes[key] = max(nodes.get(key, 0), g.census.port_kernels)
+                if (e, b) == sess.compiled_shapes()[0]:
+                    print(f"  {sess.spec.backend}/{sess.spec.metering}/"
+                          f"{sess.spec.packing}"
+                          + ("/co-resident" if sess.coresident else "")
+                          + f" {e}@{b}: {g.census.describe()}")
+    print(f"phase 10 (g): audit() ok on {audited} prepared entries with the "
+          f"graph check; most port kernel nodes a graph by route: "
+          + ", ".join(f"{k} {v}" for k, v in sorted(nodes.items())))
+    walls = graph_walls(served["system"], card)
+    rates = engine_rates(served, card)
+    moved = {repr(s): (traces[id(s)], s.trace_count) for s in sessions
+             if s.trace_count != traces[id(s)]}
+    if moved:
+        fail(f"(d) entries prepared again during phase 10: {moved}")
+    print(f"phase 10 (d): trace_count unchanged on {len(sessions)} sessions "
+          f"over the phase and on phase 4's over its bursts")
+    print(f"phase graphs: done in {time.perf_counter() - t0:.1f} s")
+    return dict(walls=walls, rates=rates)
+
+
 def kernel_resources(source: str) -> list[str]:
     """Each kernel of ``source`` with its registers, shared memory and
     spills, from the build's ``nvcc --resource-usage`` report."""
@@ -2696,6 +3115,7 @@ def main() -> int:
           f"{coresident['launches']['crossbar_mvm_f32']}")
 
     static_path(served, trained, compressed, device, card)
+    graph_path(served, trained, compressed, coresident, card)
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

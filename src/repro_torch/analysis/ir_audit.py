@@ -34,6 +34,13 @@ shapes, as ``aten.argmax.default(f32[8,10]) -> i64[8]``.  The checks:
   card, the blocks an SM each compiled kernel's reported registers and
   shared memory allow against the blocks its planner assumes, and the
   estimate at least what nvcc reports.
+* **Graph** (error, on a card): every prepared entry is one captured
+  CUDA graph (``impact.graphs``), unless it has no lane (B = 0);
+  the launches its kernel wrappers made at capture are the trace's
+  primitive lines, symbol for symbol; and the graph holds as many
+  kernel nodes of the port's sources as the entry's kernels launch
+  (``cost_analysis``' ``launches``; none on a reference backend), so no
+  launch escaped the capture or was captured twice.
 * **Fingerprint** (warning): a histogram of the trace's primitives and
   ops plus its operand bytes, diffed against committed ``baselines``
   when given: a change that reroutes a session shows even where the
@@ -59,7 +66,7 @@ F64_REDUCTIONS = ("impact_tail",)
 @dataclasses.dataclass(frozen=True)
 class AuditFinding:
     """One violation in one entry's trace, working set or kernels."""
-    check: str     # "precision" | "host_io" | "smem" | "occupancy" | "fingerprint"
+    check: str     # "precision" | "host_io" | "smem" | "occupancy" | "graph" | "fingerprint"
     severity: str  # "error" (fails ``ok``) or "warning"
     entry: str     # session entry ("predict", ...) or a kernel source
     batch: int
@@ -357,6 +364,49 @@ def resource_findings(sets: Iterable[smem.WorkingSet],
     return findings
 
 
+# -- captured graphs --------------------------------------------------------
+
+_KERNEL_LINE_RE = re.compile(r"^kernel (\w+)\(", re.MULTILINE)
+
+
+def traced_launches(trace: str) -> dict[str, int]:
+    """The primitive calls of an op trace, by the C symbol they launch."""
+    counts: dict[str, int] = {}
+    for sym in _KERNEL_LINE_RE.findall(trace):
+        counts[sym] = counts.get(sym, 0) + 1
+    return counts
+
+
+def graph_findings(graph, trace: str, port_launches: int, *,
+                   entry: str = "?", batch: int = 0) -> list[AuditFinding]:
+    """One prepared entry on a card against its op trace: ``graph`` (an
+    ``impact.graphs.GraphedEntry``, or None where the entry runs eagerly)
+    must exist unless the batch is empty, must have recorded at capture
+    the trace's launches, and its census must hold ``port_launches``
+    kernel nodes of the port's sources."""
+    traced = traced_launches(trace)
+    if graph is None:
+        if batch > 0:
+            return [AuditFinding(
+                "graph", "error", entry, batch,
+                "not one captured CUDA graph: the entry runs eagerly")]
+        return []
+    findings = []
+    if graph.launches != traced:
+        findings.append(AuditFinding(
+            "graph", "error", entry, batch,
+            f"the capture recorded the launches {graph.launches}, the "
+            f"trace {traced}"))
+    nodes = graph.census.port_kernels
+    if nodes != port_launches:
+        findings.append(AuditFinding(
+            "graph", "error", entry, batch,
+            f"the graph holds {nodes} kernel node(s) of the port's sources, "
+            f"the entry's kernels launch {port_launches} "
+            f"({graph.census.describe()})"))
+    return findings
+
+
 # -- the session-level audit ------------------------------------------------
 
 def _keys(session, entry, batch) -> list[tuple[str, int]]:
@@ -383,7 +433,8 @@ def audit_session(session, entry: str | None = None,
     device whose backend launches kernels) the kernels the entries
     launch are also checked against nvcc's resource report, and their
     sources' SASS is scanned; building them raises where ``nvcc`` or
-    ``cuobjdump`` is missing."""
+    ``cuobjdump`` is missing.  On a card, whatever the backend, every
+    prepared entry is held to its captured graph (``graph_findings``)."""
     findings: list[AuditFinding] = []
     fingerprints: dict[str, dict[str, Any]] = {}
     smem_bytes: dict[str, int] = {}
@@ -407,6 +458,11 @@ def audit_session(session, entry: str | None = None,
                     "smem", "error", e, b,
                     f"{ws.variant} takes {ws.smem_bytes} B of shared memory "
                     f"a block, over the budget of {budget} B"))
+        if session.graphed and session.is_compiled(e, b):
+            port = (0 if getattr(session.backend, "reference", False) else
+                    int(session.cost_analysis(e, b)["launches"]))
+            findings += graph_findings(session.graph(e, b), trace, port,
+                                       entry=e, batch=b)
         if on_card:
             sets = smem.entry_working_sets(session, e, b)
             tables = {w.source: _build.resource_table(w.source)

@@ -22,9 +22,15 @@ the measured sweep grows far less, so a model calibrated at B = 8 would
 predict B = 128 at several times its time, out of the band.  So ``raw``
 prices time on the card instead: each primitive's larger of its
 operations over the H100's peak for their type and its bytes over the
-memory rate (``cost_analysis``' ``bound_s``), plus the launches times
-the cost of one launch.  The calibration then absorbs what the host adds
-around them.
+memory rate (``cost_analysis``' ``bound_s``), plus the host part of the
+call.  The calibration then absorbs what the host adds around them.
+
+The host part depends on how the session serves the entry.  An eager
+entry (a session on the CPU) dispatches each kernel from Python: its
+launches times the cost of one launch.  A session on a card replays one
+CUDA graph a call (``impact.graphs``), whatever its launches: one replay
+plus one copy into a static input per operand.  ``cost_analysis``'
+``launches`` stays the kernel count either way.
 
 Two predictions, kept apart:
 
@@ -54,6 +60,13 @@ DEFAULT_BAND = (0.2, 5.0)
 #: PERF.md kernel table).
 LAUNCH_S = 4.8e-6
 
+#: Host time of one replay of a prepared entry's graph (6.22 us), and of
+#: copying one numpy operand into a static input through its pinned
+#: staging buffer (21.27 us), both without a synchronize, on an NVIDIA
+#: H100 80GB HBM3 at 700 W (``chip_smoke.py`` phase 10 (h), PERF.md).
+REPLAY_S = 6.2e-6
+COPY_S = 21.3e-6
+
 
 @dataclasses.dataclass(frozen=True)
 class CostEstimate:
@@ -65,13 +78,23 @@ class CostEstimate:
     analog_latency_s: float
     launches: float = 0.0
     bound_s: float = 0.0
+    graphed: bool = False
+    copies: int = 0
+
+    @property
+    def host_s(self) -> float:
+        """The host part: one replay and ``copies`` operand copies for a
+        graphed entry, ``launches`` x ``LAUNCH_S`` for an eager one."""
+        if self.graphed:
+            return REPLAY_S + self.copies * COPY_S
+        return self.launches * LAUNCH_S
 
     @property
     def raw(self) -> float:
         """Uncalibrated cost, in seconds of an H100: the work's bound plus
-        ``launches`` x ``LAUNCH_S``.  Positive, so that calibration can
-        divide by it."""
-        return max(self.bound_s + self.launches * LAUNCH_S, 1e-9)
+        the host part.  Positive, so that calibration can divide by
+        it."""
+        return max(self.bound_s + self.host_s, 1e-9)
 
 
 class SweepCostModel:
@@ -93,7 +116,9 @@ class SweepCostModel:
             entry=self.entry, batch=batch, flops=ca["flops"],
             bytes_accessed=ca["bytes_accessed"],
             analog_latency_s=self.session.system._grid_latency(),
-            launches=ca["launches"], bound_s=ca["bound_s"])
+            launches=ca["launches"], bound_s=ca["bound_s"],
+            graphed=self.session.graphed,
+            copies=len(self.session.input_specs(self.entry, batch)))
 
     def calibrate(self, batch: int, measured_s: float) -> None:
         """Fix the coefficient: ``measured_s`` is one warm sweep's wall

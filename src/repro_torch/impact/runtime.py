@@ -4,11 +4,16 @@ PyTorch port of ``repro.impact.runtime`` for one device).
 A frozen ``RuntimeSpec`` (backend name, metering mode, precision,
 packing, slot capacity, device) is resolved ONCE by
 ``IMPACTSystem.compile(spec)`` into an ``InferenceSession``: the backend
-is looked up in the registry, the weight-side operands are placed on the
-spec's device, and each ``(entry, batch)`` the session will serve is
-prepared.  PyTorch runs eagerly, so "prepared" binds the entry's routing
-for that batch shape; ``trace_count`` counts the prepared entries, which
-serving must never grow.  CUDA graphs per ``(entry, batch)`` come later.
+is looked up in the registry, the weight-side operands are copied into
+storage the session owns on the spec's device, and each ``(entry,
+batch)`` the session will serve is prepared.  On a card, preparing
+captures the entry into one CUDA graph (``impact.graphs``), the
+counterpart of the reference's AOT executable: every call of that entry
+copies its operands into the graph's static inputs, replays it and
+returns clones of its outputs.  On the CPU (``device="cpu"``, which the
+caller asks for) an entry runs eagerly.  At B = 0 there is nothing to
+launch, and the entry runs eagerly on a card too.  ``trace_count``
+counts the prepared entries, which serving must never grow.
 
 Routing follows the reference's ``_scores_expr`` / ``_metered_expr``:
 
@@ -46,14 +51,16 @@ clause-column span before the class stage; predictions are tenant-local
 (the argmax over the lane's own class span, rebased to it), and the
 per-lane meters are tenant-pure.
 
-A session holds the system's weight-side operands on its device: the
-clause currents, or under ``packing="2bit"`` (and on the ``"cuda-packed"``
-backend, whatever the spec's ``packing``) their 2-bit packed operand
-(``kernels.packing``, packed on the session's device) in their place.
-The reference's session re-reads the system's arrays on every call; this
-one reads them at construction and again on ``refresh_operands()``,
-which ``train.OnlineTrainer`` calls on every session of the system after
-each write, so a packed session is re-packed after each write.
+A session holds the system's weight-side operands on its device, in
+storage of its own that its graphs read: the clause currents, or under
+``packing="2bit"`` (and on the ``"cuda-packed"`` backend, whatever the
+spec's ``packing``) their 2-bit packed operand (``kernels.packing``,
+packed on the session's device) in their place.  The reference's session
+re-reads the system's arrays on every call; this one reads them at
+construction and again on ``refresh_operands()``, which
+``train.OnlineTrainer`` calls on every session of the system after each
+write: it writes the new operands into that storage in place (re-packing
+a packed session), so the graphs serve the updated model.
 """
 from __future__ import annotations
 
@@ -67,6 +74,7 @@ from ..device import DEFAULT_DEVICE, resolve_device
 from ..kernels import backends, packing, ref, work
 from ..kernels.crossbar_mvm import sm_count
 from . import energy as energy_mod
+from . import graphs
 from .energy import EnergyReport
 from .yflash import I_CSA_THRESHOLD, T_READ, V_READ
 
@@ -252,10 +260,18 @@ class InferenceSession:
             self._class_spans = torch.tensor(
                 self.coresident.class_spans, dtype=torch.int32,
                 device=self.device)
-        self.refresh_operands()
-        self._exes: dict[tuple[str, int], Callable] = {}
+        # Prepared entries by (entry, batch): a graphs.GraphedEntry on a
+        # card, the eager body elsewhere and at B = 0; None once
+        # refresh_operands dropped its graph.  One graph memory pool a
+        # session: its graphs replay one at a time on the caller's stream
+        # and every call clones their outputs at once, so a graph's
+        # scratch is dead before the next replay may reuse it.
+        self._exes: dict[tuple[str, int], Callable | None] = {}
+        self._pool = graphs.new_pool(self.device)
         self._irs: dict[tuple[str, int], str] = {}
         self._traces: collections.Counter = collections.Counter()
+        self._ops: dict[str, torch.Tensor] | None = None
+        self.refresh_operands()
         # The serving sweep and any declared predict shapes are prepared
         # before the first request arrives.
         if spec.capacity is not None:
@@ -285,6 +301,11 @@ class InferenceSession:
         serving shapes are warm."""
         return int(sum(self._traces.values()))
 
+    @property
+    def graphed(self) -> bool:
+        """Whether the session's entries are CUDA graphs (on a card)."""
+        return graphs.enabled(self.device)
+
     def compiled_shapes(self, entry: str | None = None) -> list[tuple]:
         return sorted(k for k in self._exes
                       if entry is None or k[0] == entry)
@@ -293,8 +314,20 @@ class InferenceSession:
         return (entry, batch) in self._exes
 
     def warm(self, batch: int, entry: str = "infer_step") -> None:
-        """Ensure the ``(entry, batch)`` entry is prepared (nothing runs)."""
+        """Ensure the ``(entry, batch)`` entry is prepared.  On a card
+        that runs its body once on zero inputs and captures it; on the
+        CPU nothing runs."""
         self._exe(entry, batch)
+
+    def graph(self, entry: str, batch: int) -> graphs.GraphedEntry | None:
+        """The captured graph of a prepared ``(entry, batch)``, or None
+        where the entry runs eagerly (the CPU, B = 0).  Prepares nothing
+        new: a graph that ``refresh_operands`` dropped is captured
+        again."""
+        if (entry, batch) not in self._exes:
+            raise KeyError(f"({entry!r}, {batch}) is not prepared")
+        exe = self._exe(entry, batch)
+        return exe if isinstance(exe, graphs.GraphedEntry) else None
 
     # -- cost and audit -----------------------------------------------------
     def route(self, entry: str) -> str:
@@ -408,30 +441,36 @@ class InferenceSession:
                     launches=float(sum(i.launches for i in items)),
                     bound_s=float(sum(i.bound_s for i in items)))
 
+    def input_specs(self, entry: str, batch: int,
+                    ) -> tuple[tuple[tuple[int, ...], torch.dtype], ...]:
+        """The ``(entry, batch)`` entry's operands as (shape, dtype)
+        pairs, in the order its body takes them."""
+        sys_ = self.system
+        K, n = sys_.n_literals, sys_.n_clauses
+        if entry == "ta_feedback":
+            return (((batch, K), LITERAL_DTYPE),
+                    *(((batch, n), torch.bool) for _ in range(3)),
+                    ((K, n), torch.int32), ((K, n), torch.int32),
+                    ((K, n), torch.bool))
+        specs = (((batch, K), LITERAL_DTYPE),)
+        if entry != "predict":
+            specs += (((batch,), torch.bool),)
+        if self.coresident is not None:
+            specs += (((batch,), torch.int32),)
+        return specs
+
     def zero_inputs(self, entry: str, batch: int) -> tuple[torch.Tensor, ...]:
         """Zero tensors of the ``(entry, batch)`` entry's own operand
         shapes and dtypes on the session's device: the inputs ``ir_text``
-        runs the entry on."""
-        sys_ = self.system
-        z = lambda shape, dtype: torch.zeros(shape, dtype=dtype,
-                                             device=self.device)
-        K, n = sys_.n_literals, sys_.n_clauses
-        if entry == "ta_feedback":
-            return (z((batch, K), LITERAL_DTYPE),
-                    *(z((batch, n), torch.bool) for _ in range(3)),
-                    z((K, n), torch.int32), z((K, n), torch.int32),
-                    z((K, n), torch.bool))
-        args = (z((batch, K), LITERAL_DTYPE),)
-        if entry != "predict":
-            args += (z((batch,), torch.bool),)
-        if self.coresident is not None:
-            args += (z((batch,), torch.int32),)
-        return args
+        runs the entry on, and the static inputs of its graph."""
+        return tuple(torch.zeros(shape, dtype=dtype, device=self.device)
+                     for shape, dtype in self.input_specs(entry, batch))
 
     def entry_fn(self, entry: str) -> Callable:
-        """The function that serves ``entry`` on this session's routing,
+        """The eager body that serves ``entry`` on this session's routing,
         taking the entry's tensor operands on the session's device (as
-        ``zero_inputs`` makes them); prepares nothing."""
+        ``zero_inputs`` makes them): what a graph captures.  Prepares
+        nothing and replays no graph."""
         self.route(entry)
         return getattr(self, f"_{entry}_fn")
 
@@ -464,21 +503,44 @@ class InferenceSession:
                                       baselines=baselines)
 
     def refresh_operands(self) -> None:
-        """(Re-)read the system's clause currents (packed, when the session
-        is ``packed``), nonempty mask and class currents onto the
-        session's device.  The session's tensors are re-pointed at new
-        ones, not written in place, so a caller still holding the old
-        tensors keeps the old values."""
+        """Read the system's clause currents (packed, when the session is
+        ``packed``), nonempty mask and class currents into the session's
+        own operand storage on its device, which its graphs read.  Where
+        every shape and dtype is unchanged they are written in place: the
+        next replay of every graph serves the new operands, and a session
+        tensor that a caller holds (``_packed.bits``, say) changes with
+        them.  Otherwise the session takes new storage and drops its
+        graphs, each captured again on its next use with ``trace_count``
+        unchanged."""
         sys_ = self.system
         clause_i = sys_.clause_i.to(self.device).contiguous()
         if self.packed:
-            self._clause_i = None
-            self._packed = self.backend.pack_clause_operand(clause_i)
+            bits, levels = self.backend.pack_clause_operand(clause_i)
+            ops = dict(bits=bits, levels=levels)
         else:
-            self._clause_i = clause_i
-            self._packed = None
-        self._nonempty = sys_._nonempty_eff().to(self.device)
-        self._class_i = sys_.class_i.to(self.device).contiguous()
+            ops = dict(clause_i=clause_i)
+        ops.update(nonempty=sys_._nonempty_eff().to(self.device),
+                   class_i=sys_.class_i.to(self.device))
+        old = self._ops
+        if old is not None and old.keys() == ops.keys() and all(
+                old[k].shape == v.shape and old[k].dtype == v.dtype
+                for k, v in ops.items()):
+            for k, v in ops.items():
+                old[k].copy_(v)
+        else:
+            # Copies, never the system's own tensors: the storage is
+            # written in place on the next refresh.
+            self._ops = {k: v.clone(memory_format=torch.contiguous_format)
+                         for k, v in ops.items()}
+            if old is not None:
+                self._exes = dict.fromkeys(self._exes)
+                self._pool = graphs.new_pool(self.device)
+            ops = self._ops
+            self._clause_i = ops.get("clause_i")
+            self._packed = (packing.PackedClause(ops["bits"], ops["levels"])
+                            if self.packed else None)
+            self._nonempty = ops["nonempty"]
+            self._class_i = ops["class_i"]
         self._needed_cols: tuple[int, int] | None = None
 
     def _operands(self) -> tuple[torch.Tensor, ...]:
@@ -506,9 +568,10 @@ class InferenceSession:
     # -- entry points -------------------------------------------------------
     def _model_ids(self, model_ids, batch: int) -> tuple[torch.Tensor, ...]:
         """The per-lane tenant selector as the entry's extra operand: ``()``
-        on a single-tenant session (which refuses one), a (B,) int32
-        tensor on the session's device on a co-resident one (which needs
-        one, each id naming a tenant of the plan)."""
+        on a single-tenant session (which refuses one), the (B,) integer
+        ids on a co-resident one (which needs them, each naming a tenant
+        of the plan), where the caller holds them (a numpy array as a
+        host tensor)."""
         if self.coresident is None:
             if model_ids is not None:
                 raise ValueError(
@@ -533,7 +596,7 @@ class InferenceSession:
                 f"model_ids must lie in [0, {self.coresident.n_tenants}) "
                 f"(the plan's tenants), got [{int(mids.min())}, "
                 f"{int(mids.max())}]")
-        return (mids.to(device=self.device, dtype=torch.int32),)
+        return (mids,)
 
     def predict(self, literals, model_ids=None) -> InferenceResult:
         """Fused crossbar -> CSA -> class-sum scores + argmax.  On a
@@ -543,7 +606,7 @@ class InferenceSession:
         span."""
         lits = self._lits(literals)
         mids = self._model_ids(model_ids, lits.shape[0])
-        preds, scores = self._exe("predict", lits.shape[0])(lits, *mids)
+        preds, scores = self._call("predict", lits, *mids)
         return InferenceResult(predictions=preds, scores=scores)
 
     def infer_step(self, literals, valid, model_ids=None) -> InferenceResult:
@@ -554,8 +617,7 @@ class InferenceSession:
         lits = self._lits(literals)
         v = self._valid(valid, lits.shape[0])
         mids = self._model_ids(model_ids, lits.shape[0])
-        preds, e_cl, e_cs = self._exe("infer_step", lits.shape[0])(lits, v,
-                                                                   *mids)
+        preds, e_cl, e_cs = self._call("infer_step", lits, v, *mids)
         return InferenceResult(predictions=preds, e_clause_lanes=e_cl,
                                e_class_lanes=e_cs)
 
@@ -563,9 +625,10 @@ class InferenceSession:
                           model_ids=None) -> InferenceResult:
         """Metered inference with the paper's batch-level ``EnergyReport``
         (one fused pass under ``"fused"``, the staged per-shard path under
-        ``"staged"``).  Padding lanes (``valid`` False) are excluded from
-        the accounting and predict -1.  On a co-resident session
-        ``model_ids`` selects each lane's tenant."""
+        ``"staged"``), built on the host after the call.  Padding lanes
+        (``valid`` False) are excluded from the accounting and predict
+        -1.  On a co-resident session ``model_ids`` selects each lane's
+        tenant."""
         if not self.meters_energy:
             raise RuntimeError(
                 "this session was compiled with metering='off' — "
@@ -575,8 +638,8 @@ class InferenceSession:
         B = lits.shape[0]
         v = self._valid(valid, B)
         mids = self._model_ids(model_ids, B)
-        preds, i_cl_sum, i_cs_sum = self._exe("infer_with_report", B)(
-            lits, v, *mids)
+        preds, i_cl_sum, i_cs_sum = self._call("infer_with_report", lits, v,
+                                               *mids)
         sys_ = self.system
         e_clause = float(V_READ * i_cl_sum * T_READ)
         e_class = float(V_READ * i_cs_sum * T_READ)
@@ -602,38 +665,61 @@ class InferenceSession:
         draws; ``include`` (K, n) current TA actions.  The entry's batch
         is the doubled row count 2B.
         """
-        dev = self.device
-        lit2 = torch.as_tensor(lit2, device=dev).to(LITERAL_DTYPE)
-        fn = self._exe("ta_feedback", lit2.shape[0])
-        b = lambda x: torch.as_tensor(x, device=dev).to(torch.bool)
-        i32 = lambda x: torch.as_tensor(x, device=dev).to(torch.int32)
-        return fn(lit2, b(fired2), b(sel), b(match), i32(hi), i32(lo),
-                  b(include))
+        return self._call("ta_feedback", self._lits(lit2),
+                          *map(torch.as_tensor, (fired2, sel, match, hi, lo,
+                                                 include)))
 
     # -- plumbing -----------------------------------------------------------
     def _lits(self, literals) -> torch.Tensor:
-        return torch.as_tensor(literals, device=self.device).to(
-            LITERAL_DTYPE)
+        lits = torch.as_tensor(literals)
+        if lits.ndim != 2 or lits.shape[1] != self.system.n_literals:
+            raise ValueError(f"literals must be (B, {self.system.n_literals})"
+                             f", got {tuple(lits.shape)}")
+        return lits
 
     def _valid(self, valid, batch: int) -> torch.Tensor:
         if valid is None:
             return torch.ones((batch,), dtype=torch.bool, device=self.device)
-        v = torch.as_tensor(valid, device=self.device).to(torch.bool)
+        v = torch.as_tensor(valid)
         if v.shape != (batch,):
             raise ValueError(f"valid shape {tuple(v.shape)} does not match "
                              f"the batch ({batch},)")
         return v
 
+    def _call(self, entry: str, *args):
+        """Serve one call of ``entry`` on the checked operands (host or
+        device tensors, where the caller holds them): a replay of its
+        graph on a card, its eager body elsewhere."""
+        batch = args[0].shape[0]
+        for x, (shape, _) in zip(args, self.input_specs(entry, batch)):
+            if tuple(x.shape) != shape:
+                raise ValueError(f"{entry} operand of shape "
+                                 f"{tuple(x.shape)}, the entry takes {shape}")
+        return self._exe(entry, batch)(*args)
+
     def _exe(self, entry: str, batch: int) -> Callable:
+        """The prepared ``(entry, batch)``, prepared on first use: captured
+        into a ``graphs.GraphedEntry`` on a card, the eager body on the
+        CPU and at B = 0.  Only a first preparation counts in
+        ``trace_count``; a graph that ``refresh_operands`` dropped is
+        captured again without counting."""
         key = (entry, batch)
-        fn = self._exes.get(key)
-        if fn is None:
+        exe = self._exes.get(key)
+        if exe is None:
             if entry not in self._ENTRIES:
                 raise ValueError(f"unknown entry point {entry!r}")
-            fn = getattr(self, f"_{entry}_fn")
-            self._exes[key] = fn
-            self._traces[entry] += 1
-        return fn
+            body = getattr(self, f"_{entry}_fn")
+            if self.graphed and batch > 0:
+                exe = graphs.GraphedEntry(entry, batch, body,
+                                          self.zero_inputs(entry, batch),
+                                          self._pool)
+            else:
+                exe = _Eager(body, self.device,
+                             [d for _, d in self.input_specs(entry, batch)])
+            if key not in self._exes:
+                self._traces[entry] += 1
+            self._exes[key] = exe
+        return exe
 
     def _scores_expr(self, literals: torch.Tensor) -> torch.Tensor:
         if self._packed is not None:
@@ -786,6 +872,19 @@ class InferenceSession:
                 f"packing={self.spec.packing!r}, "
                 f"capacity={self.spec.capacity}, "
                 f"compiled={self.compiled_shapes()})")
+
+
+class _Eager:
+    """An entry served by its eager body: the operands moved to the
+    session's device in the entry's dtypes, then the body."""
+
+    def __init__(self, body: Callable, device: torch.device,
+                 dtypes: list[torch.dtype]):
+        self.body, self.device, self.dtypes = body, device, dtypes
+
+    def __call__(self, *args):
+        return self.body(*(torch.as_tensor(x, device=self.device).to(dtype)
+                           for x, dtype in zip(args, self.dtypes)))
 
 
 def build_coresident(systems) -> tuple[Any, CoResidentPlan]:

@@ -22,12 +22,22 @@ wrapper that launches it, so that a ``launch_hook`` (the session's op
 trace, ``InferenceSession.ir_text``) sees each wrapper call as one line
 named by its kernel, on the card and on the CPU alike.
 
+A session on a card captures each prepared entry into a CUDA graph
+(``impact.graphs``), and a replay makes no Python call.  So while an
+entry is prepared (its eager run on zero inputs, then its capture) the
+launches go to a ``record_launches`` record instead of ``launches``, and
+every replay adds the capture's record with ``add_launches``:
+``launch_counts()`` counts the kernel launches of each call, graphed or
+eager, and none of the preparation.  A ``launch_hook`` sees the wrapper
+calls of the preparation only, never a replay.
+
 What was compiled can be read back: ``resource_table`` parses the
 ``--resource-usage`` report into each kernel's registers, shared memory
 and spills, and ``sass`` disassembles a library with ``cuobjdump``.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import functools
@@ -243,6 +253,7 @@ def entry(source: str, symbol: str, argtypes: list, restype=None):
 
 
 _HOOKS: list = []
+_RECORDS: list[collections.Counter] = []
 
 
 @contextlib.contextmanager
@@ -284,7 +295,34 @@ class CudaKernel:
         err = entry(self.source, self.symbol, self.argtypes, INT)(*args)
         if err != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {err} at launch")
-        self.launches += 1
+        if _RECORDS:
+            _RECORDS[-1][self] += 1
+        else:
+            self.launches += 1
+
+
+@contextlib.contextmanager
+def record_launches():
+    """Within the block, each kernel launch is added to the yielded
+    ``Counter`` (by ``CudaKernel``) instead of to its ``launches``."""
+    record: collections.Counter = collections.Counter()
+    _RECORDS.append(record)
+    try:
+        yield record
+    finally:
+        _RECORDS.remove(record)
+
+
+def add_launches(record: collections.Counter) -> None:
+    """Count the launches of a ``record_launches`` record once more: one
+    replay of the graph it was recorded at."""
+    for kernel, n in record.items():
+        kernel.launches += n
+
+
+def record_symbols(record: collections.Counter) -> dict[str, int]:
+    """A ``record_launches`` record by C symbol."""
+    return {k.symbol: n for k, n in record.items()}
 
 
 def launch_counts() -> dict[str, int]:

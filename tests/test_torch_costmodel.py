@@ -24,8 +24,9 @@ from repro.impact import build_system as jbuild
 from repro_torch import kernels
 from repro_torch.convert import system_from_arrays
 from repro_torch.impact import RuntimeSpec, SweepCostModel, build_coresident
-from repro_torch.impact.costmodel import (DEFAULT_BAND, LAUNCH_S,
-                                          bench_section, bytes_per_sweep)
+from repro_torch.impact.costmodel import (COPY_S, DEFAULT_BAND, LAUNCH_S,
+                                          REPLAY_S, bench_section,
+                                          bytes_per_sweep)
 from repro_torch.kernels import work
 
 K, N_CLAUSES, M, N_STATES = 64, 32, 4, 64
@@ -256,3 +257,22 @@ def test_needed_columns_follow_refresh(small_system):
     assert sess._needed() == (n_ne, n_meter)
     ne = torch.zeros_like(small_system.nonempty)
     assert work.needed_columns(ne, ne) == (0, 0)
+
+
+@pytest.mark.parametrize("entry,copies", [("predict", 1), ("infer_step", 2),
+                                          ("ta_feedback", 7)])
+def test_graphed_entries_price_one_replay(small_system, monkeypatch, entry,
+                                          copies):
+    """On a card each call replays one CUDA graph: its host part is one
+    replay and one copy an operand, whatever its launches, which stay
+    the kernel count."""
+    sess = small_system.compile(_spec(metering="staged"))
+    eager = SweepCostModel(sess, entry).estimate(32)
+    assert not eager.graphed
+    assert eager.raw == pytest.approx(eager.bound_s
+                                      + eager.launches * LAUNCH_S)
+    monkeypatch.setattr(type(sess), "graphed", property(lambda s: True))
+    est = SweepCostModel(sess, entry).estimate(32)
+    assert est.graphed and est.copies == copies
+    assert est.launches == eager.launches > 0
+    assert est.raw == pytest.approx(est.bound_s + REPLAY_S + copies * COPY_S)
