@@ -85,7 +85,22 @@ Phases, each of which must pass or the script exits non-zero:
    printed; (h) host walls of phase 9 (a)'s families graphed against the
    eager body at B = 8, 32 and 128, the host time of one replay and one
    copy in, and the engine's requests/s graphed against the eager body
-   under each metering.
+   under each metering;
+11. the sharded crossbar (Fig. 14 over ``torch.distributed``): one spawn
+   of four processes on the card forms a gloo world of 4 (data 2 x model
+   2), then its first two ranks regroup as a world of 2 (model 2).  In
+   each world every rank builds the paper-width model on ideal devices at
+   three placements, (R, C, S) = (4, 4, 4), (4, 4, 1) and (13, 8, 8)
+   (plans both, R-only and S-only), and holds, against the single-device
+   session on the card: CSA bits through the sharded lowering exact (f32
+   and 2-bit), every packing x metering's predictions (ties as in phase
+   8), scores, free lanes, lane meters and report, a sharded engine's
+   bills against its batch meter, its ``crossbar_mvm`` calls (launch
+   counters, in windows around the sharded calls only) and its device
+   kernels (``torch.profiler``) against ``cost_analysis``, ``audit()``
+   and the entries' preparations; then the host walls of ``predict`` and
+   ``infer_step`` at B = 8, 32 and 128, sharded against one device.  Any
+   rank's failure fails the phase.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -94,6 +109,7 @@ reference package.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -1694,11 +1710,10 @@ def profile_engines(served: dict, lits: np.ndarray) -> None:
     the device's busy share of the burst's wall time, the kernels that
     took it and, for the fused kernels' passes, the device time a
     call."""
-    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.analysis.profile_window import device_profile
     for m in ("off", "fused", "staged"):
         eng = served[f"engine_{m}"]["engine"]
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with device_profile(cpu=True) as prof:
             t0 = time.perf_counter()
             eng.run(lits)
             torch.cuda.synchronize()
@@ -1718,7 +1733,7 @@ def profile_packed(compressed: dict, calls: int = 50) -> None:
     pass's device time a call and the call's CUDA-event time, on codes
     the pass copies 4 bytes at a time and on codes one byte off (plain
     loads)."""
-    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.analysis.profile_window import device_profile
     from repro_torch.impact.yflash import I_CSA_THRESHOLD as TH
     from repro_torch.kernels import packing
     from repro_torch.kernels.fused_impact import (
@@ -1736,7 +1751,7 @@ def profile_packed(compressed: dict, calls: int = 50) -> None:
         for fn in (fused_impact_packed, fused_impact_packed_metered):
             fn(*args, thresh=TH, tr=tr)
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with device_profile() as prof:
                 for _ in range(calls):
                     fn(*args, thresh=TH, tr=tr)
                 torch.cuda.synchronize()
@@ -1756,7 +1771,7 @@ def profile_training(trained: dict, calls: int = 50) -> None:
     a call, ``fused_cotm`` one kernel and the memset of its scores, and
     the wrappers count one launch a call."""
     import importlib
-    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.analysis.profile_window import device_profile
     from repro_torch.kernels import _build
     from repro_torch.kernels.clause_eval import clause_eval
     from repro_torch.kernels.fused_cotm import fused_cotm
@@ -1796,7 +1811,7 @@ def profile_training(trained: dict, calls: int = 50) -> None:
         fn()
         torch.cuda.synchronize()
         before = _build.launch_counts()[sym]
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with device_profile() as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
@@ -3034,6 +3049,350 @@ def graph_path(served: dict, trained: dict, compressed: dict,
     return dict(walls=walls, rates=rates)
 
 
+# -- phase 11 -------------------------------------------------------------
+
+# The sharded crossbar (Fig. 14 over torch.distributed): gloo worlds of
+# SHARD_WORLDS ranks, every rank on the one card, model axis 2 (world 4:
+# data 2 x model 2).  The paper-width model of phase 4 (seeded, untrained)
+# on ideal devices at three placements: (tile rows, tile columns, class
+# rows) -> (R, C, S) and the plan on a model axis of 2.
+SHARD_WORLDS = (2, 4)
+SHARD_MODEL = 2
+SHARD_PLACEMENTS = {
+    "both": ((512, 128, 128), (4, 4, 4), (True, True)),
+    "r-only": ((512, 128, 2048), (4, 4, 1), (True, False)),
+    # The reference's Fig. 14 tile (examples/crossbar_scaling.py:45).
+    "s-only": ((128, 64, 64), (13, 8, 8), (False, True)),
+}
+SHARD_INVALID_EVERY = 16        # every 16th lane of a sweep is free
+SHARD_REQUESTS = 256            # the engine's burst on each rank
+SHARD_WALL_SWEEPS = 30          # host-wall samples a (session, batch)
+RTOL_SHARD_METER = 1e-5         # lane meters, sharded vs one device
+
+
+class SameClock:
+    """A clock that reads the same on every rank (each reading advances
+    0.5 ms), so every rank's engine takes the same admission decisions."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        self.t += 5e-4
+        return self.t
+
+
+def identity_class(S: int, sr: int, n: int, device) -> torch.Tensor:
+    """A class operand (S, sr, n) whose column j reads clause row j with a
+    unit current: the class stage's scores are then the fired bits."""
+    eye = torch.zeros((S * sr, n), dtype=torch.float32, device=device)
+    k = min(S * sr, n)
+    idx = torch.arange(k, device=device)
+    eye[idx, idx] = 1.0
+    return eye.reshape(S, sr, n)
+
+
+def shard_bits_check(system, mesh, lits: torch.Tensor) -> int:
+    """CSA bits through the sharded lowering (the identity class operand)
+    against the single-device staged kernels on the card, f32 currents
+    and 2-bit codes: exact.  Returns the fired bits counted."""
+    from repro_torch.impact.yflash import I_CSA_THRESHOLD as TH
+    from repro_torch.kernels import backends, ops, packing
+    R, C, tr, tc = system.clause_i.shape
+    S, sr, _ = system.class_i.shape
+    eye = identity_class(S, sr, C * tc, lits.device)
+    ne = system._nonempty_eff()
+    want, _ = system.clause_bits(lits)
+    got = ops.fused_impact(lits, system.clause_i, ne, eye, thresh=TH,
+                           mesh=mesh)
+    exact("sharded CSA bits", got, want.to(torch.float32))
+    pk = packing.pack_clause_operand(system.clause_i)
+    want_pk, _ = backends.get_backend("cuda").impact_clause_bits(
+        lits, packing.dequant_clause(pk.bits, pk.levels, tr), ne,
+        thresh=TH)
+    got_pk = ops.fused_impact_packed(lits, pk, ne, eye, thresh=TH, tr=tr,
+                                     mesh=mesh)
+    exact("sharded CSA bits, 2-bit", got_pk, want_pk.to(torch.float32))
+    return int(want.sum())
+
+
+def shard_gates(tag: str, sharded, single, lits, buf, valid) -> dict:
+    """One (packing, metering) on the mesh against the same spec on one
+    device: predictions (ties as in phase 8), scores, free lanes, lane
+    meters and the report.  Returns the sharded session's calls, for the
+    launch tally, and the ties."""
+    res = {}
+    with path_launches(res) as got:
+        ps = sharded.predict(lits)
+        rs = sharded.infer_step(buf, valid)
+        rep = (sharded.infer_with_report(buf, valid).report
+               if sharded.meters_energy else None)
+    B = lits.shape[0]
+    entries = ["predict", "infer_step"] + (["infer_with_report"]
+                                           if rep is not None else [])
+    priced = [sum(i.kernel == "crossbar_mvm_f32" for i in
+                  sharded.work_items(e, B)) for e in entries]
+    p1, r1 = single.predict(lits), single.infer_step(buf, valid)
+    ties = gate_predictions(f"{tag} predict", ps.predictions, p1.predictions,
+                            p1.scores)
+    allclose(f"{tag} scores", ps.scores, p1.scores, RTOL_SCORES)
+    free = ~valid
+    exact(f"{tag} free lanes", rs.predictions[free],
+          torch.full_like(rs.predictions[free], -1))
+    ties += gate_predictions(f"{tag} infer_step", rs.predictions[valid],
+                             r1.predictions[valid], p1.scores[valid])
+    for name, a, b in (("clause", rs.e_clause_lanes, r1.e_clause_lanes),
+                       ("class", rs.e_class_lanes, r1.e_class_lanes)):
+        allclose(f"{tag} {name} lane energy", a, b, RTOL_SHARD_METER)
+        if bool((a[free] != 0).any()):
+            fail(f"{tag}: a free lane billed {name} energy")
+    if rep is not None:
+        rep1 = single.infer_with_report(buf, valid).report
+        for f in ("read_energy_j", "clause_energy_j", "class_energy_j"):
+            a, b = getattr(rep, f), getattr(rep1, f)
+            if not abs(a - b) <= RTOL_SHARD_METER * abs(b):
+                fail(f"{tag} report {f}: {a} against {b}")
+        if rep.datapoints != rep1.datapoints:
+            fail(f"{tag} report datapoints {rep.datapoints} against "
+                 f"{rep1.datapoints}")
+    return dict(launches=got.get("crossbar_mvm_f32", 0),
+                priced=sum(priced), ties=ties)
+
+
+def shard_device_launches(sessions, buf, valid) -> tuple[int, int]:
+    """One ``infer_step`` of each session under ``torch.profiler``: the
+    device kernels of ``crossbar_mvm.cu`` it ran, against the launches
+    its ``cost_analysis`` prices."""
+    from repro_torch.analysis.profile_window import device_profile
+    priced = 0
+    with device_profile() as prof:
+        for s in sessions:
+            s.infer_step(buf, valid)
+            priced += int(s.cost_analysis("infer_step",
+                                          buf.shape[0])["launches"])
+        torch.cuda.synchronize()
+    kern, calls = pass_times(prof)
+    ran = sum(n for k, n in calls.items() if "mvm_" in k)
+    return ran, priced
+
+
+def shard_walls(system, mesh) -> dict:
+    """Host walls (median of SHARD_WALL_SWEEPS, synchronized) of
+    ``predict`` and ``infer_step`` (fused metering) at COST_BATCHES,
+    sharded against the single-device session on the card, numpy
+    literals in.  The ranks start each sharded measurement together;
+    the single-device one runs on the first rank alone while the others
+    wait, so that it shares the card and the host with nothing."""
+    import torch.distributed as dist
+    from repro_torch.impact import RuntimeSpec, Topology
+    lits = digit_literals(max(COST_BATCHES), seed=SEED + 13)
+    valid = np.ones(max(COST_BATCHES), bool)
+    walls = {}
+    for entry, m in (("predict", "off"), ("infer_step", "fused")):
+        spec = RuntimeSpec(backend="cuda", metering=m,
+                           device=str(system.device))
+        for way, topo in (("sharded", Topology(mesh=mesh)),
+                          ("one device", Topology(shard="none"))):
+            sess = system.compile(dataclasses.replace(spec, topology=topo))
+            alone = way == "one device"
+            for B in COST_BATCHES:
+                args = [lits[:B]] + ([valid[:B]] if entry != "predict"
+                                     else [])
+                fn = getattr(sess, entry)
+                dist.barrier()
+                if not alone or dist.get_rank() == 0:
+                    walls[f"{entry}/{way}/{B}"] = host_sweep_s(
+                        lambda: fn(*args), SHARD_WALL_SWEEPS)
+                if alone:
+                    dist.barrier()
+    return walls
+
+
+def shard_world(rank: int, out_dir: str, device: str) -> None:
+    """Phase 11 on one rank of a gloo world: every rank drives the same
+    calls on the card and gates its own results, written to
+    ``w<world>_rank<rank>.json``."""
+    import torch.distributed as dist
+    from repro_torch.impact import (IMPACTConfig, RuntimeSpec, Topology,
+                                    build_system)
+    from repro_torch.launch.mesh import make_crossbar_mesh
+    from repro_torch.serve import IMPACTEngine
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        dev = torch.device("cuda", 0)
+    world = dist.get_world_size()
+    clock = {"start": time.perf_counter()}
+    mesh = make_crossbar_mesh(SHARD_MODEL, device_type=dev.type)
+    params, cfg = seeded_params()
+    lits = torch.as_tensor(digit_literals(CAPACITY, seed=SEED + 12),
+                           device=dev)
+    valid = torch.ones(CAPACITY, dtype=torch.bool, device=dev)
+    valid[::SHARD_INVALID_EVERY] = False
+    buf = torch.where(valid[:, None], lits, torch.ones_like(lits))
+    out = dict(rank=rank, world=world, placements={})
+    tally = dict(launches=0, priced=0, ties=0)
+    sessions = []
+    clock["setup"] = time.perf_counter()
+    for name, (tiles, grid, plan) in SHARD_PLACEMENTS.items():
+        tr, tc, sr = tiles
+        system = build_system(params, cfg, None, IMPACTConfig(
+            variability=False, max_tile_rows=tr, max_tile_cols=tc,
+            max_class_rows=sr), device=dev)
+        got_grid = (system.clause_i.shape[0], system.clause_i.shape[1],
+                    system.class_i.shape[0])
+        if got_grid != grid:
+            fail(f"placement {name}: grid {got_grid}, expected {grid}")
+        fired = shard_bits_check(system, mesh, lits)
+        audited = 0
+        for pk in ("none", "2bit"):
+            for m in ("off", "staged", "fused"):
+                spec = RuntimeSpec(backend="cuda", metering=m, packing=pk,
+                                   capacity=CAPACITY, device=str(dev))
+                single = system.compile(dataclasses.replace(
+                    spec, topology=Topology(shard="none")))
+                sharded = system.compile(dataclasses.replace(
+                    spec, topology=Topology(mesh=mesh)))
+                if sharded.plan != plan:
+                    fail(f"placement {name}: plan {sharded.plan}, "
+                         f"expected {plan}")
+                if sharded.graph("infer_step", CAPACITY) is not None:
+                    fail(f"placement {name}: a sharded entry was captured")
+                g = shard_gates(f"{name} {pk} {m}", sharded, single, lits,
+                                buf, valid)
+                for k in tally:
+                    tally[k] += g[k]
+                sessions.append(sharded)
+                if m == "staged" or (m == "fused" and pk == "2bit"):
+                    report = sharded.audit()
+                    if not report.ok:
+                        fail(f"audit of {name} {pk} {m}: "
+                             + "; ".join(str(f) for f in report.findings))
+                    audited += 1
+                if sharded.trace_count != (3 if m != "off" else 2):
+                    fail(f"{name} {pk} {m}: {sharded.trace_count} "
+                         f"prepared entries")
+        out["placements"][name] = dict(
+            grid=got_grid, plan=list(plan), fired_bits=fired,
+            audited=audited, lanes=sessions[-1].local_batch(CAPACITY),
+            calls_per_sweep=[len(sessions[-6].mvm_calls()),
+                             len(sessions[-1].mvm_calls())])
+        clock[name] = time.perf_counter()
+        if name == "both":
+            session = system.compile(RuntimeSpec(
+                backend="cuda", capacity=CAPACITY, device=str(dev),
+                topology=Topology(mesh=mesh)))
+            eng = IMPACTEngine(session, clock=SameClock())
+            reqs = digit_literals(SHARD_REQUESTS, seed=SEED + 14)
+            with path_launches({}) as got:
+                preds, stats = eng.run(reqs)
+            tally["launches"] += got["crossbar_mvm_f32"]
+            tally["priced"] += sum(
+                sum(i.kernel == "crossbar_mvm_f32"
+                    for i in session.work_items("infer_step", CAPACITY))
+                for _ in eng.batch_stats)
+            direct = system.compile(RuntimeSpec(
+                backend="cuda", metering="off", device=str(dev),
+                topology=Topology(shard="none"))).predict(reqs)
+            gate_predictions("engine", torch.as_tensor(preds),
+                             direct.predictions, direct.scores)
+            bills = sum(r.e_read_j for r in eng.request_records)
+            meter = stats["energy"].read_energy_j
+            if not abs(bills - meter) <= RTOL_BILLS * abs(meter):
+                fail(f"engine bills {bills} against the batch meter {meter}")
+            out["engine"] = dict(sweeps=len(eng.batch_stats), bills=bills,
+                                 meter=meter)
+            clock["engine"] = time.perf_counter()
+            out["walls"] = shard_walls(system, mesh)
+            clock["walls"] = time.perf_counter()
+    ran, priced = shard_device_launches(sessions, buf, valid)
+    if ran != priced:
+        fail(f"{ran} crossbar_mvm device kernels in one infer_step of each "
+             f"sharded session, cost_analysis prices {priced}")
+    out["device_launches"] = ran
+    clock["profile"] = time.perf_counter()
+    if tally["launches"] == 0:
+        fail("the sharded path launched crossbar_mvm no time")
+    if tally["launches"] != tally["priced"]:
+        fail(f"{tally['launches']} crossbar_mvm calls, cost_analysis "
+             f"prices {tally['priced']}")
+    out["tally"] = tally
+    marks = list(clock.items())
+    out["seconds"] = {k: round(t - t0, 2)
+                      for (_, t0), (k, t) in zip(marks, marks[1:])}
+    with open(os.path.join(out_dir, f"w{world}_rank{rank}.json"),
+              "w") as f:
+        json.dump(out, f)
+
+
+def sharded_rank(rank: int, out_dir: str, device: str = "cuda") -> None:
+    """Phase 11 on one process (``launch.mesh.spawn``): the world of the
+    largest of SHARD_WORLDS, then the first ranks regroup as each smaller
+    world in turn, so the processes start (and reach the card) once."""
+    import datetime
+    import gc
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import TIMEOUT_S
+    for i, world in enumerate(sorted(SHARD_WORLDS, reverse=True)):
+        if i:
+            gc.collect()                # sessions holding the old mesh
+            dist.destroy_process_group()
+            if rank >= world:
+                return
+            dist.init_process_group(
+                "gloo", init_method=f"file://{out_dir}/store{world}",
+                rank=rank, world_size=world,
+                timeout=datetime.timedelta(seconds=TIMEOUT_S))
+        shard_world(rank, out_dir, device)
+
+
+def sharded_path(card: str) -> dict:
+    """Phase 11: the sharded crossbar over gloo worlds of SHARD_WORLDS
+    ranks on the one card; any rank's failure fails the phase."""
+    import tempfile
+    from repro_torch.launch.mesh import spawn
+    t0 = time.perf_counter()
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        spawn(sharded_rank, max(SHARD_WORLDS), tmp,
+              init_method=f"file://{tmp}/store")
+        for world in SHARD_WORLDS:
+            results[world] = []
+            for r in range(world):
+                with open(os.path.join(tmp, f"w{world}_rank{r}.json")) as f:
+                    results[world].append(json.load(f))
+    for world, ranks in results.items():
+        for r in ranks:
+            t = r["tally"]
+            print(f"phase 11 world {world} rank {r['rank']}: "
+                  f"{t['launches']} crossbar_mvm calls on the sharded path "
+                  f"(cost_analysis prices {t['priced']}), "
+                  f"{r['device_launches']} device kernels of crossbar_mvm.cu "
+                  f"in one infer_step a session, as priced; {t['ties']} "
+                  f"tied predictions; engine {r['engine']['sweeps']} "
+                  f"sweeps, bills {r['engine']['bills']:.6e} J against "
+                  f"{r['engine']['meter']:.6e} J; "
+                  + "; ".join(f"{n}: grid {p['grid']}, plan {p['plan']}, "
+                              f"{p['calls_per_sweep']} calls a sweep (f32, "
+                              f"2-bit) on "
+                              f"{p['lanes']} lanes, {p['fired_bits']} fired "
+                              f"bits exact, {p['audited']} sessions audited"
+                              for n, p in r["placements"].items())
+                  + f"; seconds {r['seconds']}")
+        walls = ranks[0]["walls"]
+        for entry in ("predict", "infer_step"):
+            for B in COST_BATCHES:
+                sh = max(r["walls"][f"{entry}/sharded/{B}"] for r in ranks)
+                one = walls[f"{entry}/one device/{B}"]
+                print(f"phase 11 world {world} {entry} B={B}: host wall "
+                      f"sharded {sh * 1e3:.4f} ms (slowest rank), one "
+                      f"device {one * 1e3:.4f} ms (rank 0 alone, graphed), "
+                      f"{sh / one:.1f}x; medians of {SHARD_WALL_SWEEPS}; "
+                      f"{card}")
+    print(f"phase sharded path: done in {time.perf_counter() - t0:.1f} s")
+    return results
+
+
 def kernel_resources(source: str) -> list[str]:
     """Each kernel of ``source`` with its registers, shared memory and
     spills, from the build's ``nvcc --resource-usage`` report."""
@@ -3116,6 +3475,7 @@ def main() -> int:
 
     static_path(served, trained, compressed, device, card)
     graph_path(served, trained, compressed, coresident, card)
+    sharded_path(card)
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,10 @@ it runs.
   kernels allow against their planners' assumptions;
 * ``analysis.ir_audit``: ``InferenceSession.audit()``, over the session's
   op traces (precision ladder, host isolation, fingerprints), the working
-  sets and, on a card, the compiled kernels' SASS.
+  sets and, on a card, the compiled kernels' SASS;
+* ``analysis.profile_window`` (imported on its own, so that ``python -m``
+  runs it): ``torch.profiler`` windows that keep every device event, for
+  gates that count a window's kernels.
 """
 from . import ir_audit, lint, smem
 

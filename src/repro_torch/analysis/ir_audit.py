@@ -35,7 +35,10 @@ shapes, as ``aten.argmax.default(f32[8,10]) -> i64[8]``.  The checks:
   shared memory allow against the blocks its planner assumes, and the
   estimate at least what nvcc reports.
 * **Graph** (error, on a card): every prepared entry is one captured
-  CUDA graph (``impact.graphs``), unless it has no lane (B = 0);
+  CUDA graph (``impact.graphs``), unless the session names a reason it
+  runs eagerly (``InferenceSession.eager_reason``: no lane at B = 0, or a
+  sharded entry, whose sums over the process group run on the host),
+  which the audit reports as an ``"info"`` finding;
   the launches its kernel wrappers made at capture are the trace's
   primitive lines, symbol for symbol; and the graph holds as many
   kernel nodes of the port's sources as the entry's kernels launch
@@ -67,7 +70,7 @@ F64_REDUCTIONS = ("impact_tail",)
 class AuditFinding:
     """One violation in one entry's trace, working set or kernels."""
     check: str     # "precision" | "host_io" | "smem" | "occupancy" | "graph" | "fingerprint"
-    severity: str  # "error" (fails ``ok``) or "warning"
+    severity: str  # "error" (fails ``ok``), "warning" or "info"
     entry: str     # session entry ("predict", ...) or a kernel source
     batch: int
     message: str
@@ -378,14 +381,19 @@ def traced_launches(trace: str) -> dict[str, int]:
 
 
 def graph_findings(graph, trace: str, port_launches: int, *,
-                   entry: str = "?", batch: int = 0) -> list[AuditFinding]:
+                   entry: str = "?", batch: int = 0,
+                   reason: str | None = None) -> list[AuditFinding]:
     """One prepared entry on a card against its op trace: ``graph`` (an
     ``impact.graphs.GraphedEntry``, or None where the entry runs eagerly)
-    must exist unless the batch is empty, must have recorded at capture
-    the trace's launches, and its census must hold ``port_launches``
-    kernel nodes of the port's sources."""
+    must exist unless the batch is empty or ``reason`` says why the entry
+    runs eagerly (then one ``"info"`` finding names it), must have
+    recorded at capture the trace's launches, and its census must hold
+    ``port_launches`` kernel nodes of the port's sources."""
     traced = traced_launches(trace)
     if graph is None:
+        if reason is not None:
+            return [AuditFinding("graph", "info", entry, batch,
+                                 f"runs eagerly: {reason}")]
         if batch > 0:
             return [AuditFinding(
                 "graph", "error", entry, batch,
@@ -462,7 +470,8 @@ def audit_session(session, entry: str | None = None,
             port = (0 if getattr(session.backend, "reference", False) else
                     int(session.cost_analysis(e, b)["launches"]))
             findings += graph_findings(session.graph(e, b), trace, port,
-                                       entry=e, batch=b)
+                                       entry=e, batch=b,
+                                       reason=session.eager_reason(e, b))
         if on_card:
             sets = smem.entry_working_sets(session, e, b)
             tables = {w.source: _build.resource_table(w.source)

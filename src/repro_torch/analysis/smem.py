@@ -181,15 +181,16 @@ def entry_working_sets(session, entry: str,
     (``InferenceSession.route``): none on a reference backend; the
     staged compositions (and every co-resident entry) launch
     ``crossbar_mvm`` on the paths its plans take at ``batch`` (128 when
-    None); the fused entries pass 1 and the tail; ``ta_feedback`` its
+    None), and so do the sharded entries on this rank's lanes and local
+    shards; the fused entries pass 1 and the tail; ``ta_feedback`` its
     kernel."""
     if getattr(session.backend, "reference", False):
         return ()
     route = session.route(entry)
     if route == "ta_feedback":
         return (ta_feedback_working_set(),)
-    if route == "staged":
-        B = 128 if batch is None else batch
+    if route in ("staged", "sharded"):
+        B = session.local_batch(128 if batch is None else batch)
         tiles, narrow, reduce_ = mvm_working_sets()
         sets = {}
         sms = session.sm_count

@@ -5,7 +5,7 @@ from .costmodel import CostEstimate, SweepCostModel
 from .energy import EnergyReport
 from .pipeline import IMPACTConfig, IMPACTSystem, build_system
 from .runtime import (CoResidentPlan, InferenceResult, InferenceSession,
-                      RuntimeSpec, TenantSpan, build_coresident)
+                      RuntimeSpec, TenantSpan, Topology, build_coresident)
 from .tiles import (ClassTile, ClauseTile, encode_class_tile,
                     encode_clause_tile, weight_targets)
 from .yflash import (DeviceVariation, G_HCS_BOOL, G_LCS, I_CSA_THRESHOLD,
@@ -15,6 +15,7 @@ from .yflash import (DeviceVariation, G_HCS_BOOL, G_LCS, I_CSA_THRESHOLD,
 __all__ = [
     "CostEstimate", "SweepCostModel", "EnergyReport", "IMPACTConfig", "IMPACTSystem", "build_system",
     "InferenceResult", "InferenceSession", "RuntimeSpec", "TenantSpan",
+    "Topology",
     "CoResidentPlan", "build_coresident",
     "ClassTile", "ClauseTile", "encode_class_tile", "encode_clause_tile",
     "weight_targets", "DeviceVariation", "G_HCS_BOOL", "G_LCS",

@@ -11,6 +11,7 @@ digitised and summed.
 conductances to per-cell read currents ONCE (``yflash.read_current``
 hoisted out of the per-call path).  ``IMPACTSystem.compile(RuntimeSpec)``
 resolves a runtime into an ``InferenceSession`` (see ``impact.runtime``).
+``clause_bits`` / ``class_scores`` run the staged stages on their own.
 """
 from __future__ import annotations
 
@@ -21,11 +22,12 @@ import torch
 
 from ..core.cotm import CoTMConfig, CoTMParams, include_mask, to_unipolar
 from ..device import resolve_device
+from ..kernels import backends
 from ..kernels.ref import pad_to
 from . import energy as energy_mod
 from .energy import EnergyReport
 from .tiles import encode_class_tile, encode_clause_tile
-from .yflash import read_current
+from .yflash import I_CSA_THRESHOLD, read_current
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,7 +44,12 @@ class IMPACTConfig:
 @dataclasses.dataclass
 class IMPACTSystem:
     """Programmed crossbar grid + digital periphery, as tensors on one
-    device."""
+    device.
+
+    ``mesh`` (optional ``DeviceMesh`` with a ``model`` axis, from
+    ``launch.mesh``) is the system-level default topology: sessions
+    compiled from a spec whose topology has no mesh inherit it (see
+    ``RuntimeSpec.topology``)."""
     clause_g: torch.Tensor        # (R, C, tr, tc) conductances
     nonempty: torch.Tensor        # (C*tc,) digital empty-clause mask
     class_g: torch.Tensor         # (S, sr, m) conductances
@@ -53,6 +60,7 @@ class IMPACTSystem:
     n_classes: int
     cfg: IMPACTConfig
     encode_stats: dict[str, Any]
+    mesh: Any = None
     # The compiled-session cache belongs to this system alone: init=False
     # keeps ``dataclasses.replace`` (a pruned or rewritten copy) from
     # sharing it, which would hand the copy this system's sessions.
@@ -77,6 +85,23 @@ class IMPACTSystem:
         if spec not in self._sessions:
             self._sessions[spec] = rt.InferenceSession(self, spec)
         return self._sessions[spec]
+
+    # -- the staged stages --------------------------------------------------
+    def clause_bits(self, literals, *, impl: str = "cuda",
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(B, K) -> (clauses (B, C*tc) bool, clause tile currents (B, R, C,
+        tc)): the backend's ``impact_clause_bits`` on this system's
+        operands."""
+        return backends.get_backend(impl).impact_clause_bits(
+            torch.as_tensor(literals, device=self.device), self.clause_i,
+            self._nonempty_eff(), thresh=I_CSA_THRESHOLD)
+
+    def class_scores(self, clauses, *, impl: str = "cuda",
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(B, C*tc) -> (scores (B, m) = summed shard currents, currents
+        (B, S, m)): the backend's ``impact_class_scores``."""
+        return backends.get_backend(impl).impact_class_scores(
+            torch.as_tensor(clauses, device=self.device), self.class_i)
 
     def _grid_latency(self) -> float:
         """Fig. 14 latency of one sweep: all n_clauses columns stream
@@ -112,9 +137,12 @@ class IMPACTSystem:
 def build_system(params: CoTMParams, cfg: CoTMConfig,
                  generator: torch.Generator | None,
                  impact_cfg: IMPACTConfig = IMPACTConfig(), *,
-                 device: str | torch.device | None = None) -> IMPACTSystem:
+                 device: str | torch.device | None = None,
+                 mesh=None) -> IMPACTSystem:
     """Map a trained CoTM onto crossbar tiles (Figs. 6, 9, 11) on
-    ``device`` (default ``cuda``; raises without a card).
+    ``device`` (default ``cuda``; raises without a card).  ``mesh``
+    (optional) becomes the system-level default topology every compiled
+    session inherits (``RuntimeSpec.topology`` can override it).
 
     ``generator`` (a ``torch.Generator`` on ``device``) drives the D2D and
     C2C draws, clause tile first, then class tile; ideal devices
@@ -173,4 +201,5 @@ def build_system(params: CoTMParams, cfg: CoTMConfig,
     return IMPACTSystem(
         clause_g=clause_g, nonempty=nonempty.to(torch.bool), class_g=class_g,
         clause_i=read_current(clause_g), class_i=read_current(class_g),
-        n_literals=K, n_clauses=n, n_classes=m, cfg=ic, encode_stats=stats)
+        n_literals=K, n_clauses=n, n_classes=m, cfg=ic, encode_stats=stats,
+        mesh=mesh)

@@ -1,8 +1,8 @@
 """Compiled-session runtime: ``RuntimeSpec`` -> ``InferenceSession`` (the
-PyTorch port of ``repro.impact.runtime`` for one device).
+PyTorch port of ``repro.impact.runtime``).
 
-A frozen ``RuntimeSpec`` (backend name, metering mode, precision,
-packing, slot capacity, device) is resolved ONCE by
+A frozen ``RuntimeSpec`` (backend name, topology, metering mode,
+precision, packing, slot capacity, device) is resolved ONCE by
 ``IMPACTSystem.compile(spec)`` into an ``InferenceSession``: the backend
 is looked up in the registry, the weight-side operands are copied into
 storage the session owns on the spec's device, and each ``(entry,
@@ -30,6 +30,19 @@ Routing follows the reference's ``_scores_expr`` / ``_metered_expr``:
   backend's ``ta_feedback``.
 
 Invalid lanes predict the sentinel -1 and bill exactly 0.
+
+Topology (``RuntimeSpec(topology=Topology(mesh, shard))``): the session
+resolves the shard plan of its (R, S) grid on the mesh's ``model`` axis
+once (``sharding.crossbar.shard_plan``).  With a plan, every serving
+entry routes to ``sharding.crossbar.fused_impact_sharded`` under every
+metering and packing: on a mesh ``"staged"`` and ``"fused"`` share one
+datapath, as in the reference.  A sharded session is SPMD: every rank of
+the mesh must issue the same sequence of calls with the same inputs
+(``ir_text`` and ``audit`` included, which run the entries), and each
+rank gets the full result.  A sharded entry sums over the process group
+on the host (``gloo``), which a CUDA graph cannot hold, so it runs its
+eager body and ``graph()`` gives None for it; ``ta_feedback`` does not
+shard and is captured as on one device.
 
 The session also prices and audits what it serves, launching nothing of
 its own and preparing nothing: ``cost_analysis(entry, batch)`` sums the
@@ -73,6 +86,7 @@ import torch
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..kernels import backends, packing, ref, work
 from ..kernels.crossbar_mvm import sm_count
+from ..sharding import crossbar as crossbar_sh
 from . import energy as energy_mod
 from . import graphs
 from .energy import EnergyReport
@@ -85,6 +99,29 @@ PACKINGS = ("none", "2bit")
 #: Canonical literal dtype of every session entry: callers may pass bool /
 #: int / float {0,1} literals; the session casts once before the kernels.
 LITERAL_DTYPE = torch.int8
+
+
+@dataclasses.dataclass(frozen=True)
+class Topology:
+    """Where the crossbar grid lives on a device mesh.
+
+    ``mesh``: a ``DeviceMesh`` with a ``model`` axis (and optional
+    ``pod`` / ``data`` batch axes, ``launch.mesh``); ``None`` inherits the
+    system-level mesh from ``build_system(..., mesh=...)``.  ``shard``
+    picks the placement of the (R, S) shard grid on the model axis:
+    ``"auto"`` shards whatever divides (both, R-only, or S-only with the
+    other operand replicated), ``"both"`` / ``"r"`` / ``"s"`` demand a
+    placement (compiling raises if the shard count doesn't divide),
+    ``"none"`` forces the single-device kernels even on a meshed system.
+    """
+    mesh: Any = None
+    shard: str = "auto"
+
+    def __post_init__(self):
+        if self.shard not in crossbar_sh.SHARD_MODES:
+            raise ValueError(
+                f"topology shard mode must be one of "
+                f"{crossbar_sh.SHARD_MODES}, got {self.shard!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,9 +211,10 @@ class RuntimeSpec:
     ``coresident`` (a ``CoResidentPlan`` from ``build_coresident``)
     compiles the multi-tenant datapath: every entry takes a per-lane
     ``model_ids`` operand, predictions are tenant-local and the per-lane
-    meters tenant-pure.  It composes with ``packing="2bit"``.  A
-    ``topology`` with a mesh is not ported yet and raises
-    ``NotImplementedError``.
+    meters tenant-pure.  It composes with ``packing="2bit"``.
+
+    ``topology`` (a ``Topology``) places the grid on a device mesh; the
+    default has no mesh and inherits the system's.
 
     ``smem_budget_bytes`` is the shared memory a block of any kernel the
     session launches may use, as the audit prices it
@@ -189,7 +227,7 @@ class RuntimeSpec:
     capacity: int | None = None
     batch_sizes: tuple[int, ...] = ()
     device: str = DEFAULT_DEVICE
-    topology: Any = None
+    topology: Topology = Topology()
     coresident: CoResidentPlan | None = None
     smem_budget_bytes: int | None = None
 
@@ -198,10 +236,9 @@ class RuntimeSpec:
                                                           CoResidentPlan):
             raise TypeError(f"coresident must be a CoResidentPlan (from "
                             f"build_coresident), got {self.coresident!r}")
-        if self.topology is not None:
-            raise NotImplementedError(
-                "topology= (a device mesh) is not ported yet (ROADMAP "
-                "Queue 1, item 13: multiple devices)")
+        if not isinstance(self.topology, Topology):
+            raise TypeError(f"topology must be a Topology, got "
+                            f"{self.topology!r}")
         if self.metering not in METERING_MODES:
             raise ValueError(f"metering must be one of {METERING_MODES}, "
                              f"got {self.metering!r}")
@@ -248,6 +285,17 @@ class InferenceSession:
         self.system = system
         self.backend = backends.get_backend(spec.backend)
         self.device = resolve_device(spec.device)
+        # The shard plan is resolved once, from the spec's mesh or the
+        # system's.
+        top = spec.topology
+        self.mesh = top.mesh if top.mesh is not None else system.mesh
+        R, S = system.clause_i.shape[0], system.class_i.shape[0]
+        self.plan = (crossbar_sh.shard_plan(self.mesh, R, S, top.shard)
+                     if self.mesh is not None else None)
+        if self.mesh is None and top.shard not in ("auto", "none"):
+            raise ValueError(
+                f"topology demands shard={top.shard!r} but neither the "
+                f"spec nor the system provides a mesh")
         # Co-residency: the plan is validated against the combined grid
         # once, and its span tables become small constants on the device
         # that the per-lane model ids index.
@@ -321,7 +369,7 @@ class InferenceSession:
 
     def graph(self, entry: str, batch: int) -> graphs.GraphedEntry | None:
         """The captured graph of a prepared ``(entry, batch)``, or None
-        where the entry runs eagerly (the CPU, B = 0).  Prepares nothing
+        where the entry runs eagerly (``eager_reason``).  Prepares nothing
         new: a graph that ``refresh_operands`` dropped is captured
         again."""
         if (entry, batch) not in self._exes:
@@ -329,11 +377,27 @@ class InferenceSession:
         exe = self._exe(entry, batch)
         return exe if isinstance(exe, graphs.GraphedEntry) else None
 
+    def eager_reason(self, entry: str, batch: int) -> str | None:
+        """Why ``(entry, batch)`` runs its eager body rather than a CUDA
+        graph, or None where it is captured: the CPU, no lane, or a
+        sharded entry, whose sums over the process group run on the host
+        (``gloo``) where a graph cannot hold them."""
+        if not self.graphed:
+            return "the CPU captures no CUDA graph"
+        if batch == 0:
+            return "B = 0: nothing to launch"
+        if self.plan is not None and entry != "ta_feedback":
+            return ("sharded: its all_reduce over the process group runs "
+                    "on the host, which a CUDA graph cannot hold")
+        return None
+
     # -- cost and audit -----------------------------------------------------
     def route(self, entry: str) -> str:
         """The primitives ``entry`` runs: ``"fused"`` or ``"fused_metered"``
         (on the packed operand when ``packed``), ``"staged"`` (the
-        per-shard ``crossbar_mvm`` pair; every co-resident entry) or
+        per-shard ``crossbar_mvm`` pair; every co-resident entry),
+        ``"sharded"`` (this rank's ``crossbar_mvm`` calls of the sharded
+        lowering, every serving entry of a session with a shard plan) or
         ``"ta_feedback"``.  Raises for an entry this session does not
         serve, as the entry itself would."""
         if entry not in self._ENTRIES:
@@ -343,6 +407,8 @@ class InferenceSession:
         if entry == "infer_with_report" and not self.meters_energy:
             raise RuntimeError("this session was compiled with "
                                "metering='off': it has no infer_with_report")
+        if self.plan is not None:
+            return "sharded"
         metered = entry != "predict" and self.meters_energy
         if self.coresident is not None or (metered and
                                            self.spec.metering == "staged"):
@@ -365,13 +431,27 @@ class InferenceSession:
         """(K, N) of each ``crossbar_mvm`` call of one staged sweep: one a
         row shard over its driven rows, then one a class shard over its
         rows that hold a clause column (``Backend.impact_clause_bits`` /
-        ``impact_class_scores``)."""
+        ``impact_class_scores``).  With a shard plan, the calls of this
+        rank's local shards (``sharding.crossbar.local_mvm_calls``: one a
+        bitplane of a shard when packed)."""
         sys_ = self.system
         R, C, tr, tc = sys_.clause_i.shape
         S, sr, M = sys_.class_i.shape
+        if self.plan is not None:
+            return crossbar_sh.local_mvm_calls(
+                self.mesh, sys_.n_literals, R, tr, C, tc, S, sr, M,
+                plan=self.plan, packed=self._packed is not None)
         calls = [(k, C * tc) for k in work.live_rows(sys_.n_literals, R, tr)]
         return calls + [(max(0, min(sr, C * tc - s * sr)), M)
                         for s in range(S)]
+
+    def local_batch(self, batch: int) -> int:
+        """Lanes of a ``batch`` this rank computes: its slice of the data
+        axes when the batch divides them, else the whole batch."""
+        if self.plan is None:
+            return batch
+        rows, _ = crossbar_sh.batch_rows(self.mesh, batch)
+        return rows.stop - rows.start
 
     def _needed(self) -> tuple[int, int]:
         """``work.needed_columns`` on this session's operands (read from
@@ -408,13 +488,16 @@ class InferenceSession:
                               work.launches_one(K, n), work.PEAK_INT8_OPS)]
         R, C, tr, tc = sys_.clause_i.shape
         S, sr, M = sys_.class_i.shape
-        if route == "staged":
+        if route in ("staged", "sharded"):
             items = []
             if self._packed is not None:
-                items.append(work.Item("dequant_clause",
-                                       *work.dequant_clause(R, C, tr, tc),
-                                       0))
+                R_loc = (R if self.plan is None else len(
+                    crossbar_sh.local_shards(self.mesh, R, self.plan[0])))
+                items.append(work.Item(
+                    "dequant_clause", *work.dequant_clause(R_loc, C, tr, tc),
+                    0))
             sms = self.sm_count
+            B = self.local_batch(B)
             items += [work.Item("crossbar_mvm_f32", *work.crossbar_mvm(B, k, n),
                                 work.launches_mvm(B, k, n, sms))
                       for k, n in self.mvm_calls()]
@@ -433,8 +516,10 @@ class InferenceSession:
         ``launches`` the device launches of the port's kernels on
         ``"cuda"`` and ``bound_s`` the least time an H100 could take for
         them (each primitive's larger of operations over its peak and
-        bytes over the memory rate).  Launches nothing and prepares
-        nothing: ``trace_count`` does not move."""
+        bytes over the memory rate).  A sharded entry counts this rank's
+        own work and launches: its local clause and class calls on its
+        lanes.  Launches nothing and prepares nothing: ``trace_count``
+        does not move."""
         items = self.work_items(entry, batch)
         return dict(flops=float(sum(i.flops for i in items)),
                     bytes_accessed=float(sum(i.bytes for i in items)),
@@ -699,8 +784,8 @@ class InferenceSession:
 
     def _exe(self, entry: str, batch: int) -> Callable:
         """The prepared ``(entry, batch)``, prepared on first use: captured
-        into a ``graphs.GraphedEntry`` on a card, the eager body on the
-        CPU and at B = 0.  Only a first preparation counts in
+        into a ``graphs.GraphedEntry`` on a card, the eager body where
+        ``eager_reason`` gives one (the CPU, B = 0, a sharded entry).  Only a first preparation counts in
         ``trace_count``; a graph that ``refresh_operands`` dropped is
         captured again without counting."""
         key = (entry, batch)
@@ -709,7 +794,7 @@ class InferenceSession:
             if entry not in self._ENTRIES:
                 raise ValueError(f"unknown entry point {entry!r}")
             body = getattr(self, f"_{entry}_fn")
-            if self.graphed and batch > 0:
+            if self.eager_reason(entry, batch) is None:
                 exe = graphs.GraphedEntry(entry, batch, body,
                                           self.zero_inputs(entry, batch),
                                           self._pool)
@@ -721,7 +806,21 @@ class InferenceSession:
             self._exes[key] = exe
         return exe
 
+    def _sharded_expr(self, literals: torch.Tensor, valid=None,
+                      lane_cols=None, meter: bool = False):
+        """``sharding.crossbar.fused_impact_sharded`` on the session's
+        operands and plan, packed or not: the one datapath of every
+        serving entry and metering on a mesh."""
+        return crossbar_sh.fused_impact_sharded(
+            literals, self._clause_i, self._nonempty, self._class_i,
+            thresh=I_CSA_THRESHOLD, mesh=self.mesh, impl=self.backend.name,
+            valid=valid, meter=meter, shard_r=self.plan[0],
+            shard_s=self.plan[1], packed=self._packed,
+            packed_tr=self.system.clause_i.shape[2], lane_cols=lane_cols)
+
     def _scores_expr(self, literals: torch.Tensor) -> torch.Tensor:
+        if self.plan is not None:
+            return self._sharded_expr(literals)
         if self._packed is not None:
             return self.backend.fused_impact_packed(
                 literals, self._packed, self._nonempty, self._class_i,
@@ -733,8 +832,11 @@ class InferenceSession:
     def _metered_expr(self, literals: torch.Tensor, valid: torch.Tensor):
         """Metered core -> (scores (B, m), per-lane summed clause currents
         (B,), per-lane summed class currents (B,)), zero on invalid lanes:
-        the fused meters, or the staged per-shard oracle.  A packed
-        session meters the quantized currents, the ones its cells draw."""
+        the fused meters, or the staged per-shard oracle; with a shard
+        plan the sharded lowering under both meterings.  A packed session
+        meters the quantized currents, the ones its cells draw."""
+        if self.plan is not None:
+            return self._sharded_expr(literals, valid, meter=True)
         tr = self.system.clause_i.shape[2]
         if self.spec.metering == "fused":
             if self._packed is not None:
@@ -760,6 +862,12 @@ class InferenceSession:
                 i_class.sum(dim=(1, 2)))
 
     # -- co-resident expressions --------------------------------------------
+    def _co_lane_cols(self, model_ids: torch.Tensor) -> torch.Tensor:
+        """(B, n) per-lane clause-column ownership mask
+        (``ref.coresident_lane_mask``)."""
+        return ref.coresident_lane_mask(model_ids, self._clause_spans,
+                                        self.system.n_clauses)
+
     def _co_pred(self, scores: torch.Tensor,
                  model_ids: torch.Tensor) -> torch.Tensor:
         """Tenant-local argmax: each lane's argmax over its own class
@@ -775,7 +883,11 @@ class InferenceSession:
                         model_ids: torch.Tensor) -> torch.Tensor:
         """Co-resident twin of ``_scores_expr``: the backend's co-resident
         primitives (packed or not), which gate fired bits to each lane's
-        own clause-column span before the class stage."""
+        own clause-column span before the class stage; with a shard plan
+        the sharded lowering with the lane mask."""
+        if self.plan is not None:
+            return self._sharded_expr(
+                literals, lane_cols=self._co_lane_cols(model_ids))
         if self._packed is not None:
             return self.backend.fused_impact_coresident_packed(
                 literals, self._packed, self._nonempty, self._class_i,
@@ -792,7 +904,12 @@ class InferenceSession:
         lanes masked after (exact: the meters are per-lane); under
         ``"staged"`` the per-shard pair with the lane mask and the valid
         mask on the fired bits before the class drive.  Valid lanes see
-        the same composition either way."""
+        the same composition either way.  With a shard plan, the sharded
+        lowering with the lane mask under both meterings."""
+        if self.plan is not None:
+            return self._sharded_expr(
+                literals, valid, lane_cols=self._co_lane_cols(model_ids),
+                meter=True)
         tr = self.system.clause_i.shape[2]
         if self.spec.metering == "fused":
             if self._packed is not None:
@@ -814,9 +931,7 @@ class InferenceSession:
         fired, i_clause = self.backend.impact_clause_bits(
             literals, clause_i, self._nonempty, thresh=I_CSA_THRESHOLD)
         # The CSA gating step of co-residency, then the valid lanes.
-        fired = (fired & ref.coresident_lane_mask(
-            model_ids, self._clause_spans, self.system.n_clauses)
-            & valid[:, None])
+        fired = fired & self._co_lane_cols(model_ids) & valid[:, None]
         i_clause = i_clause * valid[:, None, None, None]
         scores, i_class = self.backend.impact_class_scores(fired,
                                                            self._class_i)
@@ -867,7 +982,7 @@ class InferenceSession:
 
     def __repr__(self) -> str:
         return (f"InferenceSession(backend={self.spec.backend!r}, "
-                f"device={self.spec.device!r}, "
+                f"device={self.spec.device!r}, plan={self.plan}, "
                 f"metering={self.spec.metering!r}, "
                 f"packing={self.spec.packing!r}, "
                 f"capacity={self.spec.capacity}, "
@@ -964,5 +1079,6 @@ def build_coresident(systems) -> tuple[Any, CoResidentPlan]:
         clause_i=clause_i, class_i=class_i, n_literals=K_tot,
         n_clauses=n_tot, n_classes=M_tot, cfg=cfg,
         encode_stats=dict(program_energy_j=prog, erase_energy_j=erase,
-                          coresident_members=len(systems)))
+                          coresident_members=len(systems)),
+        mesh=systems[0].mesh)
     return combined, CoResidentPlan(spans=tuple(spans))

@@ -18,6 +18,9 @@ versions and the backend registry.
   ``clause_eval.py`` / ``class_sum.py`` / ``fused_cotm.py`` — the wrappers
   (launch counts, operand checks, CPU tensors to the plain versions)
 * ``_build.py``  — ``nvcc`` build into ``build/torch_kernels/`` + ``ctypes``
+* ``ops.py``      — the public wrappers: ``impl=`` through the registry,
+  and ``fused_impact(mesh=)`` to the sharded lowering
+  (``sharding.crossbar``)
 * ``backends.py`` — registry: ``"cuda"`` (kernels), ``"cuda-packed"``
   (packed kernels for every fused call; its sessions pack once),
   ``"cuda-metered"`` (the metered kernel for every fused call) and
@@ -25,7 +28,7 @@ versions and the backend registry.
 * ``packing.py``  — the 2-bit ternary clause operand
 * ``ref.py``      — the plain PyTorch versions
 """
-from . import backends, packing, ref
+from . import backends, ops, packing, ref
 from ._build import build_all, launch_counts, reset_launch_counts
 from .backends import (available_backends, get_backend, register_backend,
                        unregister_backend)
@@ -37,7 +40,7 @@ from .fused_impact import (fused_impact, fused_impact_metered,
                            fused_impact_packed, fused_impact_packed_metered)
 from .ta_feedback import ta_feedback
 
-__all__ = ["backends", "packing", "ref", "available_backends",
+__all__ = ["backends", "ops", "packing", "ref", "available_backends",
            "get_backend", "register_backend", "unregister_backend",
            "build_all", "launch_counts",
            "reset_launch_counts", "class_sum", "clause_eval", "crossbar_mvm",

@@ -20,9 +20,16 @@ request traffic (the PyTorch port of ``repro.serve.impact_engine``).
   pad-to-bucket scheduler.
 
 The engine serves through a compiled ``InferenceSession``: backend,
-metering mode, device and the slot-table shape are properties of its
-``RuntimeSpec``.  It is the single-tenant special case of
-``serve.zoo.ModelZoo``.
+metering mode, device, mesh topology and the slot-table shape are
+properties of its ``RuntimeSpec``.  It is the single-tenant special case
+of ``serve.zoo.ModelZoo``.
+
+A sharded session (one with a shard plan on a mesh) is SPMD: every rank
+issues the same sequence of sweeps with the same inputs.  So on a mesh
+every rank runs its own engine over the same requests, with a clock
+that reads the same on every rank (``clock=``), which makes every
+admission decision the same; each rank then holds the full predictions
+and bills.
 """
 from __future__ import annotations
 
@@ -158,6 +165,7 @@ class IMPACTEngine:
                 "multi-tenant router (serve.zoo.ModelZoo)")
         self.session = session
         self.system = session.system
+        self.mesh = session.mesh
         self.impl = session.spec.backend
         self.meter_energy = session.meters_energy
         self.mode = mode

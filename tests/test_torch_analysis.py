@@ -492,3 +492,11 @@ def test_reference_backend_flag():
     assert backends.get_backend("torch").reference
     assert not any(backends.get_backend(b).reference
                    for b in ("cuda", "cuda-packed", "cuda-metered"))
+
+
+def test_profile_window_needs_a_card(monkeypatch):
+    from repro_torch.analysis import profile_window
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        profile_window.main(["--windows", "1"])
+    assert profile_window.MARGIN_S > 0

@@ -43,7 +43,9 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
         "repro_torch.data.synthetic, repro_torch.impact, repro_torch.kernels,"
         " repro_torch.serve, repro_torch.train, repro_torch.quickstart, "
         "repro_torch.analysis, repro_torch.impact.costmodel, "
-        "repro_torch.kernels.work\n"
+        "repro_torch.kernels.work, repro_torch.kernels.ops, "
+        "repro_torch.launch, repro_torch.sharding, "
+        "repro_torch.sharding.crossbar, repro_torch.crossbar_scaling\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"

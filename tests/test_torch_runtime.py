@@ -175,7 +175,7 @@ def test_coresident_specs_compile(packing):
 
 
 @pytest.mark.parametrize("kwargs,exc", [
-    (dict(topology=object()), NotImplementedError),
+    (dict(topology=object()), TypeError),
     (dict(metering="always"), ValueError),
     (dict(precision="bfloat16"), ValueError),
     (dict(packing="4bit"), ValueError),
@@ -185,8 +185,8 @@ def test_coresident_specs_compile(packing):
 def test_unsupported_spec_values_raise(kwargs, exc):
     with pytest.raises(exc) as info:
         RuntimeSpec(device="cpu", **kwargs)
-    if exc is NotImplementedError:
-        assert "ROADMAP" in str(info.value)
+    if exc is TypeError:
+        assert "Topology" in str(info.value)
 
 
 def test_spec_defaults_follow_the_reference():
