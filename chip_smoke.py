@@ -100,7 +100,25 @@ Phases, each of which must pass or the script exits non-zero:
    kernels (``torch.profiler``) against ``cost_analysis``, ``audit()``
    and the entries' preparations; then the host walls of ``predict`` and
    ``infer_step`` at B = 8, 32 and 128, sharded against one device.  Any
-   rank's failure fails the phase.
+   rank's failure fails the phase;
+12. the LM slice (``repro_torch.models``): (a) llama3-8b at full width and
+   depth (32 layers, d 4096, 8.0e9 f32 parameters drawn on the card from a
+   seeded generator, bf16 compute) prefills 4 prompts of 512 tokens into
+   a cache of 1024, then decodes 16 greedy steps; every decode step's
+   logits against ``forward`` on the prompt extended by the fed tokens,
+   every cache length exact, peak memory printed; (b) its first 2 layers
+   with embedding and head in f32, on the card against the CPU; (c) the
+   CoTM head (``TMHead``, 8192 literals, 500 clauses, 10 classes) on the
+   pooled prompt states through ``fused_cotm``, bit for bit against
+   ``fused_cotm_ref`` on the card, then 60 training steps on two classes
+   of sequences over frozen embeddings, accuracy above chance; the launch
+   counters of (a) and (c)'s main path show ``fused_cotm``; (d) the other
+   seven transformer-family configs at full width, one layer deep
+   (deepseek: its dense front layer and one MoE layer), prefill and two
+   greedy decode steps each against ``forward``; (e) prefill tokens/s and
+   decode-step ms of (a) (CUDA events), and ``fused_cotm`` at the head's
+   shape: kernel, plain version, one PyTorch call and bound, a second row
+   of the kernel table.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -3393,6 +3411,520 @@ def sharded_path(card: str) -> dict:
     return results
 
 
+# -- phase 12 --------------------------------------------------------------
+
+# (a) llama3-8b at full width and depth: prefill LM_BATCH prompts of
+# LM_PROMPT tokens into a cache of LM_MAX_LEN, then LM_DECODE greedy
+# steps; prefill timed again LM_TIMED_PREFILLS times.  Its first
+# LM_CPU_LAYERS layers with embedding and head, in bf16, run the same
+# prefill and decode steps, held to forward.  (b) those layers in f32 on
+# the card and on the CPU at B = 1, S = LM_CPU_TOKENS.  (c) the TM head on
+# (a)'s pooled prompt states (TMHeadConfig() defaults: K = 2 x 4096
+# literals), then TM_STEPS training steps on TM_SEQS sequences of TM_LEN
+# tokens in two classes.  (d) the other transformer-family configs at
+# full width, one layer deep (deepseek: its dense front layer and one MoE
+# layer), prefill OTHER_BATCH x OTHER_PROMPT (qwen2-vl after OTHER_IMAGE
+# patch embeddings), OTHER_DECODE greedy steps.
+LM_ARCH = "llama3-8b"
+LM_BATCH, LM_PROMPT, LM_DECODE, LM_MAX_LEN = 4, 512, 16, 1024
+LM_TIMED_PREFILLS = 3
+LM_CPU_LAYERS, LM_CPU_TOKENS = 2, 32
+OTHER_BATCH, OTHER_PROMPT, OTHER_DECODE, OTHER_IMAGE = 2, 128, 2, 16
+# The head's training data: class c draws 95% of its tokens from its own
+# TM_CLASS_TOKENS token ids.  (The reference test's recipe, which vocab
+# half dominates, carries no signal at V = 128256: the two halves' mean
+# embeddings differ by about 1/sqrt(V/2) a feature.)
+TM_SEQS, TM_LEN, TM_STEPS, TM_CLASS_TOKENS = 96, 48, 60, 64
+# Chance is 0.5; 0.65 is three standard deviations of a fair coin over
+# TM_SEQS sequences above it.
+TM_CHANCE_ACC = 0.65
+# (median, p99, max) of |got - want| / max |want| over the compared
+# logits, and the least share of positions whose argmax agrees (every
+# other one must be a tie its own row's error explains).  (b) holds f32
+# on the card to f32 on the CPU with the CPU tests' f32 bounds
+# (tests/test_torch_models.py: the same mechanism, a rounding step of the
+# bf16 q / k / probabilities that the init's one-hot attention carries).
+# LM_DECODE_BOUNDS hold bf16 decode to forward: (a)'s first
+# LM_CPU_LAYERS layers and (d)'s one-layer models.  LM_LAYER_BOUNDS hold
+# each layer's teacher-forced decode step to the forward's output of that
+# layer (hidden states, relative to the layer's largest), about 3x the
+# largest gaps measured on the H100 (median 2.2e-3, p99 1.1e-2, max
+# 2.0e-2, deepseek's MoE layer).  At (a)'s full depth decode and forward
+# are not compared under a bound: the init's nearly one-hot attention
+# lets one rounding step grow over 32 layers until the two are
+# uncorrelated, as forward is with itself under another key chunking;
+# the gap is printed as a note.
+LM_CPU_BOUNDS, LM_CPU_ARGMAX = (3e-5, 1e-2, 1e-1), 1.0
+LM_DECODE_BOUNDS, LM_DECODE_ARGMAX = (3e-2, 1.5e-1, 3e-1), 0.5
+LM_LAYER_BOUNDS = (1e-2, 3e-2, 6e-2)
+
+
+def rel_stats(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """Median, p99 and max of |got - want| / max |want| (f64)."""
+    got, want = got.double(), want.double()
+    rel = ((got - want).abs() / want.abs().max()).flatten().sort().values
+    n = rel.numel()
+    return dict(median=float(rel[n // 2]),
+                p99=float(rel[int(0.99 * (n - 1))]), max=float(rel[-1]))
+
+
+def lm_gate(name: str, got: torch.Tensor, want: torch.Tensor,
+            bounds: tuple, min_share: float) -> dict:
+    """Hold logits ``got`` to ``want`` (same shape, vocab last): the
+    median, p99 and max of |got - want| / max |want| within ``bounds``,
+    argmax equal at ``min_share`` of the positions or more and every
+    other position a tie (the reference's top exceeds its logit at
+    ``got``'s argmax by at most twice the row's max error)."""
+    got, want = got.double(), want.double()
+    if got.shape != want.shape:
+        fail(f"{name}: shapes {tuple(got.shape)} and {tuple(want.shape)}")
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        fail(f"{name}: logits not finite")
+    err = (got - want).abs()
+    stats = rel_stats(got, want)
+    g, w = got.argmax(-1), want.argmax(-1)
+    gap = want.amax(-1) - torch.gather(want, -1, g[..., None])[..., 0]
+    tie = gap <= 2 * err.amax(-1)
+    share = float((g == w).double().mean())
+    print(f"  {name}: rel err median {stats['median']:.3e} p99 "
+          f"{stats['p99']:.3e} max {stats['max']:.3e} (bounds "
+          f"{bounds}); argmax equal at {share:.4f} of {g.numel()} "
+          f"positions, {int(((g != w) & tie).sum())} ties")
+    for k, b in zip(("median", "p99", "max"), bounds):
+        if not stats[k] <= b:
+            fail(f"{name}: {k} rel err {stats[k]:.3e} > {b}")
+    if not bool(((g == w) | tie).all()):
+        fail(f"{name}: argmax differs at {int(((g != w) & ~tie).sum())} "
+             f"positions that are not ties")
+    if share < min_share:
+        fail(f"{name}: argmax agrees at {share:.4f} < {min_share}")
+    return dict(stats, argmax_share=share)
+
+
+def lm_inputs(cfg, B: int, S: int, rng, n_img: int = 0):
+    """Prompt tokens, positions and (vlm) patch embeddings on the host:
+    an n_img patch grid at t = 0 before the text for M-RoPE."""
+    shape = (B, S, cfg.n_codebooks) if cfg.modality == "audio" else (B, S)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, shape))
+    extra = None
+    if cfg.rope_style == "mrope":
+        side = int(np.sqrt(n_img))
+        i = np.arange(n_img)
+        grid = np.stack([np.zeros(n_img), i // side, i % side])
+        text = np.broadcast_to(np.arange(S) + side, (3, S))
+        pos = np.concatenate([grid, text], 1)
+        positions = torch.from_numpy(np.ascontiguousarray(
+            np.broadcast_to(pos[:, None], (3, B, n_img + S)))).long()
+        extra = torch.from_numpy(rng.standard_normal(
+            (B, n_img, cfg.d_model)).astype(np.float32))
+    else:
+        positions = torch.arange(S).expand(B, S).contiguous()
+    return tokens, positions, extra
+
+
+def greedy(model, tokens, positions, extra, max_len: int,
+           steps: int) -> dict:
+    """Prefill, then ``steps`` greedy decode steps, each step and the
+    prefill between CUDA events."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2 + 2 * steps)]
+    ev[0].record()
+    logits, cache = model.prefill(tokens, positions, max_len, extra)
+    ev[1].record()
+    nxt = logits.argmax(-1)
+    last = positions[..., -1:]
+    fed, out = [], []
+    for t in range(steps):
+        fed.append(nxt)
+        ev[2 + 2 * t].record()
+        logits, cache = model.decode_step(cache, nxt, last + 1 + t)
+        ev[3 + 2 * t].record()
+        out.append(logits)
+        nxt = logits.argmax(-1)
+    torch.cuda.synchronize()
+    return dict(cache=cache, fed=torch.cat(fed, 1) if fed else None,
+                decode_logits=torch.cat(out, 1) if out else None,
+                prefill_ms=ev[0].elapsed_time(ev[1]),
+                step_ms=[ev[2 + 2 * t].elapsed_time(ev[3 + 2 * t])
+                         for t in range(steps)])
+
+
+def check_cache_len(name: str, cache: dict, want: int) -> None:
+    """Every layer's cache length (front layers too) equals ``want``."""
+    lens = {"layers": cache["layers"]["len"],
+            **{f"front {i}": c["len"]
+               for i, c in enumerate(cache.get("front", []))}}
+    for k, v in lens.items():
+        if not bool((v == want).all()):
+            fail(f"{name}: cache len of {k} is {v.tolist()}, want {want}")
+
+
+def extended(run: dict, tokens, positions):
+    """The prompt extended by the tokens the decode steps were fed, and
+    its positions."""
+    T = run["fed"].shape[1]
+    last = positions[..., -1:]
+    return (torch.cat([tokens, run["fed"]], 1),
+            torch.cat([positions, last + 1 + torch.arange(
+                T, device=positions.device)], -1))
+
+
+def decode_per_layer(name: str, model, ext, pos_ext, extra, n_prompt: int,
+                     steps: tuple, max_len: int) -> dict:
+    """Teacher-forced decode against forward, layer by layer: each layer
+    takes the forward's own input to it, prefills the first n_prompt + t
+    positions into its cache and decodes position n_prompt + t; the
+    output is held to the forward's output of that layer at that position
+    (``LM_LAYER_BOUNDS``, relative to the layer's largest output).  One
+    layer's rounding, not the depth's, sets the gap."""
+    x = model.embed(ext, extra)
+    blocks = [(p, False) for p in (model.params["front"]
+                                   if "front" in model.params else ())]
+    blocks += [(p, model.cfg.moe is not None) for p in model.params["layers"]]
+    decs, wants = [], []
+    with torch.no_grad():
+        for p, moe in blocks:
+            out, _, _ = model._block(p, x, pos_ext, moe_layer=moe)
+            for t in steps:
+                n = n_prompt + t
+                _, _, cache = model._block(p, x[:, :n], pos_ext[..., :n],
+                                           moe_layer=moe, fill_len=max_len)
+                dec, _, cache = model._block(p, x[:, n:n + 1],
+                                             pos_ext[..., n:n + 1],
+                                             moe_layer=moe, cache=cache)
+                if not bool((cache["len"] == n + 1).all()):
+                    fail(f"{name}: a layer's cache len {cache['len']}, "
+                         f"want {n + 1}")
+                decs.append(dec)
+                wants.append(out[:, n:n + 1])
+            x = out
+    # each step's gap relative to its own layer's largest output
+    scale = torch.stack([w.double().abs().amax() for w in wants])
+    stats = rel_stats(
+        torch.stack([d.double() for d in decs]) / scale.view(-1, 1, 1, 1),
+        torch.stack([w.double() for w in wants]) / scale.view(-1, 1, 1, 1))
+    print(f"  {name} decode vs forward, teacher-forced, {len(blocks)} "
+          f"layers x steps {steps}: rel err median {stats['median']:.3e} "
+          f"p99 {stats['p99']:.3e} max {stats['max']:.3e} (bounds "
+          f"{LM_LAYER_BOUNDS})")
+    for k, b in zip(("median", "p99", "max"), LM_LAYER_BOUNDS):
+        if not stats[k] <= b:
+            fail(f"{name}: teacher-forced decode {k} rel err "
+                 f"{stats[k]:.3e} > {b}")
+    return stats
+
+
+def moe_no_drop(cfg):
+    """Capacity factor E / top_k, so C = S and no token is dropped: with
+    drops a token's output depends on the other tokens of its group
+    (GShard capacity), and a one-token decode step (C >= 1) keeps what a
+    130-token forward drops, so decode and forward would differ by
+    design, not by rounding."""
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+
+
+def tm_head_params(K_: int, n: int, m: int, n_states: int, seed: int,
+                   device):
+    """Head parameters where each clause includes 1 to 6 literals (so
+    clauses fire on booleanized features), integer weights in [-40, 40)."""
+    from repro_torch.convert import params_from_arrays
+    rng = np.random.default_rng(seed)
+    ta = np.full((K_, n), n_states, np.int32)
+    for j in range(n):
+        ta[rng.choice(K_, int(rng.integers(1, 7)), replace=False), j] += 1
+    return params_from_arrays(ta, rng.integers(-40, 40, (m, n)),
+                              device=device)
+
+
+def head_scores(name: str, head, params, feats) -> tuple:
+    """``head.scores`` on the card, required to equal ``fused_cotm_ref``
+    on the same literals, include mask, nonempty mask (a clause with no
+    include never fires, as ``kernels.ops`` sets it) and weights bit for
+    bit; returns the scores and their max abs difference."""
+    from repro_torch.kernels import ref
+    scores = head.scores(params, feats)
+    inc = params.ta_state > head.cfg.n_states
+    want = ref.fused_cotm_ref(head.booleanize(feats).to(torch.int8), inc,
+                              params.weights.T.contiguous(), inc.any(dim=0))
+    exact(f"{name} vs fused_cotm_ref", scores, want)
+    return scores, float((scores - want).abs().max())
+
+
+def tm_training(model, device, gen) -> tuple[float, float]:
+    """(c) TM_STEPS head steps on frozen full-width embeddings of two
+    sequence classes; returns the accuracy on the training sequences,
+    from scores held bit for bit to the plain version, and the scores'
+    max abs difference from it."""
+    from repro_torch.models import TMHead, TMHeadConfig, pool_features
+    rng = np.random.default_rng(SEED + 120)
+    V = model.cfg.vocab
+    sets = rng.choice(V, 2 * TM_CLASS_TOKENS, replace=False).reshape(2, -1)
+    y = rng.integers(0, 2, TM_SEQS)
+    own = rng.random((TM_SEQS, TM_LEN)) < 0.95
+    pick = rng.integers(0, TM_CLASS_TOKENS, (TM_SEQS, TM_LEN))
+    toks = np.where(own, sets[y][np.arange(TM_SEQS)[:, None], pick],
+                    sets[1 - y][np.arange(TM_SEQS)[:, None], pick])
+    emb = model.params["embed"][torch.as_tensor(toks, device=device)]
+    feats = pool_features(emb)
+    head = TMHead(TMHeadConfig(n_classes=2, n_clauses=128,
+                               bits_per_feature=6, threshold=24),
+                  d_features=model.cfg.d_model)
+    hp = head.init(gen)
+    labels = torch.as_tensor(y, device=device)
+    for _ in range(TM_STEPS):
+        hp = head.train_step(hp, feats, labels, gen)
+    scores, err = head_scores("trained TM head scores", head, hp, feats)
+    return float((scores.argmax(-1) == labels).float().mean()), err
+
+
+def llama_prefix(model, dtype: str):
+    """A copy of ``model``'s first LM_CPU_LAYERS layers with its embedding
+    and head, computing in ``dtype``."""
+    from repro_torch.models import build
+    from repro_torch.models.base import leaves
+    cfg = dataclasses.replace(model.cfg, n_layers=LM_CPU_LAYERS,
+                              dtype=dtype)
+    small = build(cfg, device=model.device)
+    with torch.no_grad():
+        for path, _ in leaves(small.decls()):
+            dst, src = small.leaf(path), model.leaf(path)
+            for d, s in (zip(dst, src) if path[0] == "layers"
+                         else [(dst, src)]):
+                d.copy_(s)
+    return small
+
+
+def prefix_decode(model, tokens, positions) -> dict:
+    """(a) ``decode_step`` threading the cache through several layers:
+    ``model``'s first LM_CPU_LAYERS layers in its own compute dtype take
+    (a)'s prefill and LM_DECODE greedy steps, and their logits are held to
+    ``forward`` on the prompt extended by the tokens fed."""
+    small = llama_prefix(model, model.cfg.dtype)
+    run = greedy(small, tokens, positions, None, LM_MAX_LEN, LM_DECODE)
+    check_cache_len(f"{LM_ARCH} x {LM_CPU_LAYERS} layers", run["cache"],
+                    LM_PROMPT + LM_DECODE)
+    ext, pos_ext = extended(run, tokens, positions)
+    want = small.forward(ext, pos_ext)[0][:, LM_PROMPT:LM_PROMPT + LM_DECODE]
+    return lm_gate(f"{LM_ARCH} x {LM_CPU_LAYERS} layers {model.cfg.dtype} "
+                   f"decode vs forward ({LM_DECODE} steps)",
+                   run["decode_logits"], want, LM_DECODE_BOUNDS,
+                   LM_DECODE_ARGMAX)
+
+
+def cpu_parity(model, device) -> dict:
+    """(b) The first LM_CPU_LAYERS layers with embedding and head, f32, on
+    the card and on the CPU, B = 1."""
+    small = llama_prefix(model, "float32")
+    rng = np.random.default_rng(SEED + 121)
+    tokens, positions, _ = lm_inputs(small.cfg, 1, LM_CPU_TOKENS, rng)
+    on_card = small.forward(tokens.to(device), positions.to(device))[0]
+    on_cpu = small.to("cpu").forward(tokens, positions)[0]
+    return lm_gate(f"{LM_ARCH} x {LM_CPU_LAYERS} layers f32, card vs CPU",
+                   on_card.cpu(), on_cpu, LM_CPU_BOUNDS, LM_CPU_ARGMAX)
+
+
+def head_kernel_row(head, params, feats, launches: int, err: float) -> dict:
+    """(e) ``fused_cotm`` at the head's shape: the kernel, its plain
+    version and one PyTorch yardstick (the f32 two-matmul composition),
+    with the bound of ``kernels/work.py::fused_cotm``."""
+    from repro_torch.core.cotm import include_mask
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import work as wk
+    from repro_torch.kernels.fused_cotm import fused_cotm
+    lit = head.booleanize(feats).to(torch.int8).contiguous()
+    inc = include_mask(params.ta_state, head.cotm_cfg.n_states).contiguous()
+    w = params.weights.T.contiguous()
+    ne = inc.any(dim=0)
+    B, Kl = lit.shape
+    N, M = w.shape
+    not_l, inc_f, w_f = 1.0 - lit.float(), inc.float(), w.float()
+
+    def lib():
+        fired = (torch.matmul(not_l, inc_f) == 0) & ne
+        return torch.matmul(fired.float(), w_f)
+
+    work = wk.fused_cotm(B, Kl, N, M)
+    b_ms, b_by = bound_ms(work, int_ops=True)
+    print(f"fused_cotm at the TM head's shape (B, K, N, M) = ({B}, {Kl}, "
+          f"{N}, {M}): {work[0]:.0f} 0/1 operations on {work[1]:.0f} B")
+    return dict(
+        name="fused_cotm (TM head)", route="cuda",
+        source="src/repro_torch/kernels/csrc/digital_cotm.cu",
+        replaces="src/repro/kernels/fused_cotm.py:40", launches=launches,
+        max_abs_err=err, ms=cuda_ms(lambda: fused_cotm(lit, inc, w, ne)),
+        plain_ms=cuda_ms(lambda: ref.fused_cotm_ref(lit, inc, w, ne)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib))
+
+
+def llama_path(device, card: str) -> tuple[dict, dict]:
+    """(a)-(c) and (e) on llama3-8b at full width and depth."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import (TMHead, TMHeadConfig, build,
+                                    pool_features)
+    cfg = get_config(LM_ARCH)
+    gen = torch.Generator(device).manual_seed(SEED)
+    t0 = time.perf_counter()
+    model = build(cfg, device=device).init(gen)
+    torch.cuda.synchronize()
+    print(f"phase 12 (a) {LM_ARCH}: {model.n_params():,} parameters "
+          f"({cfg.n_layers} layers, d {cfg.d_model}, heads {cfg.n_heads}/"
+          f"{cfg.n_kv_heads}, d_ff {cfg.d_ff}, V {cfg.vocab}), "
+          f"{cfg.param_dtype} weights, {cfg.dtype} compute, drawn on the "
+          f"card in {time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    rng = np.random.default_rng(SEED + 122)
+    tokens, positions, _ = lm_inputs(cfg, LM_BATCH, LM_PROMPT, rng)
+    tokens, positions = tokens.to(device), positions.to(device)
+    head = TMHead(TMHeadConfig(), d_features=cfg.d_model)
+    hparams = tm_head_params(head.cotm_cfg.n_literals, head.cfg.n_clauses,
+                             head.cfg.n_classes, head.cfg.n_states,
+                             SEED + 123, device)
+
+    # The main path, in one launch-count window: prefill, greedy decode,
+    # the head's scores on the pooled prompt states (B, K, N, M) = (4,
+    # 8192, 500, 10), head training and the trained head's scores (96,
+    # 49152, 128, 2); each scores call held bit for bit to fused_cotm_ref.
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    run = greedy(model, tokens, positions, None, LM_MAX_LEN, LM_DECODE)
+    hidden, _ = model.hidden(tokens, positions)
+    feats = pool_features(hidden)
+    scores, err = head_scores("TM head scores", head, hparams, feats)
+    acc, err_trained = tm_training(model, device, gen)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if launches["fused_cotm_i32"] == 0:
+        fail("fused_cotm was never launched on the LM path")
+    print(f"phase 12 main path: launches "
+          f"{ {k: v for k, v in launches.items() if v} }; peak memory "
+          f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)")
+
+    if not torch.isfinite(run["decode_logits"]).all():
+        fail(f"{LM_ARCH}: decode logits not finite")
+    check_cache_len(LM_ARCH, run["cache"], LM_PROMPT + LM_DECODE)
+    ext, pos_ext = extended(run, tokens, positions)
+    dec = decode_per_layer(LM_ARCH, model, ext, pos_ext, None, LM_PROMPT,
+                           (0, LM_DECODE - 1), LM_MAX_LEN)
+    fwd = model.forward(ext, pos_ext)[0][:, LM_PROMPT:LM_PROMPT + LM_DECODE]
+    dec["end_to_end"] = dict(rel_stats(run["decode_logits"], fwd), argmax=(
+        float((run["decode_logits"].argmax(-1) == fwd.argmax(-1))
+              .double().mean())))
+    del fwd
+    print(f"  {LM_ARCH} {cfg.n_layers} layers, decode vs forward (a note, "
+          f"not gated): rel err median {dec['end_to_end']['median']:.3e} "
+          f"p99 {dec['end_to_end']['p99']:.3e} max "
+          f"{dec['end_to_end']['max']:.3e}; argmax equal at "
+          f"{dec['end_to_end']['argmax']:.4f} of {LM_BATCH * LM_DECODE} "
+          f"positions")
+    dec["prefix"] = prefix_decode(model, tokens, positions)
+
+    print(f"phase 12 (c) TM head on pooled {LM_ARCH} prompt states: K = "
+          f"{head.cotm_cfg.n_literals} literals, {head.cfg.n_clauses} "
+          f"clauses, {head.cfg.n_classes} classes; scores bitwise equal to "
+          f"fused_cotm_ref on the card ({int((scores != 0).sum())} nonzero "
+          f"of {scores.numel()}); training {TM_STEPS} steps on "
+          f"{TM_SEQS} sequences of 2 classes (K = "
+          f"{2 * cfg.d_model * 6}): accuracy {acc:.4f} from scores bitwise "
+          f"equal to fused_cotm_ref (gate > {TM_CHANCE_ACC}, chance 0.5)")
+    if not acc > TM_CHANCE_ACC:
+        fail(f"TM head accuracy {acc:.4f} not above {TM_CHANCE_ACC}")
+
+    # (e) times: prefill again, each decode step of the main path
+    pre = [run["prefill_ms"]]
+    for _ in range(LM_TIMED_PREFILLS):
+        pre.append(greedy(model, tokens, positions, None, LM_MAX_LEN,
+                          0)["prefill_ms"])
+    p_ms, d_ms = statistics.median(pre), statistics.median(run["step_ms"])
+    times = dict(prefill_ms=p_ms, prefill_tokens_s=LM_BATCH * LM_PROMPT
+                 / (p_ms / 1e3), decode_step_ms=d_ms,
+                 decode_tokens_s=LM_BATCH / (d_ms / 1e3), peak_gib=peak
+                 / 2**30, acc=acc, decode=dec)
+    print(f"phase 12 (e) {LM_ARCH} B={LM_BATCH}: prefill of {LM_PROMPT} "
+          f"tokens {p_ms:.2f} ms ({times['prefill_tokens_s']:.1f} tokens/s;"
+          f" median of {len(pre)}: "
+          + ", ".join(f"{x:.2f}" for x in pre)
+          + f"), decode step {d_ms:.3f} ms ({times['decode_tokens_s']:.1f} "
+          f"tokens/s; median of {LM_DECODE}: "
+          + ", ".join(f"{x:.2f}" for x in run["step_ms"])
+          + f"); CUDA events; {card}")
+    row = head_kernel_row(head, hparams, feats, launches["fused_cotm_i32"],
+                          max(err, err_trained))
+    print(f"{row['name']}: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f} "
+          f"ms, library {row['library_ms']:.4f} ms, bound "
+          f"{row['bound_ms']:.5f} ms by {row['bound_by']}), "
+          f"{row['launches']} launches on the path (one at each of the two "
+          f"head shapes); {card}")
+    times["cpu"] = cpu_parity(model, device)
+    return times, row
+
+
+def other_configs(device) -> dict:
+    """(d) The other transformer-family configs at full width, one layer
+    deep, one model on the card at a time."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.models import build
+    out = {}
+    for i, name in enumerate(ARCH_IDS):
+        cfg = get_config(name)
+        if cfg.ssm is not None or name == LM_ARCH:
+            continue
+        n_front = cfg.moe.first_dense_layers if cfg.moe else 0
+        cfg = moe_no_drop(dataclasses.replace(cfg, n_layers=n_front + 1))
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        model = build(cfg, device=device).init(
+            torch.Generator(device).manual_seed(SEED + i))
+        rng = np.random.default_rng(SEED + 130 + i)
+        n_img = OTHER_IMAGE if cfg.rope_style == "mrope" else 0
+        tokens, positions, extra = (
+            None if x is None else x.to(device)
+            for x in lm_inputs(cfg, OTHER_BATCH, OTHER_PROMPT, rng, n_img))
+        run = greedy(model, tokens, positions, extra,
+                     n_img + OTHER_PROMPT + OTHER_DECODE, OTHER_DECODE)
+        if not torch.isfinite(run["decode_logits"]).all():
+            fail(f"{name}: decode logits not finite")
+        n_prompt = positions.shape[-1]
+        check_cache_len(name, run["cache"], n_prompt + OTHER_DECODE)
+        ext, pos_ext = extended(run, tokens, positions)
+        want = model.forward(ext, pos_ext, extra)[0][
+            :, n_prompt:n_prompt + OTHER_DECODE]
+        gate = lm_gate(f"{name} decode vs forward ({OTHER_DECODE} steps)",
+                       run["decode_logits"], want, LM_DECODE_BOUNDS,
+                       LM_DECODE_ARGMAX)
+        gate["layers"] = decode_per_layer(
+            name, model, ext, pos_ext, extra, n_prompt,
+            tuple(range(OTHER_DECODE)), n_prompt + OTHER_DECODE)
+        torch.cuda.synchronize()
+        out[name] = dict(gate, params=model.n_params(),
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        print(f"phase 12 (d) {name}: {cfg.n_layers} layer(s) at full width, "
+              f"{out[name]['params']:,} parameters, peak "
+              f"{out[name]['peak_gib']:.2f} GiB, prefill "
+              f"{run['prefill_ms']:.2f} ms, decode steps "
+              + ", ".join(f"{x:.2f}" for x in run["step_ms"])
+              + f" ms; {time.perf_counter() - t0:.1f} s")
+        del model, run
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def lm_path(device, card: str) -> tuple[dict, dict]:
+    """Phase 12: the LM slice on the card; returns (results, the
+    ``fused_cotm`` row at the head's shape)."""
+    t0 = time.perf_counter()
+    llama, row = llama_path(device, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    others = other_configs(device)
+    print(f"phase LM path: done in {time.perf_counter() - t0:.1f} s")
+    return dict(llama=llama, others=others), row
+
+
 def kernel_resources(source: str) -> list[str]:
     """Each kernel of ``source`` with its registers, shared memory and
     spills, from the build's ``nvcc --resource-usage`` report."""
@@ -3476,6 +4008,8 @@ def main() -> int:
     static_path(served, trained, compressed, device, card)
     graph_path(served, trained, compressed, coresident, card)
     sharded_path(card)
+    _, head_row = lm_path(device, card)
+    rows.append(head_row)
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,11 @@
+"""starcoder2-3b [dense] — 30L d=3072 24H (GQA kv=2) d_ff=12288
+vocab=49152, RoPE, plain-GELU MLP, LayerNorm.  [arXiv:2402.19173; hf]
+"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="starcoder2-3b", family="dense",
+    n_layers=30, d_model=3072, n_heads=24, n_kv_heads=2, head_dim=128,
+    d_ff=12288, vocab=49152, act="gelu", mlp_gated=False, norm="layer",
+    rope_theta=100_000.0,
+)

@@ -1,16 +1,20 @@
 """Carry a model and a programmed system across from arrays.
 
-Both functions take plain numpy arrays (or anything ``np.asarray``
+The functions take plain numpy arrays (or anything ``np.asarray``
 accepts), so a system programmed elsewhere, such as by the JAX reference
 package, crosses into the port without the port importing it:
 
     d = dict(clause_g=np.asarray(sys.clause_g), ..., n_literals=...,
              program_energy_j=..., erase_energy_j=...)
     system = system_from_arrays(d, device="cuda")
+
+``lm_params_from_arrays`` does the same for an LM's parameter tree (the
+reference's layout, stacked ``"layers"`` axis), and ``lm_arrays`` takes a
+port model's parameters back to that tree.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import TYPE_CHECKING, Any, Mapping
 
 import numpy as np
 import torch
@@ -18,6 +22,9 @@ import torch
 from .core.cotm import CoTMParams
 from .device import resolve_device
 from .impact.pipeline import IMPACTConfig, IMPACTSystem
+
+if TYPE_CHECKING:
+    from .models.config import ModelConfig
 
 #: Array fields of an ``IMPACTSystem`` and their dtypes.
 SYSTEM_ARRAYS = {"clause_g": torch.float32, "nonempty": torch.bool,
@@ -65,3 +72,49 @@ def system_from_arrays(d: Mapping[str, Any], *,
         n_literals=int(d["n_literals"]), n_clauses=int(d["n_clauses"]),
         n_classes=int(d["n_classes"]),
         cfg=IMPACTConfig(**dict(d.get("cfg", {}))), encode_stats=stats)
+
+
+def lm_params_from_arrays(cfg: ModelConfig, tree: Mapping[str, Any], *,
+                          device: str | torch.device | None = None):
+    """The port's ``TransformerLM`` of ``cfg`` on ``device`` (default
+    ``cuda``) with its parameters copied from ``tree``, the reference's
+    parameter tree as arrays: the leading ``"layers"`` axis is unstacked
+    into the layer list, every other layout is kept, so each leaf is a
+    copy.  Its ``state_dict()`` is the state dict of the same values.
+    Raises unless every leaf of the declarations is given, at its shape."""
+    from .models import build
+    from .models.base import leaves
+    model = build(cfg, device=device)
+    want = dict(leaves(model.decls()))
+    got = dict(leaves(dict(tree)))
+    if set(got) != set(want):
+        raise ValueError(f"parameter tree differs from {cfg.name}'s "
+                         f"declarations: missing "
+                         f"{sorted(map(str, set(want) - set(got)))}, extra "
+                         f"{sorted(map(str, set(got) - set(want)))}")
+    with torch.no_grad():
+        for path, p in want.items():
+            arr = np.asarray(got[path])
+            if arr.shape != p.shape:
+                raise ValueError(f"{path}: shape {arr.shape}, declared "
+                                 f"{p.shape}")
+            dst = model.leaf(path)
+            if path[0] == "layers":
+                for i, t in enumerate(dst):
+                    t.copy_(torch.from_numpy(np.array(arr[i])))
+            else:
+                dst.copy_(torch.from_numpy(np.array(arr)))
+    return model
+
+
+def lm_arrays(model) -> dict:
+    """The inverse of ``lm_params_from_arrays``: a port model's parameters
+    as the reference's tree of f32 numpy arrays, ``"layers"`` stacked."""
+    from .models.base import tree_map
+
+    def arrays(path, _):
+        t = model.leaf(path)
+        if path[0] == "layers":
+            return np.stack([x.detach().cpu().float().numpy() for x in t])
+        return t.detach().cpu().float().numpy()
+    return tree_map(arrays, model.decls(), with_path=True)

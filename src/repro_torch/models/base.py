@@ -1,0 +1,191 @@
+"""Model substrate: declarative parameter trees and the functional layers
+(the port of ``repro.models.base``).
+
+Every model declares its parameters as a nested dict (and list) of ``P``
+leaves (shape, logical axes, init), the reference's declarations leaf for
+leaf.  From one declaration tree come:
+
+* ``ParamTree``      — an ``nn.Module`` holding one ``Parameter`` a leaf,
+  named by the tree's keys (``params.layers.3.attn.wq``);
+* ``init_leaf``      — fills a parameter from a ``torch.Generator``;
+* ``abstract``       — the tree as tensors on the ``meta`` device: a full
+  config is counted and sized without allocating anything;
+* ``axes_tree`` / ``count_params``.
+
+The logical axes ("embed", "heads", "kv", "mlp", "experts", "layers", ...)
+are kept so the trees compare equal with the reference's; on one device
+nothing reads them.  The reference's ``ShardCtx`` (logical axes to mesh
+shardings) has no counterpart yet: the port's models run on one device.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Iterator
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+Tree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class P:
+    """Declaration of one parameter tensor."""
+    shape: tuple[int, ...]
+    axes: tuple[str | None, ...]      # logical axis names, len == ndim
+    dtype: torch.dtype = torch.float32
+    init: str = "normal"              # normal | zeros | ones | small
+    scale: float | None = None        # stddev override for "normal"
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} differ "
+                             f"in rank")
+
+    @property
+    def std(self) -> float:
+        """The normal init's standard deviation: ``scale``, else 1/sqrt of
+        the fan-in (``shape[-2]``, or ``shape[-1]`` for a vector), 0.02 for
+        ``"small"`` (the reference's rule, applied to its stacked shapes)."""
+        if self.init == "small":
+            return 0.02
+        if self.scale is not None:
+            return self.scale
+        fan_in = self.shape[-2] if len(self.shape) >= 2 else self.shape[-1]
+        return 1.0 / math.sqrt(fan_in)
+
+
+def leaves(tree: Tree, path: tuple = ()) -> Iterator[tuple[tuple, Any]]:
+    """(path, leaf) pairs in the reference's flattening order: dict keys
+    sorted, lists in order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaves(tree[k], path + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from leaves(v, path + (i,))
+    else:
+        yield path, tree
+
+
+def tree_map(fn: Callable, tree: Tree, path: tuple = (),
+             with_path: bool = False) -> Tree:
+    """``fn(leaf)`` (or ``fn(path, leaf)``) over a tree of dicts and
+    lists, keeping its structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, path + (k,), with_path)
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, path + (i,), with_path)
+                for i, v in enumerate(tree)]
+    return fn(path, tree) if with_path else fn(tree)
+
+
+def count_params(decls: Tree) -> int:
+    return sum(math.prod(p.shape) for _, p in leaves(decls))
+
+
+def axes_tree(decls: Tree) -> Tree:
+    """The logical-axis tree, same structure as the parameters."""
+    return tree_map(lambda p: p.axes, decls)
+
+
+def abstract(decls: Tree, dtype: torch.dtype | None = None) -> Tree:
+    """Tensors on the ``meta`` device in place of the parameters: shapes
+    and dtypes, nothing allocated."""
+    return tree_map(lambda p: torch.empty(p.shape, dtype=dtype or p.dtype,
+                                          device="meta"), decls)
+
+
+class ParamTree(nn.Module):
+    """The parameters of a declaration tree: a ``P`` leaf is a
+    ``Parameter`` (no gradient: the port's models are inference only), a
+    dict a child ``ParamTree`` and a list an ``nn.ModuleList``.  Indexing
+    by key reads like the reference's parameter dicts: ``p["wq"]``,
+    ``"w_gate" in p``."""
+
+    def __init__(self, decls: dict, device: torch.device,
+                 dtype: torch.dtype | None = None):
+        super().__init__()
+        for name, d in decls.items():
+            if isinstance(d, P):
+                self.register_parameter(name, nn.Parameter(
+                    torch.empty(d.shape, dtype=dtype or d.dtype,
+                                device=device), requires_grad=False))
+            elif isinstance(d, dict):
+                self.add_module(name, ParamTree(d, device, dtype))
+            else:
+                self.add_module(name, nn.ModuleList(
+                    ParamTree(x, device, dtype) for x in d))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
+
+def init_leaf(t: torch.Tensor, p: P, generator: torch.Generator) -> None:
+    """Fill ``t`` in place with ``p``'s init, drawing from ``generator``
+    (normal draws are made in f32, as the reference's)."""
+    with torch.no_grad():
+        if p.init == "zeros":
+            t.zero_()
+        elif p.init == "ones":
+            t.fill_(1.0)
+        elif t.dtype == torch.float32:
+            t.normal_(0.0, p.std, generator=generator)
+        else:
+            t.copy_(torch.empty(t.shape, dtype=torch.float32,
+                                device=t.device).normal_(
+                0.0, p.std, generator=generator))
+
+
+# ---------------------------------------------------------------------------
+# Functional layers
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """Mixed-precision RMSNorm: the variance reduction runs in f32, the
+    data path stays in x.dtype; scales by ``1 + gamma`` (gamma starts at
+    zero)."""
+    var = x.float().square().mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return x * inv * (1.0 + gamma.to(x.dtype))
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, correction=0)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    out = (x - mu.to(x.dtype)) * inv
+    return out * gamma.to(x.dtype) + beta.to(x.dtype)
+
+
+ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+    "silu": F.silu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "relu": F.relu,
+    "relu2": lambda x: torch.square(F.relu(x)),
+}
+
+
+def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., d_in) @ w (d_in, ...) -> (..., *w.shape[1:]) in x.dtype: the
+    weight is cast to x.dtype and the product rounds once (a bf16 GEMM
+    accumulates in f32), as the reference's ``dot_general``."""
+    out = x @ w.reshape(w.shape[0], -1).to(x.dtype)
+    return out.reshape(*x.shape[:-1], *w.shape[1:])
+
+
+def dense_out(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B, S, H, k) @ w (H, k, d) -> (B, S, d): the heads' output
+    projection (the reference's ``einsum("bshk,hkd->bsd")``)."""
+    B, S = x.shape[:2]
+    return (x.reshape(B, S, -1)
+            @ w.reshape(-1, w.shape[-1]).to(x.dtype))

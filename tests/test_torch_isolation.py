@@ -45,7 +45,8 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
         "repro_torch.analysis, repro_torch.impact.costmodel, "
         "repro_torch.kernels.work, repro_torch.kernels.ops, "
         "repro_torch.launch, repro_torch.sharding, "
-        "repro_torch.sharding.crossbar, repro_torch.crossbar_scaling\n"
+        "repro_torch.sharding.crossbar, repro_torch.crossbar_scaling, "
+        "repro_torch.models, repro_torch.configs\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"
@@ -95,6 +96,30 @@ def test_default_device_raises_without_cuda(no_cuda):
              erase_energy_j=0.0)
     with pytest.raises(RuntimeError):
         system_from_arrays(d)
+
+
+def test_lm_entry_points_raise_without_cuda(no_cuda):
+    """The LM slice's entry points: ``build``, ``lm_params_from_arrays``
+    and ``TMHead.init`` default to ``cuda`` and raise here; each runs when
+    given ``device="cpu"`` (``build`` also on ``"meta"``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_arrays, lm_params_from_arrays
+    from repro_torch.models import TMHead, TMHeadConfig, build
+
+    cfg = get_config("llama3-8b").smoke()
+    with pytest.raises(RuntimeError, match="is_available"):
+        build(cfg)
+    assert build(get_config("llama3-8b"), device="meta").n_params() > 7e9
+    model = build(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    tree = lm_arrays(model)
+    with pytest.raises(RuntimeError, match="is_available"):
+        lm_params_from_arrays(cfg, tree)
+    assert lm_params_from_arrays(cfg, tree, device="cpu").device.type == \
+        "cpu"
+    head = TMHead(TMHeadConfig(), d_features=8)
+    with pytest.raises(RuntimeError, match="is_available"):
+        head.init()
+    assert head.init(device="cpu").ta_state.shape == (16, 500)
 
 
 def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):
