@@ -118,7 +118,30 @@ Phases, each of which must pass or the script exits non-zero:
    greedy decode steps each against ``forward``; (e) prefill tokens/s and
    decode-step ms of (a) (CUDA events), and ``fused_cotm`` at the head's
    shape: kernel, plain version, one PyTorch call and bound, a second row
-   of the kernel table.
+   of the kernel table;
+13. the ssm and hybrid families through the LM ``Engine``: (a) rwkv6-7b
+   and (b) zamba2-7b at full width and depth (7.6e9 and 6.9e9 f32
+   parameters drawn on the card, one model at a time, bf16 compute):
+   ``generate`` 4 prompts of 512 tokens for 16 greedy tokens (max_len
+   1024), then ``serve_continuous`` of 6 requests (max_new 4-12,
+   capacity 4), each request's tokens equal to ``generate``'s on its
+   prompt (a difference only at a tie its step's own logit gap
+   explains); the same prefill and decode steps by hand between CUDA
+   events give the engine's tokens, every recurrent state finite; each
+   layer's (zamba2: each mamba layer's and each shared-block
+   invocation's) decode step teacher-forced against the forward's, the
+   first layers (rwkv6: 2; zamba2: 6 mamba layers and one shared block)
+   through prefill and 16 ``decode_step``s held to ``forward``, the end
+   to end gap printed; zamba2 also generates with max_len 256 (its ring
+   wraps under the 512-token prompt), the ring's len and positions exact
+   after the prefill and each step; (c) those first layers in f32 on the
+   card against the CPU; (d) the CoTM head on the pooled prompt states
+   through ``fused_cotm`` (K = 8192 and 7168) bit for bit against
+   ``fused_cotm_ref``, each model's launch counters showing
+   ``fused_cotm``; (e) prefill tokens/s, decode-step ms (CUDA events),
+   ``serve_continuous`` requests/s and latency p50 / p99 (host clock),
+   peak memory, and ``fused_cotm`` at (4, 7168, 500, 10), a third row of
+   the kernel table.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -3530,6 +3553,7 @@ def greedy(model, tokens, positions, extra, max_len: int,
     ev[0].record()
     logits, cache = model.prefill(tokens, positions, max_len, extra)
     ev[1].record()
+    first = logits
     nxt = logits.argmax(-1)
     last = positions[..., -1:]
     fed, out = [], []
@@ -3542,6 +3566,7 @@ def greedy(model, tokens, positions, extra, max_len: int,
         nxt = logits.argmax(-1)
     torch.cuda.synchronize()
     return dict(cache=cache, fed=torch.cat(fed, 1) if fed else None,
+                prefill_logits=first,
                 decode_logits=torch.cat(out, 1) if out else None,
                 prefill_ms=ev[0].elapsed_time(ev[1]),
                 step_ms=[ev[2 + 2 * t].elapsed_time(ev[3 + 2 * t])
@@ -3597,12 +3622,19 @@ def decode_per_layer(name: str, model, ext, pos_ext, extra, n_prompt: int,
                 decs.append(dec)
                 wants.append(out[:, n:n + 1])
             x = out
-    # each step's gap relative to its own layer's largest output
+    return layer_gate(name, decs, wants, len(blocks), steps)
+
+
+def layer_gate(name: str, decs: list, wants: list, n_blocks: int,
+               steps: tuple) -> dict:
+    """Hold each teacher-forced decode output to the forward's output of
+    its layer at its position (``LM_LAYER_BOUNDS``), each step's gap
+    relative to its own layer's largest output."""
     scale = torch.stack([w.double().abs().amax() for w in wants])
     stats = rel_stats(
         torch.stack([d.double() for d in decs]) / scale.view(-1, 1, 1, 1),
         torch.stack([w.double() for w in wants]) / scale.view(-1, 1, 1, 1))
-    print(f"  {name} decode vs forward, teacher-forced, {len(blocks)} "
+    print(f"  {name} decode vs forward, teacher-forced, {n_blocks} "
           f"layers x steps {steps}: rel err median {stats['median']:.3e} "
           f"p99 {stats['p99']:.3e} max {stats['max']:.3e} (bounds "
           f"{LM_LAYER_BOUNDS})")
@@ -3679,13 +3711,13 @@ def tm_training(model, device, gen) -> tuple[float, float]:
     return float((scores.argmax(-1) == labels).float().mean()), err
 
 
-def llama_prefix(model, dtype: str):
-    """A copy of ``model``'s first LM_CPU_LAYERS layers with its embedding
-    and head, computing in ``dtype``."""
+def lm_prefix(model, dtype: str, n_layers: int = LM_CPU_LAYERS):
+    """A copy of ``model``'s first ``n_layers`` layers (zamba2: with the
+    shared block after every full group of them) with its embedding and
+    head, computing in ``dtype``."""
     from repro_torch.models import build
     from repro_torch.models.base import leaves
-    cfg = dataclasses.replace(model.cfg, n_layers=LM_CPU_LAYERS,
-                              dtype=dtype)
+    cfg = dataclasses.replace(model.cfg, n_layers=n_layers, dtype=dtype)
     small = build(cfg, device=model.device)
     with torch.no_grad():
         for path, _ in leaves(small.decls()):
@@ -3696,36 +3728,40 @@ def llama_prefix(model, dtype: str):
     return small
 
 
-def prefix_decode(model, tokens, positions) -> dict:
-    """(a) ``decode_step`` threading the cache through several layers:
-    ``model``'s first LM_CPU_LAYERS layers in its own compute dtype take
-    (a)'s prefill and LM_DECODE greedy steps, and their logits are held to
-    ``forward`` on the prompt extended by the tokens fed."""
-    small = llama_prefix(model, model.cfg.dtype)
+def prefix_decode(model, tokens, positions, n_layers: int = LM_CPU_LAYERS,
+                  check=None) -> dict:
+    """``decode_step`` threading the cache through several layers:
+    ``model``'s first ``n_layers`` layers in its own compute dtype take
+    the prefill of ``tokens`` and LM_DECODE greedy steps (their cache
+    checked by ``check``, default ``check_cache_len``), and their logits
+    are held to ``forward`` on the prompt extended by the tokens fed."""
+    small = lm_prefix(model, model.cfg.dtype, n_layers)
+    S = tokens.shape[1]
     run = greedy(small, tokens, positions, None, LM_MAX_LEN, LM_DECODE)
-    check_cache_len(f"{LM_ARCH} x {LM_CPU_LAYERS} layers", run["cache"],
-                    LM_PROMPT + LM_DECODE)
+    label = f"{model.cfg.name} x {n_layers} layers"
+    (check or check_cache_len)(label, run["cache"], S + LM_DECODE)
     ext, pos_ext = extended(run, tokens, positions)
-    want = small.forward(ext, pos_ext)[0][:, LM_PROMPT:LM_PROMPT + LM_DECODE]
-    return lm_gate(f"{LM_ARCH} x {LM_CPU_LAYERS} layers {model.cfg.dtype} "
-                   f"decode vs forward ({LM_DECODE} steps)",
-                   run["decode_logits"], want, LM_DECODE_BOUNDS,
-                   LM_DECODE_ARGMAX)
+    want = small.forward(ext, pos_ext)[0][:, S:S + LM_DECODE]
+    return lm_gate(f"{label} {model.cfg.dtype} decode vs forward "
+                   f"({LM_DECODE} steps)", run["decode_logits"], want,
+                   LM_DECODE_BOUNDS, LM_DECODE_ARGMAX)
 
 
-def cpu_parity(model, device) -> dict:
-    """(b) The first LM_CPU_LAYERS layers with embedding and head, f32, on
-    the card and on the CPU, B = 1."""
-    small = llama_prefix(model, "float32")
+def cpu_parity(model, device, n_layers: int = LM_CPU_LAYERS) -> dict:
+    """The first ``n_layers`` layers with embedding and head, f32, on the
+    card and on the CPU, B = 1."""
+    small = lm_prefix(model, "float32", n_layers)
     rng = np.random.default_rng(SEED + 121)
     tokens, positions, _ = lm_inputs(small.cfg, 1, LM_CPU_TOKENS, rng)
     on_card = small.forward(tokens.to(device), positions.to(device))[0]
     on_cpu = small.to("cpu").forward(tokens, positions)[0]
-    return lm_gate(f"{LM_ARCH} x {LM_CPU_LAYERS} layers f32, card vs CPU",
-                   on_card.cpu(), on_cpu, LM_CPU_BOUNDS, LM_CPU_ARGMAX)
+    return lm_gate(f"{model.cfg.name} x {n_layers} layers f32, card vs "
+                   f"CPU", on_card.cpu(), on_cpu, LM_CPU_BOUNDS,
+                   LM_CPU_ARGMAX)
 
 
-def head_kernel_row(head, params, feats, launches: int, err: float) -> dict:
+def head_kernel_row(head, params, feats, launches: int, err: float,
+                    name: str = "fused_cotm (TM head)") -> dict:
     """(e) ``fused_cotm`` at the head's shape: the kernel, its plain
     version and one PyTorch yardstick (the f32 two-matmul composition),
     with the bound of ``kernels/work.py::fused_cotm``."""
@@ -3750,7 +3786,7 @@ def head_kernel_row(head, params, feats, launches: int, err: float) -> dict:
     print(f"fused_cotm at the TM head's shape (B, K, N, M) = ({B}, {Kl}, "
           f"{N}, {M}): {work[0]:.0f} 0/1 operations on {work[1]:.0f} B")
     return dict(
-        name="fused_cotm (TM head)", route="cuda",
+        name=name, route="cuda",
         source="src/repro_torch/kernels/csrc/digital_cotm.cu",
         replaces="src/repro/kernels/fused_cotm.py:40", launches=launches,
         max_abs_err=err, ms=cuda_ms(lambda: fused_cotm(lit, inc, w, ne)),
@@ -3925,6 +3961,429 @@ def lm_path(device, card: str) -> tuple[dict, dict]:
     return dict(llama=llama, others=others), row
 
 
+# -- phase 13 --------------------------------------------------------------
+
+# (a) rwkv6-7b and (b) zamba2-7b at full width and depth, one on the card
+# at a time, through the port's Engine: generate LM_BATCH prompts of
+# LM_PROMPT tokens for LM_DECODE greedy tokens (max_len LM_MAX_LEN), then
+# serve_continuous len(SSM_MAX_NEW) requests of LM_PROMPT tokens at
+# capacity LM_BATCH, each request's tokens held to generate's on its
+# prompt (the last two prompts generated as a batch of LM_BATCH, so that
+# every prefill and decode shape is the engine's).  zamba2 also generates
+# SSM_WRAP_TOKENS tokens with max_len SSM_WRAP_MAX_LEN: its ring wraps.
+# Decode against forward: each layer (zamba2: each mamba layer and each
+# shared-block invocation) teacher-forced, and the first layers through
+# prefill and LM_DECODE decode steps (rwkv6: LM_CPU_LAYERS; zamba2: the
+# first hybrid_attn_every mamba layers and one shared block), which are
+# also (c) held f32 on the card to f32 on the CPU.  (d) the TM head on the
+# pooled prompt states.  Nothing is cut: both models run at full width
+# and depth, with the phase 12 prompt shape.
+SSM_ARCHS = ("rwkv6-7b", "zamba2-7b")
+SSM_MAX_NEW = (12, 4, 8, 6, 10, 5)
+# zamba2's head (K = 2 x 3584 = 7168) is a shape of its own and gets a
+# row of the kernel table; rwkv6's (K = 8192) is phase 12's row's shape.
+SSM_ROW_ARCH = "zamba2-7b"
+SSM_WRAP_MAX_LEN, SSM_WRAP_TOKENS = 256, 8
+
+
+def prefix_layers(cfg) -> int:
+    """rwkv6: LM_CPU_LAYERS; zamba2: one full group and its shared
+    block."""
+    return cfg.hybrid_attn_every or LM_CPU_LAYERS
+
+
+def ring_positions(n: int, W: int, like: torch.Tensor) -> torch.Tensor:
+    """A ring of W slots after n tokens: positions max(0, n - W)..n-1 at
+    their pos % W slots, every other slot empty."""
+    from repro_torch.models.zamba2 import EMPTY_POS
+    want = torch.full((W,), EMPTY_POS, dtype=like.dtype, device=like.device)
+    keep = torch.arange(max(0, n - W), n, device=like.device)
+    want[keep % W] = keep.to(like.dtype)
+    return want.expand_as(like)
+
+
+def check_ssm_cache(name: str, cache: dict, n: int) -> None:
+    """Every float leaf finite; zamba2's rings hold len == n and the
+    positions ``ring_positions`` says, exactly."""
+    from repro_torch.models.base import leaves
+    for path, v in leaves(cache):
+        if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+            fail(f"{name}: cache {path} not finite")
+    if "attn" in cache:
+        ring = cache["attn"]
+        if not bool((ring["len"] == n).all()):
+            fail(f"{name}: ring len {ring['len'].unique().tolist()}, "
+                 f"want {n}")
+        exact(f"{name} ring pos after {n} tokens", ring["pos"],
+              ring_positions(n, ring["pos"].shape[-1], ring["pos"]))
+
+
+def ssm_blocks(model, max_len: int) -> list:
+    """The model's blocks in order, each ``run(x, x0, pos, state) ->
+    (out, state)``: the full sequence with ``state`` None (its prefill
+    state back), one token against a state otherwise."""
+    if not hasattr(model, "groups"):                      # rwkv6
+        return [lambda x, x0, pos, st, p=p: model._block(p, x, st)
+                for p in model.params["layers"]]
+    runs = []
+    for layers, g in model.groups():
+        runs += [lambda x, x0, pos, st, i=i: model._mamba(i, x, st)
+                 for i in layers]
+        if g is not None:
+            runs.append(lambda x, x0, pos, st: model._shared_attn(
+                x, x0, pos, cache=st,
+                fill_window=None if st is not None else max_len))
+    return runs
+
+
+def ssm_decode_per_layer(name: str, model, ext, pos_ext, n_prompt: int,
+                         steps: tuple, max_len: int) -> dict:
+    """Teacher-forced decode against forward, block by block: each block
+    takes the forward's own input to it, prefills the first n_prompt + t
+    positions into its state and decodes position n_prompt + t against
+    it; held to the forward's output of that block (``layer_gate``)."""
+    x0 = model.embed(ext)
+    x = x0
+    runs = ssm_blocks(model, max_len)
+    decs, wants = [], []
+    with torch.no_grad():
+        for run in runs:
+            out, _ = run(x, x0, pos_ext, None)
+            for t in steps:
+                n = n_prompt + t
+                _, st = run(x[:, :n], x0[:, :n], pos_ext[:, :n], None)
+                dec, _ = run(x[:, n:n + 1], x0[:, n:n + 1],
+                             pos_ext[:, n:n + 1], st)
+                decs.append(dec)
+                wants.append(out[:, n:n + 1])
+            x = out
+    return layer_gate(name, decs, wants, len(runs), steps)
+
+
+def recording_engine(model, max_len: int):
+    """The port's ``Engine`` keeping the logits of every sampled call on
+    the host, for the tie check of ``check_continuous``."""
+    from repro_torch.serve import Engine, ServeConfig
+
+    class Recording(Engine):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.seen = []
+
+        def _sample(self, logits, generator):
+            self.seen.append(logits.float().cpu())
+            return super()._sample(logits, generator)
+
+        def take(self) -> list:
+            seen, self.seen = self.seen, []
+            return seen
+
+    return Recording(model, ServeConfig(max_len=max_len))
+
+
+def continuous_rows(max_new: tuple, capacity: int) -> list[list]:
+    """For each request, the (sampled call, row) of each of its tokens in
+    ``serve_continuous``: a replay of its schedule (FIFO admission into
+    the lowest free lanes, one prefill call an admission whose row i is
+    its i-th newcomer, then one decode call a step over the lanes in
+    order, a lane freed when its request has max_new tokens; no EOS)."""
+    free, live = list(range(capacity)), {}
+    out = [[] for _ in max_new]
+    pending = list(range(len(max_new)))
+    call = 0
+
+    def done(lane: int) -> None:
+        if len(out[live[lane]]) >= max_new[live[lane]]:
+            del live[lane]
+            free.append(lane)
+
+    while pending or live:
+        if pending and free:
+            k = min(len(free), len(pending))
+            lanes = []
+            for i, r in enumerate(pending[:k]):
+                lane = min(free)
+                free.remove(lane)
+                live[lane] = r
+                out[r].append((call, i))
+                lanes.append(lane)
+            pending = pending[k:]
+            for lane in lanes:
+                done(lane)
+            call += 1
+        if live:
+            for lane in sorted(live):
+                out[live[lane]].append((call, lane))
+            for lane in sorted(live):
+                done(lane)
+            call += 1
+    return out
+
+
+def check_continuous(name: str, served: dict, want: list, want_logits: list,
+                     got_logits: list) -> dict:
+    """Each request's tokens from ``serve_continuous`` equal generate's on
+    its prompt (``want[r]``), token for token; where they differ, the
+    first difference must be a tie that the row's own error explains
+    (generate's top exceeds its logit at the served token by at most
+    twice the max |served - generate| logit gap of that step), and the
+    rest of that request is not compared (its stream took the other
+    branch)."""
+    rows = continuous_rows(SSM_MAX_NEW, LM_BATCH)
+    n_exact, ties = 0, 0
+    for r, m in enumerate(SSM_MAX_NEW):
+        got = np.asarray(served[r]).ravel()
+        if got.shape != (m,):
+            fail(f"{name} request {r}: {got.shape[0]} tokens, want {m}")
+        diff = np.flatnonzero(got != want[r][:m])
+        if diff.size == 0:
+            n_exact += 1
+            continue
+        t = int(diff[0])
+        call, row = rows[r][t]
+        g, c = want_logits[r][t].double(), got_logits[call][row].double()
+        c = c.reshape(-1)
+        g = g.reshape(-1)
+        err = float((c - g).abs().max())
+        gap = float(g.max() - g[int(got[t])])
+        print(f"  {name} request {r}: differs from generate at token {t} "
+              f"({int(got[t])} vs {int(want[r][t])}): generate's logit gap "
+              f"{gap:.4e}, the step's max logit difference {err:.4e}")
+        if not gap <= 2 * err:
+            fail(f"{name} request {r}: token {t} differs from generate's "
+                 f"and is not a tie")
+        ties += 1
+    print(f"  {name} serve_continuous: {n_exact} of {len(SSM_MAX_NEW)} "
+          f"requests token for token equal to generate, {ties} at a tie")
+    return dict(exact=n_exact, ties=ties)
+
+
+def ring_wrap(name: str, model, prompts) -> None:
+    """zamba2: generate with max_len SSM_WRAP_MAX_LEN (ring of 256 slots
+    under a 512-token prompt) through the Engine, and the same prefill
+    and decode steps by hand, the ring's len and positions exact after
+    the prefill and after each step; the two token streams equal."""
+    from repro_torch.serve import Engine, ServeConfig
+    gen, _ = Engine(model, ServeConfig(max_len=SSM_WRAP_MAX_LEN)).generate(
+        prompts, SSM_WRAP_TOKENS)
+    B, S = prompts.shape
+    pos = torch.arange(S, device=prompts.device).expand(B, S)
+    logits, cache = model.prefill(prompts, pos, SSM_WRAP_MAX_LEN)
+    check_ssm_cache(f"{name} wrap prefill", cache, S)
+    toks = [logits.argmax(-1)]
+    for t in range(SSM_WRAP_TOKENS - 1):
+        logits, cache = model.decode_step(
+            cache, toks[-1], torch.full((B, 1), S + t, device=pos.device))
+        check_ssm_cache(f"{name} wrap step {t}", cache, S + t + 1)
+        toks.append(logits.argmax(-1))
+    exact(f"{name} wrapped generate vs prefill + decode steps", gen,
+          torch.cat(toks, 1).to(gen.dtype))
+    print(f"  {name} ring of {SSM_WRAP_MAX_LEN} slots under {S} tokens: "
+          f"len and positions exact after the prefill and "
+          f"{SSM_WRAP_TOKENS - 1} steps; generate's {SSM_WRAP_TOKENS} "
+          f"tokens equal the hand loop's")
+
+
+def lm_step_profile(name: str, model, tokens, positions, card: str) -> dict:
+    """(e) One prefill and one decode step under ``torch.profiler``: the
+    host wall, the device's busy share of it, the device kernels and the
+    five that took the most device time."""
+    from repro_torch.analysis.profile_window import device_profile
+    logits, cache = model.prefill(tokens, positions, LM_MAX_LEN)
+    tok, nxt = logits.argmax(-1), positions[:, -1:] + 1
+    out = {}
+    for label, fn in (
+            ("prefill", lambda: model.prefill(tokens, positions, LM_MAX_LEN)),
+            ("decode step", lambda: model.decode_step(cache, tok, nxt))):
+        with device_profile() as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kern, calls = pass_times(prof)
+        busy = sum(kern.values()) * 1e-6
+        top = sorted(kern.items(), key=lambda kv: -kv[1])[:5]
+        out[label] = dict(wall_ms=wall * 1e3, busy_ms=busy * 1e3,
+                          kernels=sum(calls.values()))
+        print(f"  {name} {label} under torch.profiler: wall {wall * 1e3:.2f} "
+              f"ms, device busy {busy * 1e3:.2f} ms ({100 * busy / wall:.1f}% "
+              f"of wall), {sum(calls.values())} device kernels; top: "
+              + "; ".join(f"{n[:48]} x{calls[n]} {t / 1e3:.2f} ms"
+                          for n, t in top) + f"; {card}")
+    return out
+
+
+def ssm_model_path(name: str, device, card: str, index: int) -> tuple:
+    """(a) / (b) on one model at full width and depth; returns (results,
+    the ``fused_cotm`` row at the head's shape)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import (TMHead, TMHeadConfig, build,
+                                    pool_features)
+    from repro_torch.serve import Request
+    tag = "ab"[index]
+    cfg = get_config(name)
+    t0 = time.perf_counter()
+    model = build(cfg, device=device).init(
+        torch.Generator(device).manual_seed(SEED + 140 + index))
+    torch.cuda.synchronize()
+    print(f"phase 13 ({tag}) {name}: {model.n_params():,} parameters "
+          f"({cfg.n_layers} layers, d {cfg.d_model}, d_ff {cfg.d_ff}, V "
+          f"{cfg.vocab}), {cfg.param_dtype} weights, {cfg.dtype} compute, "
+          f"drawn on the card in {time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated; "
+          f"cut: none (full width and depth)")
+    rng = np.random.default_rng(SEED + 142 + index)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (len(SSM_MAX_NEW), LM_PROMPT))).to(device)
+    main = prompts[:LM_BATCH]
+    extra = list(range(LM_BATCH, len(SSM_MAX_NEW)))
+    rest = prompts[(extra * LM_BATCH)[:LM_BATCH]]
+    positions = torch.arange(LM_PROMPT, device=device).expand(
+        LM_BATCH, LM_PROMPT)
+    head = TMHead(TMHeadConfig(), d_features=cfg.d_model)
+    hparams = tm_head_params(head.cotm_cfg.n_literals, head.cfg.n_clauses,
+                             head.cfg.n_classes, head.cfg.n_states,
+                             SEED + 144 + index, device)
+    engine = recording_engine(model, LM_MAX_LEN)
+
+    # The main path, in one launch-count window: the Engine's generate on
+    # the 4 prompts and on the last two, serve_continuous of all six, the
+    # head's scores on the pooled prompt states through fused_cotm.
+    peaks = {}
+
+    def stage(label: str) -> None:
+        """The peak memory since the last stage."""
+        torch.cuda.synchronize()
+        peaks[label] = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    gen_main, _ = engine.generate(main, LM_DECODE)
+    logits_main = engine.take()
+    stage("generate")
+    gen_rest, _ = engine.generate(rest, LM_DECODE)
+    logits_rest = engine.take()
+    reqs = [Request(i, prompts[i].cpu().numpy(), max_new=m)
+            for i, m in enumerate(SSM_MAX_NEW)]
+    served, sstats = engine.serve_continuous(reqs, capacity=LM_BATCH)
+    logits_served = engine.take()
+    stage("serve_continuous")
+    hidden, _ = model.hidden(main)
+    feats = pool_features(hidden)
+    scores, err = head_scores(f"{name} TM head scores", head, hparams, feats)
+    stage("hidden + head")
+    launches = kernels.launch_counts()
+    peak = max(peaks.values())
+    if launches["fused_cotm_i32"] == 0:
+        fail(f"fused_cotm was never launched on the {name} path")
+    print(f"phase 13 ({tag}) main path: launches "
+          f"{ {k: v for k, v in launches.items() if v} }; peak memory "
+          f"{peak:.2f} GiB (torch.cuda.max_memory_allocated; by stage: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in peaks.items()) + ")")
+
+    # generate's tokens (and logits, a row per request) against
+    # serve_continuous, request for request
+    want, want_logits = [], []
+    for r in range(len(SSM_MAX_NEW)):
+        g, logs, row = ((gen_main, logits_main, r) if r < LM_BATCH
+                        else (gen_rest, logits_rest, r - LM_BATCH))
+        want.append(g[row].cpu().numpy())
+        want_logits.append([x[row] for x in logs])
+    cont = check_continuous(name, served, want, want_logits, logits_served)
+
+    # The same prefill and decode steps by hand, between CUDA events: the
+    # engine's tokens, every recurrent state finite, zamba2's rings exact.
+    run = greedy(model, main, positions, None, LM_MAX_LEN, LM_DECODE)
+    exact(f"{name} Engine.generate vs prefill + decode steps", gen_main,
+          run["fed"].to(gen_main.dtype))
+    check_ssm_cache(name, run["cache"], LM_PROMPT + LM_DECODE)
+    if not torch.isfinite(run["decode_logits"]).all():
+        fail(f"{name}: decode logits not finite")
+    ext, pos_ext = extended(run, main, positions)
+    dec = ssm_decode_per_layer(name, model, ext, pos_ext, LM_PROMPT,
+                               (0, LM_DECODE - 1), LM_MAX_LEN)
+    fwd = model.forward(ext, pos_ext)[0][:, LM_PROMPT:LM_PROMPT + LM_DECODE]
+    dec["end_to_end"] = dict(rel_stats(run["decode_logits"], fwd), argmax=(
+        float((run["decode_logits"].argmax(-1) == fwd.argmax(-1))
+              .double().mean())))
+    del fwd
+    print(f"  {name} {cfg.n_layers} layers, decode vs forward (a note, not "
+          f"gated): rel err median {dec['end_to_end']['median']:.3e} p99 "
+          f"{dec['end_to_end']['p99']:.3e} max "
+          f"{dec['end_to_end']['max']:.3e}; argmax equal at "
+          f"{dec['end_to_end']['argmax']:.4f} of {LM_BATCH * LM_DECODE} "
+          f"positions")
+    n_prefix = prefix_layers(cfg)
+    dec["prefix"] = prefix_decode(model, main, positions, n_prefix,
+                                  check=check_ssm_cache)
+    if cfg.hybrid_attn_every:
+        ring_wrap(name, model, main)
+
+    # (d) the head: scores bitwise (checked above), the kernel row at
+    # K = 2 x d (zamba2: 7168, a shape of its own)
+    print(f"phase 13 (d) TM head on pooled {name} prompt states: K = "
+          f"{head.cotm_cfg.n_literals} literals, {head.cfg.n_clauses} "
+          f"clauses, {head.cfg.n_classes} classes; scores bitwise equal to "
+          f"fused_cotm_ref on the card ({int((scores != 0).sum())} nonzero "
+          f"of {scores.numel()}); fused_cotm launches on the path "
+          f"{launches['fused_cotm_i32']}")
+    row = None
+    if name == SSM_ROW_ARCH:
+        row = head_kernel_row(
+            head, hparams, feats, launches["fused_cotm_i32"], err,
+            name=f"fused_cotm (TM head, K = {head.cotm_cfg.n_literals})")
+        print(f"{row['name']}: {row['ms']:.4f} ms (plain "
+              f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} "
+              f"ms, bound {row['bound_ms']:.5f} ms by {row['bound_by']}), "
+              f"{row['launches']} launches on the path; {card}")
+
+    # (e) times: prefill again, each decode step of the timed run, the
+    # continuous engine's requests/s and latency (host clock)
+    pre = [run["prefill_ms"]]
+    for _ in range(LM_TIMED_PREFILLS):
+        pre.append(greedy(model, main, positions, None, LM_MAX_LEN,
+                          0)["prefill_ms"])
+    p_ms, d_ms = statistics.median(pre), statistics.median(run["step_ms"])
+    lat = sstats["latency"]
+    times = dict(prefill_ms=p_ms, prefill_tokens_s=LM_BATCH * LM_PROMPT
+                 / (p_ms / 1e3), decode_step_ms=d_ms,
+                 decode_tokens_s=LM_BATCH / (d_ms / 1e3),
+                 requests_s=len(SSM_MAX_NEW) / sstats["wall_s"],
+                 latency_p50_s=lat["p50_s"], latency_p99_s=lat["p99_s"],
+                 peak_gib=peak, decode=dec, continuous=cont,
+                 profile=lm_step_profile(name, model, main, positions, card))
+    print(f"phase 13 (e) {name} B={LM_BATCH}: prefill of {LM_PROMPT} tokens "
+          f"{p_ms:.2f} ms ({times['prefill_tokens_s']:.1f} tokens/s; median "
+          f"of {len(pre)}: " + ", ".join(f"{x:.2f}" for x in pre)
+          + f"), decode step {d_ms:.3f} ms ({times['decode_tokens_s']:.1f} "
+          f"tokens/s; median of {LM_DECODE}: "
+          + ", ".join(f"{x:.2f}" for x in run["step_ms"])
+          + f"); CUDA events.  serve_continuous of {len(SSM_MAX_NEW)} "
+          f"requests at capacity {LM_BATCH}: {sstats['decode_steps']} "
+          f"decode steps, {times['requests_s']:.3f} requests/s, latency "
+          f"p50 {lat['p50_s']:.3f} s p99 {lat['p99_s']:.3f} s (host "
+          f"clock); peak {times['peak_gib']:.2f} GiB; {card}")
+    del run, engine, hidden
+    times["cpu"] = cpu_parity(model, device, n_prefix)
+    return times, row
+
+
+def ssm_path(device, card: str) -> tuple[dict, dict]:
+    """Phase 13: the ssm and hybrid families on the card; returns
+    (results, the ``fused_cotm`` row at zamba2's head shape)."""
+    t0 = time.perf_counter()
+    out, row = {}, None
+    for i, name in enumerate(SSM_ARCHS):
+        out[name], r = ssm_model_path(name, device, card, i)
+        row = r or row
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"phase SSM path: done in {time.perf_counter() - t0:.1f} s")
+    return out, row
+
+
 def kernel_resources(source: str) -> list[str]:
     """Each kernel of ``source`` with its registers, shared memory and
     spills, from the build's ``nvcc --resource-usage`` report."""
@@ -4010,6 +4469,8 @@ def main() -> int:
     sharded_path(card)
     _, head_row = lm_path(device, card)
     rows.append(head_row)
+    _, ssm_row = ssm_path(device, card)
+    rows.append(ssm_row)
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

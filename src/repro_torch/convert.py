@@ -76,12 +76,14 @@ def system_from_arrays(d: Mapping[str, Any], *,
 
 def lm_params_from_arrays(cfg: ModelConfig, tree: Mapping[str, Any], *,
                           device: str | torch.device | None = None):
-    """The port's ``TransformerLM`` of ``cfg`` on ``device`` (default
-    ``cuda``) with its parameters copied from ``tree``, the reference's
-    parameter tree as arrays: the leading ``"layers"`` axis is unstacked
-    into the layer list, every other layout is kept, so each leaf is a
-    copy.  Its ``state_dict()`` is the state dict of the same values.
-    Raises unless every leaf of the declarations is given, at its shape."""
+    """The port's model of ``cfg`` (``models.build``: any of the ten
+    architectures) on ``device`` (default ``cuda``) with its parameters
+    copied from ``tree``, the reference's parameter tree as arrays: the
+    leading ``"layers"`` axis is unstacked into the layer list, every
+    other leaf (zamba2's ``"shared_attn"`` among them) and layout is kept,
+    so each leaf is a copy.  Its ``state_dict()`` is the state dict of the
+    same values.  Raises unless every leaf of the declarations is given,
+    at its shape."""
     from .models import build
     from .models.base import leaves
     model = build(cfg, device=device)

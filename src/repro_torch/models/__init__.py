@@ -1,34 +1,42 @@
-"""Model zoo of the port (``repro.models``): the transformer family and the
-CoTM readout head.
+"""Model zoo of the port (``repro.models``): one builder for the ten
+architectures, and the CoTM readout head.
 
-``build(cfg, device=None)`` returns a ``TransformerLM`` for the dense,
-moe, vlm and audio families.  The ssm (rwkv6) and hybrid (zamba2)
-families are not ported yet (ROADMAP Queue 1 item 16 (b)): ``build``
-refuses them.
+``build(cfg, device=None)`` dispatches on the family, as the reference's:
+
+* dense / moe / vlm / audio -> ``TransformerLM``
+* ssm (rwkv6)               -> ``RWKV6LM``
+* hybrid (mamba2 + shared attention) -> ``Zamba2LM``
+
+All three are ``StackedLM``s with the same interface: ``decls`` /
+``init`` / ``abstract`` / ``n_params``, ``forward``, ``hidden``, ``loss``,
+``init_cache`` / ``cache_axes`` / ``prefill`` / ``decode_step``.
 """
 import torch
 
-from .base import P, ParamTree, abstract, axes_tree, count_params
+from .base import (P, ParamTree, StackedLM, abstract, axes_tree,
+                   count_params)
 from .config import (MLAConfig, MoEConfig, ModelConfig, SHAPES, ShapeSpec,
                      SSMConfig, TMHeadConfig, torch_dtype)
 from .tm_head import TMHead, pool_features
+from .rwkv6 import RWKV6LM
 from .transformer import TransformerLM
+from .zamba2 import Zamba2LM
 
 
 def build(cfg: ModelConfig, *,
-          device: str | torch.device | None = None) -> TransformerLM:
+          device: str | torch.device | None = None) -> StackedLM:
     """The model of ``cfg`` on ``device`` (default ``cuda``; ``"meta"``
     allocates nothing), parameters uninitialized: call ``init``."""
-    if cfg.ssm is not None:
-        raise NotImplementedError(
-            f"{cfg.name} is a {cfg.family} model; the ssm and hybrid "
-            f"families are not ported yet (ROADMAP Queue 1 item 16 (b))")
+    if cfg.ssm is not None and cfg.hybrid_attn_every > 0:
+        return Zamba2LM(cfg, device=device)
+    if cfg.ssm is not None and cfg.ssm.kind == "rwkv6":
+        return RWKV6LM(cfg, device=device)
     return TransformerLM(cfg, device=device)
 
 
 __all__ = [
     "build", "ModelConfig", "MoEConfig", "MLAConfig", "SSMConfig",
-    "TMHeadConfig", "ShapeSpec", "SHAPES", "TransformerLM", "TMHead",
-    "pool_features", "P", "ParamTree", "abstract", "axes_tree",
-    "count_params", "torch_dtype",
+    "TMHeadConfig", "ShapeSpec", "SHAPES", "StackedLM", "TransformerLM",
+    "RWKV6LM", "Zamba2LM", "TMHead", "pool_features", "P", "ParamTree",
+    "abstract", "axes_tree", "count_params", "torch_dtype",
 ]

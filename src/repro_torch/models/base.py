@@ -12,6 +12,10 @@ leaf.  From one declaration tree come:
   config is counted and sized without allocating anything;
 * ``axes_tree`` / ``count_params``.
 
+``StackedLM`` is what the LM families share: the parameters of the
+declaration tree with its stacked ``"layers"`` axis unstacked into an
+``nn.ModuleList``, the leaf lookup, the seeded init and the counts.
+
 The logical axes ("embed", "heads", "kv", "mlp", "experts", "layers", ...)
 are kept so the trees compare equal with the reference's; on one device
 nothing reads them.  The reference's ``ShardCtx`` (logical axes to mesh
@@ -26,6 +30,9 @@ from typing import Any, Callable, Iterator
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..device import resolve_device
+from .config import torch_dtype
 
 Tree = Any
 
@@ -167,9 +174,33 @@ def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return out * gamma.to(x.dtype) + beta.to(x.dtype)
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` in x's dtype.  In bf16 XLA expands it into
+    ``1 / (1 + exp(-x))`` with each step rounded, and so does this (bit
+    for bit; ``torch.sigmoid`` rounds once, a bf16 ulp off in a third of
+    the lanes); in f32 ``torch.sigmoid``, within an ulp."""
+    if x.dtype == torch.bfloat16:
+        return 1.0 / (1.0 + torch.exp(-x))
+    return torch.sigmoid(x)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: x * sigmoid(x), the sigmoid rounded first."""
+    return x * sigmoid(x)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(approximate=True)`` step for step in x's dtype, its
+    constants rounded to that dtype (bit for bit in bf16, where
+    ``F.gelu`` rounds once)."""
+    c = lambda v: torch.tensor(v, dtype=x.dtype, device=x.device)
+    inner = c(math.sqrt(2 / math.pi)) * (x + c(0.044715) * (x * x * x))
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
+
+
 ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
-    "silu": F.silu,
-    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "silu": silu,
+    "gelu": gelu_tanh,
     "relu": F.relu,
     "relu2": lambda x: torch.square(F.relu(x)),
 }
@@ -189,3 +220,93 @@ def dense_out(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     B, S = x.shape[:2]
     return (x.reshape(B, S, -1)
             @ w.reshape(-1, w.shape[-1]).to(x.dtype))
+
+
+def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor,
+                    mask: torch.Tensor | None = None,
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mean next-token CE over ``mask`` (all positions without one),
+    z-loss) of f32 ``logits`` (B, S, [C,] V) on ``tokens`` (B, S[, C])."""
+    targets = tokens[:, 1:].long()
+    logits = logits[:, :-1]
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+    if mask is not None:
+        mask = mask[:, 1:].to(torch.float32)
+        if nll.ndim == 3:                            # audio codebooks
+            mask = mask[..., None]
+        ce = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    else:
+        ce = nll.mean()
+    # z-loss keeps the softmax normalizer bounded (stability at scale).
+    zl = 1e-4 * torch.square(torch.logsumexp(logits, dim=-1)).mean()
+    return ce, zl
+
+
+class StackedLM(nn.Module):
+    """An LM of one config on one device whose declarations (``decls``,
+    the reference's tree) stack the repeated layers on a leading
+    ``"layers"`` axis.  The parameters live in ``self.params``, a
+    ``ParamTree`` of that tree with ``"layers"`` unstacked into an
+    ``nn.ModuleList`` (``params.layers.3.attn.wq`` is the reference's
+    ``params["layers"]["attn"]["wq"][3]``); every weight keeps the
+    reference's layout, so converting a tree is a copy
+    (``repro_torch.convert.lm_params_from_arrays``).  Built with
+    ``device=None`` it lives on ``cuda`` (raising without a card);
+    ``"meta"`` allocates nothing.  Parameters start uninitialized: fill
+    them with ``init`` or copy them in."""
+
+    def __init__(self, cfg, *, device: str | torch.device | None = None):
+        super().__init__()
+        self.cfg = cfg
+        dev = resolve_device(device)
+        decls = self.decls()
+        tree = {k: v for k, v in decls.items() if k != "layers"}
+        n = next(leaves(decls["layers"]))[1].shape[0]
+        one = tree_map(lambda p: P(p.shape[1:], p.axes[1:], p.dtype, p.init,
+                                   p.scale), decls["layers"])
+        tree["layers"] = [one] * n
+        self.params = ParamTree(tree, dev, torch_dtype(cfg.param_dtype))
+
+    def decls(self) -> dict:
+        raise NotImplementedError
+
+    @property
+    def device(self) -> torch.device:
+        return self.params["embed"].device
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return torch_dtype(self.cfg.dtype)
+
+    def leaf(self, path: tuple):
+        """The parameter at a path of the reference's tree; a
+        ``"layers"`` path names a stacked leaf and gives the list of its
+        per-layer parameters."""
+        def walk(t, keys):
+            for k in keys:
+                t = t[k]
+            return t
+        if path[0] == "layers":
+            return [walk(layer, path[1:]) for layer in self.params["layers"]]
+        return walk(self.params, path)
+
+    def init(self, generator: torch.Generator):
+        """Draw every parameter from ``generator`` (on the model's device),
+        leaf by leaf in the tree's order, each stacked leaf layer by layer,
+        with the reference's init rule (``P.std`` of the stacked leaf)."""
+        for path, p in leaves(self.decls()):
+            t = self.leaf(path)
+            for x in t if path[0] == "layers" else [t]:
+                init_leaf(x, p, generator)
+        return self
+
+    def abstract(self, dtype: torch.dtype | None = None):
+        """The reference's parameter tree as ``meta`` tensors."""
+        return abstract(self.decls(), dtype)
+
+    def axes(self):
+        return axes_tree(self.decls())
+
+    def n_params(self) -> int:
+        return count_params(self.decls())

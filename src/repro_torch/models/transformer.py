@@ -1,13 +1,10 @@
 """Decoder-only transformer (dense / moe / vlm / audio families): the port
 of ``repro.models.transformer`` as an inference ``nn.Module``.
 
-The parameters live in ``self.params``, a ``ParamTree`` whose keys are the
-reference's parameter tree with its stacked ``"layers"`` axis unstacked
-into an ``nn.ModuleList`` (``params.layers.3.attn.wq`` is the reference's
-``params["layers"]["attn"]["wq"][3]``); every weight keeps the reference's
-layout (``wq`` (d, H, hd), ``lm_head`` (d, V)), so converting a parameter
-tree is a copy (``repro_torch.convert.lm_params_from_arrays``).
-Heterogeneous leading layers (DeepSeek's dense first layer) sit in
+The parameters live in ``self.params`` as ``base.StackedLM`` lays them
+out: the reference's tree with its stacked ``"layers"`` axis unstacked,
+every weight in the reference's layout (``wq`` (d, H, hd), ``lm_head``
+(d, V)).  Heterogeneous leading layers (DeepSeek's dense first layer) sit in
 ``params.front``.  ``forward`` runs the front layers, then the stacked
 layers, as a Python loop.
 
@@ -30,13 +27,11 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
-from ..device import resolve_device
 from .attention import attn_decls, attn_forward, init_attn_cache
-from .base import (P, ParamTree, abstract, count_params, init_leaf,
-                   layer_norm, leaves, rms_norm, tree_map)
-from .config import ModelConfig, torch_dtype
+from .base import (P, StackedLM, layer_norm, next_token_loss, rms_norm,
+                   tree_map)
+from .config import ModelConfig
 from .ffn import decls_mlp, decls_moe, mlp_forward, moe_forward
 
 
@@ -59,22 +54,10 @@ def _norm(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return rms_norm(x, p["gamma"])
 
 
-class TransformerLM(nn.Module):
-    """The LM of one config on one device.  Built with ``device=None`` it
-    lives on ``cuda`` (raising without a card); ``"meta"`` allocates
-    nothing.  Parameters start uninitialized: fill them with ``init`` or
-    copy them in (``convert.lm_params_from_arrays``)."""
-
-    def __init__(self, cfg: ModelConfig, *,
-                 device: str | torch.device | None = None):
-        super().__init__()
-        self.cfg = cfg
-        dev = resolve_device(device)
-        decls = self.decls()
-        tree = {k: v for k, v in decls.items() if k != "layers"}
-        tree["layers"] = [self._block_decls(cfg.moe is not None)
-                          for _ in range(self.n_stacked)]
-        self.params = ParamTree(tree, dev, torch_dtype(cfg.param_dtype))
+class TransformerLM(StackedLM):
+    """The transformer LM of one config on one device (``StackedLM``:
+    built with ``device=None`` it lives on ``cuda``; ``"meta"`` allocates
+    nothing)."""
 
     @property
     def n_front(self) -> int:
@@ -83,14 +66,6 @@ class TransformerLM(nn.Module):
     @property
     def n_stacked(self) -> int:
         return self.cfg.n_layers - self.n_front
-
-    @property
-    def device(self) -> torch.device:
-        return self.params["final_norm"]["gamma"].device
-
-    @property
-    def compute_dtype(self) -> torch.dtype:
-        return torch_dtype(self.cfg.dtype)
 
     # -- declarations -------------------------------------------------------
     def _block_decls(self, moe_layer: bool) -> dict:
@@ -134,35 +109,6 @@ class TransformerLM(nn.Module):
             else:
                 decls["lm_head"] = P(shape, ("embed", "vocab"))
         return decls
-
-    def leaf(self, path: tuple):
-        """The parameter at a path of the reference's tree; a
-        ``"layers"`` path names a stacked leaf and gives the list of its
-        per-layer parameters."""
-        def walk(t, keys):
-            for k in keys:
-                t = t[k]
-            return t
-        if path[0] == "layers":
-            return [walk(layer, path[1:]) for layer in self.params["layers"]]
-        return walk(self.params, path)
-
-    def init(self, generator: torch.Generator) -> "TransformerLM":
-        """Draw every parameter from ``generator`` (on the model's device),
-        leaf by leaf in the tree's order, each stacked leaf layer by layer,
-        with the reference's init rule (``P.std`` of the stacked leaf)."""
-        for path, p in leaves(self.decls()):
-            t = self.leaf(path)
-            for x in t if path[0] == "layers" else [t]:
-                init_leaf(x, p, generator)
-        return self
-
-    def abstract(self, dtype: torch.dtype | None = None):
-        """The reference's parameter tree as ``meta`` tensors."""
-        return abstract(self.decls(), dtype)
-
-    def n_params(self) -> int:
-        return count_params(self.decls())
 
     # -- blocks --------------------------------------------------------------
     def _block(self, p, x: torch.Tensor, positions: torch.Tensor, *,
@@ -254,20 +200,7 @@ class TransformerLM(nn.Module):
                                    batch.get("extra_embeds"))
         if batch.get("extra_embeds") is not None:
             logits = logits[:, -tokens.shape[1]:]    # text positions only
-        targets = tokens[:, 1:].long()
-        logits = logits[:, :-1]
-        logp = torch.log_softmax(logits, dim=-1)
-        nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
-        mask = batch.get("loss_mask")
-        if mask is not None:
-            mask = mask[:, 1:].to(torch.float32)
-            if nll.ndim == 3:                        # audio codebooks
-                mask = mask[..., None]
-            ce = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-        else:
-            ce = nll.mean()
-        # z-loss keeps the softmax normalizer bounded (stability at scale).
-        zl = 1e-4 * torch.square(torch.logsumexp(logits, dim=-1)).mean()
+        ce, zl = next_token_loss(logits, tokens, batch.get("loss_mask"))
         return ce + zl + aux, {"ce": ce, "aux": aux, "zloss": zl}
 
     # -- serving -------------------------------------------------------------
@@ -282,6 +215,21 @@ class TransformerLM(nn.Module):
         if self.n_front:
             cache["front"] = [one() for _ in range(self.n_front)]
         return cache
+
+    def cache_axes(self) -> dict:
+        """Logical axes of the cache tree, leaf for leaf (the serving
+        engine finds each leaf's batch axis here)."""
+        if self.cfg.mla is not None:
+            one = {"ckv": ("batch", None, "head_dim"),
+                   "kr": ("batch", None, "head_dim"), "len": ("batch",)}
+        else:
+            one = {"k": ("batch", None, "kv", "head_dim"),
+                   "v": ("batch", None, "kv", "head_dim"),
+                   "len": ("batch",)}
+        axes = {"layers": {k: ("layers",) + v for k, v in one.items()}}
+        if self.n_front:
+            axes["front"] = [dict(one) for _ in range(self.n_front)]
+        return axes
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, positions: torch.Tensor,

@@ -1,15 +1,15 @@
-"""Serving: the continuous-batching slot table and queue, the IMPACT
-crossbar engine (a one-tenant zoo), the multi-tenant model zoo over
+"""Serving: the LM engine (``Engine``, ``ServeConfig``), the
+continuous-batching slot table and queue, the IMPACT crossbar engine (a one-tenant zoo), the multi-tenant model zoo over
 co-resident crossbars, and Chrome-tracing spans."""
-from .engine import (Backpressure, BatchingQueue, Request, SlotTable,
-                     latency_percentiles)
+from .engine import (Backpressure, BatchingQueue, Engine, Request,
+                     ServeConfig, SlotTable, latency_percentiles)
 from .impact_engine import (BatchStats, IMPACTEngine, RequestRecord,
                             aggregate_reports, poisson_arrivals,
                             replay_trace)
 from .tracing import REQUEST_PHASES, Tracer, validate_events
 from .zoo import ModelZoo, SLOClass, TenantState, replay_zoo_trace
 
-__all__ = ["BatchingQueue", "Request", "SlotTable", "Backpressure",
+__all__ = ["Engine", "ServeConfig", "BatchingQueue", "Request", "SlotTable", "Backpressure",
            "latency_percentiles", "IMPACTEngine", "BatchStats",
            "RequestRecord", "aggregate_reports", "poisson_arrivals",
            "replay_trace", "ModelZoo", "SLOClass", "TenantState",

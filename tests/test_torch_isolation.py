@@ -46,7 +46,7 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
         "repro_torch.kernels.work, repro_torch.kernels.ops, "
         "repro_torch.launch, repro_torch.sharding, "
         "repro_torch.sharding.crossbar, repro_torch.crossbar_scaling, "
-        "repro_torch.models, repro_torch.configs\n"
+        "repro_torch.models, repro_torch.configs, repro_torch.serve_lm\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"
