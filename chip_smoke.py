@@ -141,7 +141,29 @@ Phases, each of which must pass or the script exits non-zero:
    ``fused_cotm``; (e) prefill tokens/s, decode-step ms (CUDA events),
    ``serve_continuous`` requests/s and latency p50 / p99 (host clock),
    peak memory, and ``fused_cotm`` at (4, 7168, 500, 10), a third row of
-   the kernel table.
+   the kernel table;
+14. LM training (``repro_torch.train``, ``repro_torch.train_lm``), which
+   reaches no kernel of the port: (a) llama3-8b at full width, 8 layers
+   deep (the 32-layer training state, 128.5 GB, does not fit the card),
+   2.8e9 f32 master parameters drawn on the card, bf16 compute, remat,
+   f32 moments, 6 AdamW steps of 2 microbatches of 4 x 512
+   ``synth_tokens`` on the repeated batch through ``make_train_step``:
+   loss and grad norm finite every step, the last loss below the first,
+   every leaf updated; (b) its first 2 layers in f32, one step at B = 2,
+   S = 64 on the card against the CPU (loss, each leaf's gradient, the
+   updated parameters); (c) every other config at full width one layer
+   deep (deepseek: its dense front layer and one MoE layer; zamba2: 6
+   mamba layers and the shared block; grok-1 as ``train_lm``'s ~100M
+   variant), 2 steps and a gradient finite and nonzero at every leaf; (d)
+   ``train_lm.train`` at the reference example's size (batch 8, seq 256),
+   60 steps, then a run that fails at step 30 and one that resumes it:
+   the resumed losses equal the uninterrupted run's bit for bit, the loss
+   falls, the heartbeat is written; (e) ``int8_psum`` and
+   ``compressed_grad_allreduce`` in a gloo world of 4 on the card, bit for
+   bit against CPU tensors; (f) (a)'s step, forward + backward of each
+   microbatch and optimizer times (CUDA events), tokens/s, model FLOPs as
+   a share of the bf16 peak, peak memory against the state, and one
+   step under ``torch.profiler`` (busy share, largest device items).
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -4384,6 +4406,524 @@ def ssm_path(device, card: str) -> tuple[dict, dict]:
     return out, row
 
 
+# -- phase 14 --------------------------------------------------------------
+
+# (a) llama3-8b at full width, TRAIN_LAYERS deep (the 32-layer training
+# state, f32 master + m + v + gradient of 8.03e9 parameters, is 128.5 GB:
+# more than the card), bf16 compute, remat on (the config's own), f32
+# moments (its opt_moment_dtype): TRAIN_STEPS steps of TRAIN_ACCUM
+# microbatches of TRAIN_BATCH x TRAIN_SEQ synth_tokens, the same batch
+# every step.  (b) its first TRAIN_CPU_LAYERS layers, f32 compute, one
+# step at TRAIN_CPU_BATCH x TRAIN_CPU_SEQ on the card and on the CPU.  (c)
+# the other configs at full width one layer deep (deepseek: its dense
+# front layer and one MoE layer; zamba2: hybrid_attn_every mamba layers
+# and the shared block), grok-1 as train_lm's ~100M variant (one layer is
+# 97.3 GiB of state), TRAIN_OTHER_STEPS steps of TRAIN_OTHER_BATCH x
+# TRAIN_OTHER_SEQ.  (d) repro_torch.train_lm at the reference example's
+# size (llama3-8b's variant, batch 8, seq 256): TRAIN_LM_STEPS steps
+# uninterrupted, then failing at TRAIN_LM_FAIL and resumed.  (e) the int8
+# all-reduce in a gloo world of INT8_WORLD ranks on the card against the
+# same calls on CPU tensors.  (f) (a)'s times, FLOPs and memory.
+TRAIN_ARCH, TRAIN_LAYERS = "llama3-8b", 8
+TRAIN_ACCUM, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 4, 512, 6
+TRAIN_LR = 1e-3
+TRAIN_CPU_LAYERS, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, TRAIN_CPU_LR = 2, 2, 64, 1e-4
+TRAIN_OTHER_BATCH, TRAIN_OTHER_SEQ, TRAIN_OTHER_STEPS = 2, 128, 2
+TRAIN_LM_STEPS, TRAIN_LM_FAIL, TRAIN_LM_SAVE = 60, 30, 15
+TRAIN_LM_BATCH, TRAIN_LM_SEQ = 8, 256       # examples/train_lm.py's defaults
+INT8_WORLD, INT8_STEPS = 4, 3
+# (b) holds the card to the CPU with the CPU tests' f32 bounds
+# (tests/test_torch_train_step.py): loss rtol 1e-5, each leaf's gradient
+# within 1e-2 in relative Frobenius norm.  At the reference's init the
+# f32 step is not that well conditioned at full width: q and k come out
+# with std ~11 and ~23, the attention logits with std ~255, and a
+# one-ulp nudge of the f32 parameters moves the card's own gradients by
+# 6.4% and its loss by 1.9e-5 (measured on one H100; 4.3% at d = 512 and
+# 1024 on the CPU).  So the gated comparison scales wq and wk by
+# TRAIN_CPU_SOFTEN (logit std ~1), where that floor is ~3e-3 and a
+# device difference stands out; the reference's own scale is compared
+# and printed beside its floor, not gated.  After one train_step, Adam's
+# first update moves each element by lr x the sign of its gradient (plus
+# the decay), so an element whose gradient sits at the noise level may
+# move the other way on the card: no element of the parameters may
+# differ by more than 2 x lr (+ 1e-6 of the element), and each leaf's
+# update keeps a cosine of 0.99 with the CPU's.
+TRAIN_CPU_LOSS_RTOL, TRAIN_CPU_GRAD_FROB = 1e-5, 1e-2
+TRAIN_CPU_UPDATE_COS, TRAIN_CPU_SOFTEN = 0.99, 1 / 16
+# A sample of each leaf (every TRAIN_SAMPLE_STRIDE-th element) tells
+# whether the step changed it, without a second copy of the state.
+TRAIN_SAMPLE_STRIDE = 997
+
+
+def leaf_samples(tree) -> dict:
+    from repro_torch.models.base import leaves
+    return {p: t.detach().reshape(-1)[::TRAIN_SAMPLE_STRIDE].clone()
+            for p, t in leaves(tree)}
+
+
+def rel_frob(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm().clamp_min(1e-300))
+
+
+@contextlib.contextmanager
+def step_events():
+    """CUDA events around each microbatch's forward + backward
+    (``step.backward_into``) and around the optimizer (``apply_updates``)
+    inside ``train_step``: the step module's own functions, wrapped for
+    the window."""
+    from repro_torch.train import step as step_mod
+    marks = {"micro": [], "opt": []}
+    orig_bwd, orig_opt = step_mod.backward_into, step_mod.apply_updates
+
+    def timed(kind, fn):
+        def run(*args, **kwargs):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn(*args, **kwargs)
+            e.record()
+            marks[kind].append((s, e))
+            return out
+        return run
+    step_mod.backward_into = timed("micro", orig_bwd)
+    step_mod.apply_updates = timed("opt", orig_opt)
+    try:
+        yield marks
+    finally:
+        step_mod.backward_into, step_mod.apply_updates = orig_bwd, orig_opt
+
+
+def train_step_flops(cfg, tokens: int, seq: int) -> float:
+    """Model FLOPs of one training step with every layer rematerialized:
+    the GEMMs (2 a multiply-add of each weight a token) forward, twice that
+    backward, the layers' forward again; attention's QK^T and PV over the
+    causal chunk grid as computed (S x S a sequence, each 2 x S x S x H x
+    hd), four times (forward, recompute, two backward products).  The
+    embedding is a gather, not a GEMM."""
+    d, L = cfg.d_model, cfg.n_layers
+    hd, H, Hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    layer = d * hd * (2 * H + 2 * Hkv) + 3 * d * cfg.d_ff
+    head = d * cfg.vocab
+    gemm = 2 * tokens * (3 * (L * layer + head) + L * layer)
+    attn = (tokens // seq) * L * 2 * (2 * seq * seq * H * hd) * 4
+    return float(gemm + attn)
+
+
+def train_batch(cfg, accum: int, batch: int, seq: int, seed: int) -> dict:
+    """``synth_tokens`` as a train step's batch (``train_lm.lm_batch``):
+    (accum, batch, seq[, C]), with text-only M-RoPE positions for
+    qwen2-vl."""
+    from repro_torch.launch.specs import synth_tokens
+    from repro_torch.train_lm import lm_batch
+    return lm_batch(cfg, synth_tokens(cfg, accum * batch, seq, seed=seed),
+                    accum)
+
+
+def train_llama(device, card: str) -> dict:
+    """(a) and (f): llama3-8b at full width, TRAIN_LAYERS deep."""
+    from repro_torch.analysis.profile_window import device_profile
+    from repro_torch.configs import get_config
+    from repro_torch.models import build, torch_dtype
+    from repro_torch.models.base import leaves
+    from repro_torch.train import AdamWConfig, init_state, make_train_step
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    # Drawn on the card through a model whose own copy is dropped at once;
+    # the step runs a model on "meta" over the state's tree.
+    params = build(cfg, device=device).init(
+        torch.Generator(device).manual_seed(SEED + 140)).tree()
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = build(cfg, device="meta")
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                      moment_dtype=torch_dtype(cfg.opt_moment_dtype))
+    state = init_state(params, opt)
+    del params
+    n = model.n_params()
+    state_gib = 4 * 4 * n / 2**30          # master, m, v, gradient in f32
+    torch.cuda.synchronize()
+    print(f"phase 14 (a) {TRAIN_ARCH} x {TRAIN_LAYERS} layers at full width "
+          f"(d {cfg.d_model}, d_ff {cfg.d_ff}, V {cfg.vocab}): {n:,} f32 "
+          f"master parameters drawn on the card, {cfg.dtype} compute, remat "
+          f"{cfg.remat}, {opt.moment_dtype} moments; master + m + v + "
+          f"gradient {state_gib:.2f} GiB; "
+          f"{(torch.cuda.memory_allocated() - base) / 2**30:.2f} GiB "
+          f"allocated after init ({time.perf_counter() - t0:.1f} s)")
+    step = make_train_step(model, opt, device=device)
+    batch = train_batch(cfg, TRAIN_ACCUM, TRAIN_BATCH, TRAIN_SEQ, SEED + 141)
+    before = leaf_samples(state.params)
+    losses, norms, step_ms, micro_ms, opt_ms = [], [], [], [], []
+    for i in range(TRAIN_STEPS):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        with step_events() as marks:
+            s.record()
+            state, metrics = step(state, batch, i)
+            e.record()
+        torch.cuda.synchronize()
+        step_ms.append(s.elapsed_time(e))
+        micro_ms.append([a.elapsed_time(b) for a, b in marks["micro"]])
+        opt_ms.append(marks["opt"][0][0].elapsed_time(marks["opt"][0][1]))
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        if not (np.isfinite(losses[-1]) and np.isfinite(norms[-1])):
+            fail(f"phase 14 (a) step {i}: loss {losses[-1]} grad_norm "
+                 f"{norms[-1]}")
+    peak = torch.cuda.max_memory_allocated() - base
+    if not losses[-1] < losses[0]:
+        fail(f"phase 14 (a): loss did not fall: {losses}")
+    after = leaf_samples(state.params)
+    still = [p for p in before if torch.equal(before[p], after[p])]
+    if still:
+        fail(f"phase 14 (a): leaves not updated: {still}")
+    print(f"  losses " + ", ".join(f"{x:.4f}" for x in losses)
+          + "; grad norms " + ", ".join(f"{x:.3f}" for x in norms)
+          + f"; all {len(before)} leaves updated")
+
+    # One more step under torch.profiler: the device's busy share.
+    with device_profile() as prof:
+        t1 = time.perf_counter()
+        state, _ = step(state, batch, TRAIN_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    kern, calls = pass_times(prof)
+    busy = sum(kern.values()) * 1e-6
+    top = sorted(kern.items(), key=lambda kv: -kv[1])[:8]
+    tokens = TRAIN_ACCUM * TRAIN_BATCH * TRAIN_SEQ
+    med = statistics.median(step_ms[1:])
+    flops = train_step_flops(cfg, tokens, TRAIN_SEQ)
+    out = dict(losses=losses, grad_norms=norms, step_ms=step_ms,
+               micro_ms=micro_ms, opt_ms=opt_ms, step_ms_median=med,
+               tokens_s=tokens / (med / 1e3), flops=flops,
+               flop_share=flops / (med / 1e3) / 989e12,
+               peak_gib=peak / 2**30, state_gib=state_gib,
+               busy_share=busy / wall, wall_ms=wall * 1e3,
+               kernels=sum(calls.values()))
+    print(f"phase 14 (f) {TRAIN_ARCH} x {TRAIN_LAYERS}, {TRAIN_ACCUM} x "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens a step: step "
+          f"{med:.1f} ms (median of steps 2-{TRAIN_STEPS}; all "
+          + ", ".join(f"{x:.1f}" for x in step_ms)
+          + "), forward + backward a microbatch "
+          + "; ".join("/".join(f"{x:.1f}" for x in m) for m in micro_ms)
+          + " ms, optimizer " + ", ".join(f"{x:.1f}" for x in opt_ms)
+          + f" ms (CUDA events); {out['tokens_s']:.1f} tokens/s; "
+          f"{flops:.3e} model FLOPs a step (remat), "
+          f"{100 * out['flop_share']:.1f}% of the 989 TFLOP/s bf16 dense "
+          f"peak; peak memory {out['peak_gib']:.2f} GiB above the "
+          f"phase's start (state {state_gib:.2f} GiB; "
+          f"torch.cuda.max_memory_allocated); {card}")
+    print(f"  one step under torch.profiler: wall {wall * 1e3:.1f} ms, "
+          f"device busy {busy * 1e3:.1f} ms ({100 * out['busy_share']:.1f}% "
+          f"of wall), {out['kernels']} device kernels; largest: "
+          + "; ".join(f"{n_[:60]} x{calls[n_]} {t / 1e3:.2f} ms"
+                      for n_, t in top) + f"; {card}")
+    del state, step, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def cpu_gaps(model, host, batch, device, lr: float | None) -> dict:
+    """The loss and each leaf's gradient (``backward_into``) of ``host``
+    (the reference's tree on the CPU) on the card, on the CPU and on the
+    card one ulp away (random signs); with ``lr``, one ``train_step`` on
+    the card and on the CPU.  -> the gaps: loss (relative), the worst
+    leaf's gradient (relative Frobenius), the same two for the nudged
+    card against the card, and the step's largest parameter gap (in
+    units of 2 lr) and least update cosine."""
+    from repro_torch.models.base import leaves, tree_map
+    from repro_torch.train import AdamWConfig, init_state, make_train_step
+    from repro_torch.train.step import backward_into
+    gen = torch.Generator().manual_seed(SEED + 144)
+    nudge = lambda t: t * (1 + (torch.randint(0, 2, t.shape, generator=gen)
+                                * 2 - 1) * 2.0 ** -23)
+    mb = {k: torch.from_numpy(v[0]) for k, v in batch.items()}
+    out = {}
+    for where, dev, tweak in (("card", device, None),
+                              ("cpu", torch.device("cpu"), None),
+                              ("nudged", device, nudge)):
+        init = host if tweak is None else tree_map(tweak, host)
+        masters = tree_map(lambda t: t.to(dev, copy=True).requires_grad_(),
+                           init)
+        loss = backward_into(model, masters,
+                             {k: v.to(dev) for k, v in mb.items()})
+        out[where] = dict(loss=float(loss), grads={
+            p: m.grad.cpu() for p, m in leaves(masters)})
+        del masters
+        if tweak is None and lr is not None:
+            opt = AdamWConfig(lr=lr, warmup_steps=1)
+            state = init_state(tree_map(lambda t: t.to(dev, copy=True),
+                                        host), opt)
+            state, _ = make_train_step(model, opt, device=dev)(
+                state, batch, 0)
+            out[where]["params"] = {p: t.cpu() for p, t in
+                                    leaves(state.params)}
+            del state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def gaps(a, b):
+        return (abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+                max((rel_frob(a["grads"][p], g), p)
+                    for p, g in b["grads"].items()))
+    card, cpu = out["card"], out["cpu"]
+    res = dict(loss=card["loss"], cpu_loss=cpu["loss"])
+    res["loss_rel"], res["grad"] = gaps(card, cpu)
+    res["floor_loss"], res["floor_grad"] = gaps(out["nudged"], card)
+    if lr is not None:
+        init = dict(leaves(host))
+        res["param_gap"] = max(
+            (float(((card["params"][p] - w).abs()
+                    / (2 * lr + 1e-6 * w.abs())).max()), p)
+            for p, w in cpu["params"].items())
+        res["cos"] = min((float(torch.nn.functional.cosine_similarity(
+            (card["params"][p] - init[p]).double().reshape(1, -1),
+            (w - init[p]).double().reshape(1, -1))), p)
+            for p, w in cpu["params"].items())
+    return res
+
+
+def train_cpu_parity(device) -> dict:
+    """(b) llama3-8b's first TRAIN_CPU_LAYERS layers at full width in f32
+    compute on the card against the CPU: gated with wq and wk scaled by
+    TRAIN_CPU_SOFTEN, printed at the reference's own scale (see the
+    bounds' comment)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=TRAIN_CPU_LAYERS, dtype="float32")
+    host = build(cfg, device="cpu").init(
+        torch.Generator().manual_seed(SEED + 142)).tree()
+    batch = train_batch(cfg, 1, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, SEED + 143)
+    model = build(cfg, device="meta")
+    own = cpu_gaps(model, host, batch, device, None)
+    attn = host["layers"]["attn"]
+    for w in ("wq", "wk"):
+        attn[w] = attn[w] * TRAIN_CPU_SOFTEN
+    res = cpu_gaps(model, host, batch, device, TRAIN_CPU_LR)
+    label = (f"phase 14 (b) {TRAIN_ARCH} x {TRAIN_CPU_LAYERS} layers f32, "
+             f"card vs CPU, B = {TRAIN_CPU_BATCH}, S = {TRAIN_CPU_SEQ}")
+    print(f"{label}, at the reference's init (printed, not gated): loss "
+          f"{own['loss']:.7f} / {own['cpu_loss']:.7f} (rel "
+          f"{own['loss_rel']:.2e}), worst gradient {own['grad'][0]:.2e} "
+          f"{own['grad'][1]}; the card one ulp from itself: loss "
+          f"{own['floor_loss']:.2e}, gradient {own['floor_grad'][0]:.2e} "
+          f"{own['floor_grad'][1]}")
+    print(f"{label}, wq and wk x {TRAIN_CPU_SOFTEN}: loss "
+          f"{res['loss']:.7f} / {res['cpu_loss']:.7f} (rel "
+          f"{res['loss_rel']:.2e}, bound {TRAIN_CPU_LOSS_RTOL}); worst "
+          f"gradient {res['grad'][0]:.2e} {res['grad'][1]} (bound "
+          f"{TRAIN_CPU_GRAD_FROB}); the card one ulp from itself: loss "
+          f"{res['floor_loss']:.2e}, gradient {res['floor_grad'][0]:.2e}; "
+          f"after one train_step (lr {TRAIN_CPU_LR}) the largest parameter "
+          f"gap is {res['param_gap'][0]:.3e} of 2 lr {res['param_gap'][1]} "
+          f"(bound 1), least update cosine {res['cos'][0]:.6f} "
+          f"{res['cos'][1]} (bound {TRAIN_CPU_UPDATE_COS})")
+    if not res["loss_rel"] <= TRAIN_CPU_LOSS_RTOL:
+        fail(f"phase 14 (b): loss {res['loss']} CPU {res['cpu_loss']}")
+    if not res["grad"][0] <= TRAIN_CPU_GRAD_FROB:
+        fail(f"phase 14 (b): gradient {res['grad']}")
+    if not res["param_gap"][0] <= 1.0:
+        fail(f"phase 14 (b): parameters {res['param_gap']}")
+    if not res["cos"][0] >= TRAIN_CPU_UPDATE_COS:
+        fail(f"phase 14 (b): update cosine {res['cos']}")
+    return dict(reference_init=own, softened=res)
+
+
+def train_others(device) -> dict:
+    """(c) every other config at full width, one layer deep (grok-1 as
+    train_lm's variant): TRAIN_OTHER_STEPS steps, then one
+    ``backward_into`` whose every gradient is finite and nonzero."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.models import build, torch_dtype
+    from repro_torch.models.base import leaves, tree_map
+    from repro_torch.train import AdamWConfig, init_state, make_train_step
+    from repro_torch.train.step import backward_into
+    from repro_torch.train_lm import hundred_m_variant
+    out = {}
+    for i, name in enumerate(ARCH_IDS):
+        if name == TRAIN_ARCH:
+            continue
+        cfg = get_config(name)
+        if name.startswith("grok"):
+            cfg, cut = hundred_m_variant(cfg), "train_lm's ~100M variant"
+        elif cfg.hybrid_attn_every:
+            cfg = dataclasses.replace(cfg, n_layers=cfg.hybrid_attn_every)
+            cut = f"{cfg.n_layers} mamba layers and the shared block"
+        else:
+            front = cfg.moe.first_dense_layers if cfg.moe else 0
+            cfg = dataclasses.replace(cfg, n_layers=front + 1)
+            cut = f"{cfg.n_layers} layer(s)"
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        params = build(cfg, device=device).init(
+            torch.Generator(device).manual_seed(SEED + 150 + i)).tree()
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = build(cfg, device="meta")
+        opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                          moment_dtype=torch_dtype(cfg.opt_moment_dtype))
+        state = init_state(params, opt)
+        step = make_train_step(model, opt, device=device)
+        batch = train_batch(cfg, 1, TRAIN_OTHER_BATCH, TRAIN_OTHER_SEQ,
+                            SEED + 160 + i)
+        losses = []
+        for s in range(TRAIN_OTHER_STEPS):
+            state, metrics = step(state, batch, s)
+            losses.append(float(metrics["loss"]))
+            if not (np.isfinite(losses[-1])
+                    and np.isfinite(float(metrics["grad_norm"]))):
+                fail(f"phase 14 (c) {name}: step {s} {metrics}")
+        masters = tree_map(lambda t: t.detach().requires_grad_(),
+                           state.params)
+        backward_into(model, masters, {k: torch.as_tensor(v[0]).to(device)
+                                       for k, v in batch.items()})
+        bad = [p for p, m in leaves(masters)
+               if m.grad is None or not bool(torch.isfinite(m.grad).all())
+               or not bool((m.grad != 0).any())]
+        if bad:
+            fail(f"phase 14 (c) {name}: gradients zero or not finite: {bad}")
+        torch.cuda.synchronize()
+        out[name] = dict(params=model.n_params(), losses=losses,
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        print(f"phase 14 (c) {name} ({cut}, full width"
+              + (" of the variant" if name.startswith("grok") else "")
+              + f"): {out[name]['params']:,} parameters, losses "
+              + ", ".join(f"{x:.4f}" for x in losses)
+              + f", {len(list(leaves(masters)))} leaves with finite nonzero "
+              f"gradients, peak {out[name]['peak_gib']:.2f} GiB; "
+              f"{time.perf_counter() - t0:.1f} s")
+        del params, state, step, masters, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_driver(device) -> dict:
+    """(d) ``repro_torch.train_lm`` at the reference example's size:
+    TRAIN_LM_STEPS steps uninterrupted; then a run that fails at
+    TRAIN_LM_FAIL and one that resumes it (checkpoints every
+    TRAIN_LM_SAVE steps).  The resumed losses must be the uninterrupted
+    run's bit for bit; the failed run's first losses show that the card
+    repeats a step bit for bit (the resume's premise)."""
+    import tempfile
+    from repro_torch import train_lm
+    from repro_torch.train import (CheckpointManager, RuntimeConfig,
+                                   SimulatedFailure)
+    t0 = time.perf_counter()
+    kw = dict(steps=TRAIN_LM_STEPS, batch=TRAIN_LM_BATCH, seq=TRAIN_LM_SEQ,
+              lr=3e-4,
+              save_every=TRAIN_LM_SAVE, device=device, log=lambda *a: None)
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = train_lm.train(TRAIN_ARCH, ckpt_dir=f"{tmp}/ref", **kw)
+        try:
+            train_lm.train(TRAIN_ARCH, ckpt_dir=f"{tmp}/ft",
+                           fail_at_step=TRAIN_LM_FAIL, **kw)
+            fail("phase 14 (d): the injected failure did not raise")
+        except SimulatedFailure:
+            pass
+        first = CheckpointManager(f"{tmp}/ft").latest_step()
+        resumed = train_lm.train(TRAIN_ARCH, ckpt_dir=f"{tmp}/ft", **kw)
+        hb = json.loads(open(f"{tmp}/ft/HEARTBEAT").read())
+    losses = ref["losses"]
+    k = max(len(losses) // 10, 1)
+    print(f"phase 14 (d) train_lm {TRAIN_ARCH} variant "
+          f"({ref['model'].n_params() / 1e6:.1f}M parameters), batch "
+          f"{TRAIN_LM_BATCH}, seq {TRAIN_LM_SEQ}, {TRAIN_LM_STEPS} steps: "
+          f"loss first{k} "
+          f"{np.mean(losses[:k]):.4f} last{k} {np.mean(losses[-k:]):.4f}; "
+          f"failed at {TRAIN_LM_FAIL} with step {first} published, resumed "
+          f"from {resumed['start']}: {len(resumed['losses'])} losses "
+          f"{'equal' if resumed['losses'] == losses[first:] else 'UNEQUAL'} "
+          f"to the uninterrupted run's, bit for bit; heartbeat step "
+          f"{hb['step']}; median step {statistics.median(ref['loop'].step_times) * 1e3:.1f} "
+          f"ms (host clock); {time.perf_counter() - t0:.1f} s")
+    if not np.mean(losses[-k:]) < np.mean(losses[:k]):
+        fail("phase 14 (d): loss did not decrease")
+    if first != TRAIN_LM_FAIL or resumed["start"] != TRAIN_LM_FAIL:
+        fail(f"phase 14 (d): resumed from {resumed['start']}, published "
+             f"{first}")
+    if resumed["losses"] != losses[TRAIN_LM_FAIL:]:
+        fail(f"phase 14 (d): resumed losses {resumed['losses'][:3]} ... "
+             f"differ from {losses[TRAIN_LM_FAIL:TRAIN_LM_FAIL + 3]} ...")
+    every = RuntimeConfig(ckpt_dir="").heartbeat_every
+    if hb["step"] != TRAIN_LM_STEPS // every * every:
+        fail(f"phase 14 (d): heartbeat {hb}")
+    return dict(losses=losses, resumed=resumed["losses"],
+                step_s=statistics.median(ref["loop"].step_times))
+
+
+def int8_rank(rank: int, out_dir: str, device: str = "cuda") -> None:
+    """(e) on one rank of the gloo world: ``int8_psum`` and
+    ``compressed_grad_allreduce`` over INT8_STEPS steps on the card and on
+    CPU tensors, bit for bit."""
+    from repro_torch.train import compressed_grad_allreduce, int8_psum
+    rng = np.random.default_rng(SEED + 170 + rank)
+    x = rng.standard_normal((1024, 1025)).astype(np.float32)
+    grads = [{"a": rng.standard_normal((4096, 1024)).astype(np.float32)
+              * 1e-2, "b": rng.standard_normal(4097).astype(np.float32)}
+             for _ in range(INT8_STEPS)]
+    res = {}
+    for dev in (device, "cpu"):
+        got = [int8_psum(torch.from_numpy(x).to(dev)).cpu()]
+        err = {k: torch.zeros(v.shape, device=dev) for k, v in
+               grads[0].items()}
+        for g in grads:
+            tot, err = compressed_grad_allreduce(
+                {k: torch.from_numpy(v).to(dev) for k, v in g.items()}, err)
+            got += [tot["a"].cpu(), tot["b"].cpu(), err["a"].cpu(),
+                    err["b"].cpu()]
+        res[dev] = got
+    equal = all(torch.equal(a, b) for a, b in zip(res[device], res["cpu"]))
+    with open(os.path.join(out_dir, f"int8_rank{rank}.json"), "w") as f:
+        json.dump(dict(rank=rank, equal=equal, tensors=len(res["cpu"]),
+                       psum_sum=float(res["cpu"][0].double().sum()),
+                       elements=sum(t.numel() for t in res["cpu"])), f)
+
+
+def int8_path(device: str = "cuda") -> dict:
+    """(e) one spawn of INT8_WORLD processes on the card."""
+    import tempfile
+    from repro_torch.launch.mesh import spawn
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        spawn(int8_rank, INT8_WORLD, tmp, device,
+              init_method=f"file://{tmp}/store")
+        ranks = [json.load(open(os.path.join(tmp, f"int8_rank{r}.json")))
+                 for r in range(INT8_WORLD)]
+    sums = {r["psum_sum"] for r in ranks}
+    print(f"phase 14 (e) int8_psum and compressed_grad_allreduce "
+          f"({INT8_STEPS} steps of error feedback) in a gloo world of "
+          f"{INT8_WORLD} on the card: "
+          + ", ".join(f"rank {r['rank']} {r['tensors']} tensors "
+                      f"({r['elements']:,} elements) "
+                      f"{'bitwise equal' if r['equal'] else 'DIFFERENT'} "
+                      f"to CPU tensors" for r in ranks)
+          + f"; every rank's sum the same: {len(sums) == 1}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not all(r["equal"] for r in ranks) or len(sums) != 1:
+        fail("phase 14 (e): the int8 all-reduce differs on the card")
+    return dict(ranks=ranks)
+
+
+def train_lm_path(device, card: str) -> dict:
+    """Phase 14: LM training on the card."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = dict(llama=train_llama(device, card))
+    out["cpu"] = train_cpu_parity(device)
+    out["others"] = train_others(device)
+    out["driver"] = train_driver(device)
+    out["int8"] = int8_path(device.type)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase LM training path: done in {out['seconds']:.1f} s; {card}")
+    return out
+
+
 def kernel_resources(source: str) -> list[str]:
     """Each kernel of ``source`` with its registers, shared memory and
     spills, from the build's ``nvcc --resource-usage`` report."""
@@ -4471,6 +5011,7 @@ def main() -> int:
     rows.append(head_row)
     _, ssm_row = ssm_path(device, card)
     rows.append(ssm_row)
+    train_lm_path(device, card)
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,9 @@ package, crosses into the port without the port importing it:
 
 ``lm_params_from_arrays`` does the same for an LM's parameter tree (the
 reference's layout, stacked ``"layers"`` axis), and ``lm_arrays`` takes a
-port model's parameters back to that tree.
+port model's parameters back to that tree.  ``train_state_from_arrays``
+and ``train_state_arrays`` carry a training state (step, f32 master
+parameters, moments; the same trees) across both ways.
 """
 from __future__ import annotations
 
@@ -74,6 +76,16 @@ def system_from_arrays(d: Mapping[str, Any], *,
         cfg=IMPACTConfig(**dict(d.get("cfg", {}))), encode_stats=stats)
 
 
+def _tensor(a) -> torch.Tensor:
+    """An array as a tensor of its dtype (a copy); numpy's ``bfloat16``
+    extension dtype, as jax hands bf16 arrays over, becomes
+    ``torch.bfloat16`` bit for bit."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
 def lm_params_from_arrays(cfg: ModelConfig, tree: Mapping[str, Any], *,
                           device: str | torch.device | None = None):
     """The port's model of ``cfg`` (``models.build``: any of the ten
@@ -83,40 +95,45 @@ def lm_params_from_arrays(cfg: ModelConfig, tree: Mapping[str, Any], *,
     other leaf (zamba2's ``"shared_attn"`` among them) and layout is kept,
     so each leaf is a copy.  Its ``state_dict()`` is the state dict of the
     same values.  Raises unless every leaf of the declarations is given,
-    at its shape."""
+    at its shape (``StackedLM.load_tree``)."""
     from .models import build
-    from .models.base import leaves
-    model = build(cfg, device=device)
-    want = dict(leaves(model.decls()))
-    got = dict(leaves(dict(tree)))
-    if set(got) != set(want):
-        raise ValueError(f"parameter tree differs from {cfg.name}'s "
-                         f"declarations: missing "
-                         f"{sorted(map(str, set(want) - set(got)))}, extra "
-                         f"{sorted(map(str, set(got) - set(want)))}")
-    with torch.no_grad():
-        for path, p in want.items():
-            arr = np.asarray(got[path])
-            if arr.shape != p.shape:
-                raise ValueError(f"{path}: shape {arr.shape}, declared "
-                                 f"{p.shape}")
-            dst = model.leaf(path)
-            if path[0] == "layers":
-                for i, t in enumerate(dst):
-                    t.copy_(torch.from_numpy(np.array(arr[i])))
-            else:
-                dst.copy_(torch.from_numpy(np.array(arr)))
-    return model
+    from .models.base import tree_map
+    return build(cfg, device=device).load_tree(tree_map(_tensor, dict(tree)))
 
 
 def lm_arrays(model) -> dict:
     """The inverse of ``lm_params_from_arrays``: a port model's parameters
     as the reference's tree of f32 numpy arrays, ``"layers"`` stacked."""
     from .models.base import tree_map
+    return tree_map(lambda t: t.cpu().float().numpy(), model.tree())
 
-    def arrays(path, _):
-        t = model.leaf(path)
-        if path[0] == "layers":
-            return np.stack([x.detach().cpu().float().numpy() for x in t])
-        return t.detach().cpu().float().numpy()
-    return tree_map(arrays, model.decls(), with_path=True)
+
+def train_state_from_arrays(state, *,
+                            device: str | torch.device | None = None):
+    """A training state given as arrays (an object with ``step``,
+    ``params``, ``m``, ``v``, such as the reference's ``TrainState`` with
+    numpy leaves, or a mapping of those keys; the trees in the reference's
+    layout, ``"layers"`` stacked) -> ``train.TrainState`` of tensors on
+    ``device`` (default ``cuda``), each leaf a copy at its dtype (bf16
+    moments stay bf16)."""
+    from .models.base import tree_map
+    from .train.optimizer import TrainState
+    dev = resolve_device(device)
+    get = (state.__getitem__ if isinstance(state, Mapping)
+           else lambda k: getattr(state, k))
+    put = lambda a: _tensor(a).to(dev)
+    return TrainState(step=put(get("step")), **{
+        k: tree_map(put, get(k)) for k in ("params", "m", "v")})
+
+
+def train_state_arrays(state) -> dict:
+    """The inverse of ``train_state_from_arrays``: {"step", "params", "m",
+    "v"} as numpy arrays in the reference's layout; bf16 leaves come back
+    widened to f32 (exact: numpy has no bf16 of its own)."""
+    from .models.base import tree_map
+
+    def host(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return {"step": host(state.step), **{
+        k: tree_map(host, getattr(state, k)) for k in ("params", "m", "v")}}

@@ -14,7 +14,9 @@ leaf.  From one declaration tree come:
 
 ``StackedLM`` is what the LM families share: the parameters of the
 declaration tree with its stacked ``"layers"`` axis unstacked into an
-``nn.ModuleList``, the leaf lookup, the seeded init and the counts.
+``nn.ModuleList``, the leaf lookup, the seeded init and the counts, the
+reference's tree of tensors (``tree`` / ``load_tree``), running on an
+explicit tree (``bound``, what the train step does) and ``remat``.
 
 The logical axes ("embed", "heads", "kv", "mlp", "experts", "layers", ...)
 are kept so the trees compare equal with the reference's; on one device
@@ -23,12 +25,14 @@ shardings) has no counterpart yet: the port's models run on one device.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Callable, Iterator
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..device import resolve_device
@@ -90,6 +94,27 @@ def tree_map(fn: Callable, tree: Tree, path: tuple = (),
     return fn(path, tree) if with_path else fn(tree)
 
 
+def unflatten(like: Tree, flat: list) -> Tree:
+    """The inverse of ``leaves``: ``like``'s structure over the values of
+    ``flat``, taken in ``leaves`` order (dict keys sorted)."""
+    it = iter(flat)
+
+    def build(t):
+        if isinstance(t, dict):
+            vals = {k: build(t[k]) for k in sorted(t)}
+            return {k: vals[k] for k in t}
+        if isinstance(t, list):
+            return [build(v) for v in t]
+        return next(it)
+    return build(like)
+
+
+def _walk(tree, keys: tuple):
+    for k in keys:
+        tree = tree[k]
+    return tree
+
+
 def count_params(decls: Tree) -> int:
     return sum(math.prod(p.shape) for _, p in leaves(decls))
 
@@ -108,8 +133,11 @@ def abstract(decls: Tree, dtype: torch.dtype | None = None) -> Tree:
 
 class ParamTree(nn.Module):
     """The parameters of a declaration tree: a ``P`` leaf is a
-    ``Parameter`` (no gradient: the port's models are inference only), a
-    dict a child ``ParamTree`` and a list an ``nn.ModuleList``.  Indexing
+    ``Parameter`` (``requires_grad=False``: serving builds no autograd
+    graph; training differentiates an explicit f32 master tree that
+    ``StackedLM.bound`` puts in place of the parameters, as the
+    reference's ``loss(params, batch)`` takes its tree), a dict a child
+    ``ParamTree`` and a list an ``nn.ModuleList``.  Indexing
     by key reads like the reference's parameter dicts: ``p["wq"]``,
     ``"w_gate" in p``."""
 
@@ -283,13 +311,9 @@ class StackedLM(nn.Module):
         """The parameter at a path of the reference's tree; a
         ``"layers"`` path names a stacked leaf and gives the list of its
         per-layer parameters."""
-        def walk(t, keys):
-            for k in keys:
-                t = t[k]
-            return t
         if path[0] == "layers":
-            return [walk(layer, path[1:]) for layer in self.params["layers"]]
-        return walk(self.params, path)
+            return [_walk(layer, path[1:]) for layer in self.params["layers"]]
+        return _walk(self.params, path)
 
     def init(self, generator: torch.Generator):
         """Draw every parameter from ``generator`` (on the model's device),
@@ -300,6 +324,82 @@ class StackedLM(nn.Module):
             for x in t if path[0] == "layers" else [t]:
                 init_leaf(x, p, generator)
         return self
+
+    def tree(self) -> dict:
+        """The reference's parameter tree as tensors on the model's
+        device, ``"layers"`` stacked: a copy, detached from the module."""
+        def get(path, _):
+            t = self.leaf(path)
+            if path[0] == "layers":
+                return torch.stack([x.detach() for x in t])
+            return t.detach().clone()
+        return tree_map(get, self.decls(), with_path=True)
+
+    def _slots(self, tree: Tree) -> Iterator[tuple[nn.Module, str, Any]]:
+        """(module, parameter name, tensor) for each parameter, from a
+        tree in the reference's layout: a stacked leaf is split into its
+        layers (``unbind``).  Raises unless the tree's paths and shapes
+        are the declarations'."""
+        want = dict(leaves(self.decls()))
+        got = list(leaves(dict(tree)))
+        paths = {path for path, _ in got}
+        if paths != set(want):
+            raise ValueError(
+                f"parameter tree differs from {self.cfg.name}'s "
+                f"declarations: missing "
+                f"{sorted(map(str, set(want) - paths))}, extra "
+                f"{sorted(map(str, paths - set(want)))}")
+        for path, t in got:
+            if tuple(t.shape) != want[path].shape:
+                raise ValueError(f"{path}: shape {tuple(t.shape)}, "
+                                 f"declared {want[path].shape}")
+        for path, t in got:
+            if path[0] == "layers":
+                for layer, x in zip(self.params["layers"], t.unbind(0)):
+                    yield _walk(layer, path[1:-1]), path[-1], x
+            else:
+                yield _walk(self.params, path[:-1]), path[-1], t
+
+    def load_tree(self, tree: Tree):
+        """Copy a tree in the reference's layout (``"layers"`` stacked;
+        tensors, or anything ``torch.as_tensor`` takes) into the model's
+        parameters; raises unless every leaf of the declarations is given
+        at its shape."""
+        with torch.no_grad():
+            for mod, name, x in self._slots(tree_map(torch.as_tensor,
+                                                     dict(tree))):
+                mod._parameters[name].copy_(x)
+        return self
+
+    @contextlib.contextmanager
+    def bound(self, tree: Tree):
+        """Run the model on ``tree`` (the reference's layout, ``"layers"``
+        stacked) in place of its parameters until the block exits: each
+        stacked leaf is split into per-layer views (``unbind``, whose
+        backward stacks the layers' gradients) and every ``p["wq"]`` reads
+        the given tensor, so autograd reaches the tree.  The backward of
+        a remat layer recomputes it, so run it inside the block too.  The
+        module's own parameters (on ``"meta"`` they hold nothing) are put
+        back on exit."""
+        saved = []
+        try:
+            for mod, name, x in self._slots(tree):
+                saved.append((mod, name, mod._parameters[name]))
+                mod._parameters[name] = x
+            yield self
+        finally:
+            for mod, name, p in reversed(saved):
+                mod._parameters[name] = p
+
+    def remat(self, fn: Callable, *args, **kwargs):
+        """``fn(*args, **kwargs)``, under ``torch.utils.checkpoint`` (non
+        reentrant) when ``cfg.remat`` is set and autograd records: the
+        backward recomputes the layer from its input instead of keeping
+        its activations, as the reference's ``jax.checkpoint``."""
+        if self.cfg.remat and torch.is_grad_enabled():
+            return torch.utils.checkpoint.checkpoint(
+                fn, *args, use_reentrant=False, **kwargs)
+        return fn(*args, **kwargs)
 
     def abstract(self, dtype: torch.dtype | None = None):
         """The reference's parameter tree as ``meta`` tensors."""

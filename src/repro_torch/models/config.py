@@ -8,9 +8,11 @@ dimensions live in ``repro_torch.configs.<arch_id>``.
 ``dtype`` / ``param_dtype`` keep the reference's strings (``"bfloat16"``,
 ``"float32"``), so a config compares equal field by field with the
 reference's; ``torch_dtype`` is the one place that resolves them.
-``remat``, ``scan_layers``, ``zero3`` and the optimizer dtypes are the
-reference's training and compilation knobs: the port's inference models
-read none of them, and they stay only so that the configs stay equal.
+``remat`` is read by the models under autograd (``StackedLM.remat``),
+``grad_accum_dtype`` by the train step and ``opt_moment_dtype`` by the
+callers that build an ``AdamWConfig`` from a config.  ``scan_layers``
+and ``zero3`` are the reference's compilation and mesh knobs: the port
+reads neither, and they stay so that the configs stay equal.
 """
 from __future__ import annotations
 

@@ -1,5 +1,7 @@
 """RWKV6 "Finch", the attention-free LM with data-dependent decay (the
-port of ``repro.models.rwkv6`` as an inference ``nn.Module``).
+port of ``repro.models.rwkv6`` as an ``nn.Module``: ``hidden`` /
+``forward`` / ``loss`` differentiable, each block under ``remat`` when
+the config sets it; ``prefill`` / ``decode_step`` under ``no_grad``).
 
 Per arXiv:2404.05892: token-shift ddlerp mixes with a shared LoRA, a
 data-dependent per-channel decay ``w_t = exp(-exp(w0 + lora))``, the
@@ -179,26 +181,23 @@ class RWKV6LM(StackedLM):
                        self.params["final_norm"]["beta"])
         return (x @ self.params["lm_head"].to(x.dtype)).to(F32)
 
-    @torch.no_grad()
     def hidden(self, tokens: torch.Tensor, positions=None,
                extra_embeds=None) -> tuple[torch.Tensor, torch.Tensor]:
         """-> (final hidden states (B, S, d) before the final norm, a zero
         aux loss)."""
         x = self.embed(tokens)
         for p in self.params["layers"]:
-            x, _ = self._block(p, x, None)
+            x, _ = self.remat(self._block, p, x, None)
         return x, torch.zeros((), dtype=F32, device=x.device)
 
-    @torch.no_grad()
     def forward(self, tokens: torch.Tensor, positions=None,
                 extra_embeds=None) -> tuple[torch.Tensor, torch.Tensor]:
         """-> (logits, aux_loss)."""
         x, aux = self.hidden(tokens)
         return self.logits(x), aux
 
-    @torch.no_grad()
     def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
-        """Next-token CE + z-loss, as a value (``tokens`` only, as the
+        """Next-token CE + z-loss (``tokens`` only, as the
         reference's)."""
         logits, aux = self.forward(batch["tokens"])
         ce, zl = next_token_loss(logits, batch["tokens"])

@@ -16,8 +16,9 @@ normalizer; with ``log w`` clamped to [-4, 0] and c = 16 every factor
 stays finite (|exponent| <= 32 per factor, products of valid pairs <= 1).
 
 ``chunked_la`` (prefill) and ``la_step`` (single-token decode) are the two
-entry points.  The reference's ``jax.checkpoint`` around the chunk step is
-a training knob; this inference engine has none.
+entry points.  Both are differentiable (no in-place writes).  The
+reference's ``jax.checkpoint`` around the chunk step only trades memory;
+the port rematerializes whole layers (``StackedLM.remat``) instead.
 """
 from __future__ import annotations
 
@@ -31,11 +32,12 @@ LOG_W_MIN = -4.0    # decay clamp; see module docstring for the numerics
 def _cumsum(x: torch.Tensor) -> torch.Tensor:
     """Cumulative sum over axis -2, added left to right as XLA's
     ``cumsum`` does (``torch.cumsum`` adds in another order; at |L| near
-    64 one f32 ulp of L is 7.6e-6 of every decay factor)."""
-    out = x.clone()
+    64 one f32 ulp of L is 7.6e-6 of every decay factor).  No in-place
+    writes, so autograd keeps one small node an add."""
+    cols = [x[..., 0, :]]
     for t in range(1, x.shape[-2]):
-        out[..., t, :] += out[..., t - 1, :]
-    return out
+        cols.append(cols[-1] + x[..., t, :])
+    return torch.stack(cols, dim=-2)
 
 
 def chunked_la(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -95,12 +97,12 @@ def chunked_la(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = (torch.zeros((B, H, Dk, Dv), dtype=F32, device=q.device)
          if initial_state is None else initial_state.to(F32))
     decay = torch.exp(l_last[..., 0, :])[..., None]     # (nc,B,H,Dk,1)
-    o_inter = torch.empty_like(o)
+    o_inter = []
     for n in range(nc):
-        o_inter[n] = torch.einsum("bhtd,bhdv->bhtv", q_state[n], s)
+        o_inter.append(torch.einsum("bhtd,bhdv->bhtv", q_state[n], s))
         s = s * decay[n] + torch.einsum("bhtd,bhtv->bhdv", k_state[n],
                                         vc[n])
-    o = o + o_inter                                     # (nc,B,H,c,Dv)
+    o = o + torch.stack(o_inter)                        # (nc,B,H,c,Dv)
     o = o.permute(1, 0, 3, 2, 4).reshape(B, S, H, Dv)
     return o.to(q.dtype), s
 

@@ -1,5 +1,5 @@
 """Decoder-only transformer (dense / moe / vlm / audio families): the port
-of ``repro.models.transformer`` as an inference ``nn.Module``.
+of ``repro.models.transformer`` as an ``nn.Module``.
 
 The parameters live in ``self.params`` as ``base.StackedLM`` lays them
 out: the reference's tree with its stacked ``"layers"`` axis unstacked,
@@ -8,11 +8,13 @@ every weight in the reference's layout (``wq`` (d, H, hd), ``lm_head``
 ``params.front``.  ``forward`` runs the front layers, then the stacked
 layers, as a Python loop.
 
-The reference's ``remat`` and ``scan_layers`` (rematerialization and
-``lax.scan`` over the stacked layers) are compilation and training knobs:
-an inference module has no backward to rematerialize for and no scan to
-trace, so the port reads neither.  ``loss`` is a value; its gradient is
-not ported yet.
+``hidden`` / ``forward`` / ``loss`` run under autograd when the caller
+records it (the train step runs them on a tree it differentiates,
+``StackedLM.bound``); with ``cfg.remat`` each layer, front layers too,
+is then recomputed in the backward (``StackedLM.remat``), as the
+reference's ``jax.checkpoint``.  ``prefill`` / ``decode_step`` run under
+``no_grad``.  The reference's ``scan_layers`` is a compilation knob the
+port does not read: it has no scan to trace.
 
 The modality frontends for the [vlm]/[audio] architectures are stubs, as
 in the reference: ``qwen2-vl`` consumes precomputed patch embeddings
@@ -162,7 +164,6 @@ class TransformerLM(StackedLM):
         return out.to(torch.float32)
 
     # -- full forward ---------------------------------------------------------
-    @torch.no_grad()
     def hidden(self, tokens: torch.Tensor, positions: torch.Tensor,
                extra_embeds: torch.Tensor | None = None
                ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -170,15 +171,16 @@ class TransformerLM(StackedLM):
         loss): the stack ``forward`` and ``prefill`` run."""
         x = self.embed(tokens, extra_embeds)
         for p in self.params["front"] if "front" in self.params else ():
-            x, _, _ = self._block(p, x, positions, moe_layer=False)
+            x, _, _ = self.remat(self._block, p, x, positions,
+                                 moe_layer=False)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         moe_layer = self.cfg.moe is not None
         for p in self.params["layers"]:
-            x, a, _ = self._block(p, x, positions, moe_layer=moe_layer)
+            x, a, _ = self.remat(self._block, p, x, positions,
+                                 moe_layer=moe_layer)
             aux = aux + a
         return x, aux
 
-    @torch.no_grad()
     def forward(self, tokens: torch.Tensor, positions: torch.Tensor,
                 extra_embeds: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -187,9 +189,8 @@ class TransformerLM(StackedLM):
         return self.logits(x), aux
 
     # -- loss ----------------------------------------------------------------
-    @torch.no_grad()
     def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
-        """Next-token CE + z-loss + MoE aux, as a value.  batch: tokens
+        """Next-token CE + z-loss + MoE aux.  batch: tokens
         (B, S[, C]), optional loss_mask, positions, extra_embeds."""
         tokens = batch["tokens"]
         positions = batch.get("positions")

@@ -1,5 +1,7 @@
 """Zamba2 hybrid: a Mamba2 backbone and ONE shared full-attention block
-(the port of ``repro.models.zamba2`` as an inference ``nn.Module``).
+(the port of ``repro.models.zamba2`` as an ``nn.Module``: ``hidden`` /
+``forward`` / ``loss`` differentiable, ``prefill`` / ``decode_step``
+under ``no_grad``).
 
 Per arXiv:2411.15242 the attention block's weights are shared across all
 of its invocations (after every ``hybrid_attn_every`` mamba layers); its
@@ -169,31 +171,29 @@ class Zamba2LM(StackedLM):
             return torch.arange(tokens.shape[1], device=tokens.device)[None]
         return positions
 
-    @torch.no_grad()
     def hidden(self, tokens: torch.Tensor, positions=None,
                extra_embeds=None) -> tuple[torch.Tensor, torch.Tensor]:
         """-> (final hidden states (B, S, d) before the final norm, a zero
-        aux loss)."""
+        aux loss).  Each mamba layer runs under ``remat`` when the config
+        sets it; the shared block does not, as in the reference."""
         positions = self._positions(tokens, positions)
         x0 = self.embed(tokens)
         x = x0
         for layers, g in self.groups():
             for i in layers:
-                x, _ = self._mamba(i, x)
+                x, _ = self.remat(self._mamba, i, x)
             if g is not None:
                 x, _ = self._shared_attn(x, x0, positions)
         return x, torch.zeros((), dtype=F32, device=x.device)
 
-    @torch.no_grad()
     def forward(self, tokens: torch.Tensor, positions=None,
                 extra_embeds=None) -> tuple[torch.Tensor, torch.Tensor]:
         """-> (logits, aux_loss)."""
         x, aux = self.hidden(tokens, positions)
         return self.logits(x), aux
 
-    @torch.no_grad()
     def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
-        """Next-token CE + z-loss, as a value (``tokens`` only, as the
+        """Next-token CE + z-loss (``tokens`` only, as the
         reference's)."""
         logits, aux = self.forward(batch["tokens"])
         ce, zl = next_token_loss(logits, batch["tokens"])

@@ -1,6 +1,19 @@
-"""Online in-memory training of a deployed IMPACT system, and clause
-pruning of a programmed one."""
-from .compression import PruneStats, prune_clauses
+"""Training: online in-memory training of a deployed IMPACT system,
+clause pruning, and LM training (optimizer, step, checkpoints, the
+fault-tolerant loop, int8 gradient compression)."""
+from .checkpoint import CheckpointManager
+from .compression import (PruneStats, compressed_grad_allreduce, int8_psum,
+                          prune_clauses)
 from .online import OnlineTrainer
+from .optimizer import (AdamWConfig, TrainState, apply_updates, global_norm,
+                        init_state)
+from .runtime import RuntimeConfig, SimulatedFailure, TrainLoop
+from .step import cast_tree, make_train_step
 
-__all__ = ["OnlineTrainer", "PruneStats", "prune_clauses"]
+__all__ = [
+    "AdamWConfig", "TrainState", "apply_updates", "global_norm",
+    "init_state", "make_train_step", "cast_tree", "CheckpointManager",
+    "compressed_grad_allreduce", "int8_psum", "RuntimeConfig",
+    "SimulatedFailure", "TrainLoop", "OnlineTrainer", "PruneStats",
+    "prune_clauses",
+]

@@ -1,6 +1,5 @@
-"""Clause pruning of a programmed IMPACT system (the port of the pruning
-half of ``repro.train.compression``; its int8 gradient all-reduce belongs
-to the LM stack).
+"""Clause pruning of a programmed IMPACT system, and the int8 gradient
+all-reduce of LM training (the port of ``repro.train.compression``).
 
 ``prune_clauses`` is a post-training pass over a programmed
 ``IMPACTSystem`` that (a) retires the clause columns that never fire on a
@@ -11,6 +10,19 @@ rows, exact on ideal devices because the class read is linear in the
 drive.  ``PruneStats`` re-anchors Table 4's energy per *effective*
 clause.  It pairs with ``RuntimeSpec(packing="2bit")``: pruning shrinks
 the live column population, packing the bytes per column.
+
+``int8_psum`` all-reduces a tensor over a ``torch.distributed`` group
+with int8 on the wire: a shared input scale (a MAX all-reduce), a
+reduce-scatter as an int8 ``all_to_all_single`` summed in int32, a
+requantization and an int8 ``all_gather``.
+``compressed_grad_allreduce`` wraps it with error feedback.  The
+arithmetic is the reference's op for op (f32 divisions, ``torch.round``
+half to even as ``jnp.round``, the residual rounded once as XLA's fused
+multiply-add), so the result and the residual are the reference's bit
+for bit.  The collectives run on gloo, which takes host
+tensors: every operand of a collective is staged through host memory,
+whatever device the tensor lives on, and the quantization runs on the
+tensor's own device.
 """
 from __future__ import annotations
 
@@ -18,10 +30,12 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..impact import energy as energy_mod
 from ..impact import yflash
 from ..kernels import backends, packing
+from ..models.base import leaves, unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,3 +147,83 @@ def prune_clauses(system, literals, *, merge_duplicates: bool = True):
     pruned.encode_stats = dict(system.encode_stats,
                                pruning=dataclasses.asdict(stats))
     return pruned, stats
+
+
+# -- int8 gradient compression ----------------------------------------------
+
+def _scale(x: torch.Tensor, group) -> torch.Tensor:
+    """The shared scale of a tensor whose largest magnitude on this rank
+    is ``x`` (0-d): a MAX all-reduce (through a host copy) over 127.  The
+    reference writes ``/ 127.0``, which XLA compiles into a multiply by
+    the f32 reciprocal; so does this, bit for bit."""
+    h = x.detach().to("cpu", copy=True).reshape(1)
+    dist.all_reduce(h, op=dist.ReduceOp.MAX, group=group)
+    return h[0].to(x.device) * torch.tensor(1 / 127, dtype=x.dtype,
+                                            device=x.device)
+
+
+def _quantize(v: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    q = torch.round(v / torch.clamp(scale, min=1e-30))
+    return torch.clamp(q, -127, 127).to(torch.int8)
+
+
+def int8_psum(v: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of ``v`` over the ranks of ``group`` (default: the world),
+    int8 on the wire; every rank calls it and gets the same result.  The
+    flattened tensor is zero-padded to a multiple of the group size for
+    the all_to_all phase."""
+    n = dist.get_world_size(group)
+    shape, dev = v.shape, v.device
+    flat = v.reshape(-1)
+    pad = (-flat.numel()) % n
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+
+    # Phase 1: shared input scale.
+    scale1 = _scale(torch.max(torch.abs(flat)), group)
+    q = _quantize(flat, scale1).reshape(n, -1)
+
+    # Phase 2: reduce-scatter via all_to_all (int8 on the wire): row j of
+    # every rank goes to rank j.
+    shards = torch.empty_like(q, device="cpu")
+    dist.all_to_all_single(shards, q.to("cpu", copy=True), group=group)
+    local_sum = shards.to(dev).to(torch.int32).sum(0, dtype=torch.int32)
+    local_f = local_sum.to(torch.float32) * scale1
+
+    # Phase 3: requantize + all-gather (int8 on the wire).
+    scale2 = _scale(torch.max(torch.abs(local_f)), group)
+    q2 = _quantize(local_f, scale2).to("cpu", copy=True)
+    gathered = [torch.empty_like(q2) for _ in range(n)]
+    dist.all_gather(gathered, q2, group=group)
+    out = torch.stack(gathered).to(dev).to(torch.float32).reshape(-1) \
+        * scale2
+    return out[:flat.numel() - pad][:v.numel()].reshape(shape)
+
+
+def compressed_grad_allreduce(grads, errors, group=None):
+    """Error feedback around ``int8_psum``: each leaf sends ``g + e`` and
+    keeps as its new error what phase 1's quantization lost of it.
+    Trees of dicts and lists of tensors -> (summed grads, new errors)."""
+    totals, new_errors = [], []
+    for (_, g), (_, e) in zip(leaves(grads), leaves(errors)):
+        v = g.to(torch.float32) + e
+        totals.append(int8_psum(v, group))
+        # v - q * scale rounded once, as the reference's compiled
+        # residual (XLA contracts it into a fused multiply-add): the
+        # product of an int8 and an f32 is exact in f64, and so is the
+        # difference of these two near values; one rounding to f32 then
+        # gives the same bits on any device.
+        new_errors.append((v.double() - _roundtrip(v, group, torch.float64))
+                          .float())
+    return unflatten(grads, totals), unflatten(grads, new_errors)
+
+
+def _roundtrip(v: torch.Tensor, group=None,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """This rank's contribution as it survives phase 1's quantization:
+    the reference point of the error-feedback residual, in ``dtype``
+    (f32 as the reference's; in f64 the product is exact)."""
+    flat = v.reshape(-1)
+    scale1 = _scale(torch.max(torch.abs(flat)), group)
+    q = _quantize(flat, scale1)
+    return (q.to(dtype) * scale1.to(dtype)).reshape(v.shape)

@@ -46,7 +46,8 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
         "repro_torch.kernels.work, repro_torch.kernels.ops, "
         "repro_torch.launch, repro_torch.sharding, "
         "repro_torch.sharding.crossbar, repro_torch.crossbar_scaling, "
-        "repro_torch.models, repro_torch.configs, repro_torch.serve_lm\n"
+        "repro_torch.models, repro_torch.configs, repro_torch.serve_lm, "
+        "repro_torch.train_lm, repro_torch.launch.specs\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"
@@ -120,6 +121,48 @@ def test_lm_entry_points_raise_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="is_available"):
         head.init()
     assert head.init(device="cpu").ta_state.shape == (16, 500)
+
+
+def test_lm_training_entry_points_raise_without_cuda(no_cuda, tmp_path,
+                                                    monkeypatch):
+    """The LM training slice's entry points: ``make_train_step``,
+    ``TrainLoop``, ``train_state_from_arrays`` and ``train_lm`` default to
+    ``cuda`` and raise here; each runs when given ``device="cpu"``."""
+    from repro_torch import train_lm
+    from repro_torch.configs import get_config
+    from repro_torch.convert import train_state_from_arrays
+    from repro_torch.models import build
+    from repro_torch.train import (AdamWConfig, RuntimeConfig, TrainLoop,
+                                   init_state, make_train_step)
+
+    model = build(get_config("llama3-8b").smoke(), device="cpu").init(
+        torch.Generator().manual_seed(0))
+    opt = AdamWConfig()
+    state = init_state(model.tree(), opt)
+    with pytest.raises(RuntimeError, match="is_available"):
+        make_train_step(model, opt)
+    step = make_train_step(model, opt, device="cpu")
+    rt = RuntimeConfig(ckpt_dir=str(tmp_path / "loop"), max_steps=1)
+    batch = {"tokens": np.zeros((1, 2, 8), np.int32)}
+    with pytest.raises(RuntimeError, match="is_available"):
+        TrainLoop(step, state, iter([batch]), rt)
+    TrainLoop(step, state, iter([batch]), rt, device="cpu").run()
+    arrays = dict(step=np.int32(0), params=model.tree(), m=model.tree(),
+                  v=model.tree())
+    with pytest.raises(RuntimeError, match="is_available"):
+        train_state_from_arrays(arrays)
+    assert train_state_from_arrays(arrays, device="cpu").step.dtype == \
+        torch.int32
+    with pytest.raises(RuntimeError, match="is_available"):
+        train_lm.main(["--steps", "1", "--ckpt-dir", str(tmp_path / "a")])
+    monkeypatch.setattr(train_lm, "hundred_m_variant",
+                        lambda cfg: cfg.smoke())     # megabyte checkpoints
+    with pytest.raises(RuntimeError, match="is_available"):
+        train_lm.train("musicgen-large", steps=1, ckpt_dir=str(tmp_path))
+    out = train_lm.train("musicgen-large", steps=1, batch=2, seq=8,
+                         ckpt_dir=str(tmp_path / "b"), device="cpu",
+                         log=lambda *a: None)
+    assert len(out["losses"]) == 1
 
 
 def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):
