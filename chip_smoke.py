@@ -163,7 +163,27 @@ Phases, each of which must pass or the script exits non-zero:
    bit against CPU tensors; (f) (a)'s step, forward + backward of each
    microbatch and optimizer times (CUDA events), tokens/s, model FLOPs as
    a share of the bf16 peak, peak memory against the state, and one
-   step under ``torch.profiler`` (busy share, largest device items).
+   step under ``torch.profiler`` (busy share, largest device items);
+15. ZeRO training on a mesh (``repro_torch.train`` with
+   ``grad_shardings`` / ``param_shardings`` / ``state_shardings``), which
+   reaches no kernel of the port: one spawn of four processes on the card
+   forms a gloo world of 4 (data 2 x model 2; NCCL refuses two ranks on
+   one card); the parent holds no CUDA memory beyond its context.  (a)
+   llama3-8b at full width, 2 layers deep, its own posture (``zero3``
+   off, f32 ``opt_rules`` moments, bf16 compute, remat), 3 AdamW steps
+   of 2 microbatches of 4 x 512 ``synth_tokens``: every rank holds only
+   its shard of each leaf, the loss falls, every replicated shard (the
+   parameters over the data axis, the norms over the model axis) is the
+   same bits on every rank after each step (a position-weighted sum of
+   its bits), each rank's peak memory and the step time printed; (b)
+   one f32 layer at full width with wq and wk scaled as in phase 14 (b),
+   ``zero3`` on, one step at B = 2, S = 64: first on one device in a
+   process of its own, then in the world on the same weights: the loss
+   within rtol 1e-5, each leaf's gathered gradient and update within
+   1e-2 in relative Frobenius norm; (c) the world's state after (b)
+   saved (every rank gathers, rank 0 writes), restored on one device and
+   on a 1 x 4 mesh of the same world, every leaf bit for bit the gathered
+   state; (d) the phase's wall time.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -175,6 +195,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import statistics
@@ -4924,6 +4945,611 @@ def train_lm_path(device, card: str) -> dict:
     return out
 
 
+# -- phase 15 --------------------------------------------------------------
+
+# (a) llama3-8b at full width, ZERO_LAYERS deep, in its own posture, on a
+# ZERO_MESH mesh of a gloo world on the one card: ZERO_STEPS steps of
+# ZERO_ACCUM microbatches of ZERO_BATCH x ZERO_SEQ (ZERO_BATCH / 2 rows a
+# data rank).  (b) one layer in f32 with phase 14 (b)'s batch, scale and
+# lr, ZeRO-3 (at zero3=False the f32 gathered tree and gradients of two
+# layers come to ~20 GB a rank, more than the card holds for four), one
+# step on one device and in the world; bounds: phase 14 (b)'s loss and
+# gradient, and ZERO_UPDATE_FROB for each leaf's update.
+ZERO_WORLD, ZERO_MESH = 4, (2, 2)
+ZERO_LAYERS, ZERO_ACCUM, ZERO_BATCH, ZERO_SEQ = 2, 2, 4, 512
+ZERO_STEPS, ZERO_LR = 3, 1e-3
+ZERO_F32_LAYERS, ZERO_UPDATE_FROB = 1, 1e-2
+# Weights are drawn leaf by leaf on the card and placed at once, so no
+# rank ever holds more than one full leaf of them.
+ZERO_CHUNK = 1 << 24            # elements a fingerprint pass
+# What the parent may still hold when the world starts: a margin for
+# small buffers that outlive the earlier phases (their models, sessions
+# and cuBLAS's workspaces are freed by then).
+ZERO_PARENT_BYTES = 64 << 20
+
+
+def zero_sums(got: torch.Tensor, want: torch.Tensor) -> list[float]:
+    """[sum (got - want)^2, sum want^2, sum got^2, sum got * want, max
+    |got - want|] in f64 over chunks of ZERO_CHUNK elements (a full f64
+    copy of the embedding is 4.2 GB): partial sums that add over the
+    blocks of a leaf."""
+    got, want = got.reshape(-1), want.reshape(-1)
+    out = [0.0] * 5
+    for lo in range(0, got.numel(), ZERO_CHUNK):
+        a = got[lo:lo + ZERO_CHUNK].double()
+        b = want[lo:lo + ZERO_CHUNK].double()
+        d = a - b
+        out[0] += float(d.square().sum())
+        out[1] += float(b.square().sum())
+        out[2] += float(a.square().sum())
+        out[3] += float((a * b).sum())
+        out[4] = max(out[4], float(d.abs().max()) if d.numel() else 0.0)
+    return out
+
+
+def zero_gaps(sums) -> tuple[float, float, float]:
+    """(relative Frobenius gap, largest elementwise gap, cosine) from
+    ``zero_sums``."""
+    dd, ww, gg, gw, top = sums
+    return (math.sqrt(dd) / max(math.sqrt(ww), 1e-300), top,
+            gw / max(math.sqrt(gg * ww), 1e-300))
+
+
+def world_rows(values: list, dtype) -> torch.Tensor:
+    """Every rank's (nested) list of numbers, the same shape on each, as
+    a CPU tensor with a leading world axis, the same on every rank."""
+    import torch.distributed as dist
+    x = torch.tensor(values, dtype=dtype)
+    out = torch.empty((dist.get_world_size(),) + tuple(x.shape),
+                      dtype=dtype)
+    dist.all_gather_into_tensor(out, x[None])
+    return out
+
+
+def owns(s) -> bool:
+    """Whether this rank counts its shard of a leaf laid out by ``s`` (the
+    one at index 0 of every mesh axis that replicates it)."""
+    at = s.coordinate()
+    return all(at[a] == 0 for a in s.replicated_axes)
+
+
+def zero_note(rank: int, msg: str) -> None:
+    """A progress line from rank 0, with the card's memory as it sees
+    it."""
+    if rank == 0:
+        free, total = torch.cuda.mem_get_info()
+        here = torch.cuda.memory_allocated() / 2**30
+        print(f"  phase 15 rank 0: {msg}; {here:.2f} GiB allocated here, "
+              f"{(total - free) / 2**30:.2f} GiB in use on the card",
+              flush=True)
+
+
+def zero_cfg(part: str):
+    from repro_torch.configs import get_config
+    cfg = get_config(TRAIN_ARCH)
+    if part == "a":
+        return dataclasses.replace(cfg, n_layers=ZERO_LAYERS)
+    return dataclasses.replace(cfg, n_layers=ZERO_F32_LAYERS,
+                               dtype="float32", zero3=True)
+
+
+def zero_draw(cfg, device, seed: int, shardings=None, soften=False):
+    """The model's parameter tree drawn on ``device`` as ``build(cfg)
+    .init(generator).tree()`` draws it (leaf by leaf, a stacked leaf
+    layer by layer), wq and wk scaled by TRAIN_CPU_SOFTEN with
+    ``soften``; with ``shardings`` each leaf is placed (this rank's
+    shard) as soon as it is drawn."""
+    from repro_torch.models import build
+    from repro_torch.models.base import init_leaf, leaves, unflatten
+    gen = torch.Generator(device).manual_seed(seed)
+    decls = build(cfg, device="meta").decls()
+    sh = (dict(leaves(shardings)) if shardings is not None else None)
+    out = []
+    for path, p in leaves(decls):
+        full = torch.empty(p.shape, dtype=torch.float32, device=device)
+        for x in (full.unbind(0) if path[0] == "layers" else [full]):
+            init_leaf(x, p, gen)
+        if soften and path[-1] in ("wq", "wk") and "attn" in path:
+            full.mul_(TRAIN_CPU_SOFTEN)
+        out.append(full if sh is None else sh[path].place(full))
+        del full
+    return unflatten(decls, out)
+
+
+def fingerprint(t: torch.Tensor, bounds=None, full=None) -> int:
+    """sum_i bits_i * (2 i + 1) mod 2^64 over a leaf's elements, their bit
+    patterns as integers and i their flat index in the full array
+    (``full``, of which ``t`` is the block at ``bounds``; by default ``t``
+    itself), in int64 on the tensor's device.  Integer sums are exact in
+    any order, so the blocks' values add up to the full array's; two
+    arrays that differ in one element always differ here (odd weights),
+    in several only by a 64-bit coincidence."""
+    if bounds is None:
+        bounds, full = tuple((0, n) for n in t.shape), tuple(t.shape)
+    stride = [math.prod(full[d + 1:]) for d in range(len(full))]
+    dev = t.device
+    bits = t.detach().reshape(1, -1) if t.dim() == 0 else t.detach()
+    bits = bits.view({4: torch.int32, 2: torch.int16}[t.element_size()])
+    rows = bits.shape[0]
+    offs = torch.zeros((), dtype=torch.int64, device=dev)
+    for d in range(1, bits.dim()):
+        lo, hi = bounds[d]
+        ax = torch.arange(lo, hi, dtype=torch.int64, device=dev) * stride[d]
+        offs = offs[..., None] + ax
+    offs = offs.reshape(1, -1)
+    bits = bits.reshape(rows, -1)
+    step = max(1, ZERO_CHUNK // max(bits.shape[1], 1))
+    lo0 = bounds[0][0] if t.dim() else 0
+    s0 = stride[0] if t.dim() else 0
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+    for r in range(0, rows, step):
+        b = bits[r:r + step].to(torch.int64)
+        idx = ((lo0 + torch.arange(r, r + b.shape[0], dtype=torch.int64,
+                                   device=dev)) * s0)[:, None] + offs
+        total += (b * (2 * idx + 1)).sum()
+    return int(total) % 2**64
+
+
+def signed(v: int) -> int:
+    return v - 2**64 if v >= 2**63 else v
+
+
+def zero_replicas(state, sh, mesh) -> tuple[int, int, int]:
+    """Every local leaf of params, m and v fingerprinted on every rank;
+    -> (leaves whose shard some ranks share, pairs of ranks that hold the
+    same shard, pairs whose fingerprints differ)."""
+    from repro_torch.models.base import leaves
+    locs, shs = [], []
+    for part in ("params", "m", "v"):
+        locs += [t for _, t in leaves(getattr(state, part))]
+        shs += [s for _, s in leaves(getattr(sh, part))]
+    fps = world_rows([signed(fingerprint(t)) for t in locs], torch.int64)
+    ranks = mesh.mesh.reshape(-1).tolist()
+    at = {r: dict(zip(mesh.mesh_dim_names, c))
+          for r, c in zip(ranks, np.ndindex(*mesh.mesh.shape))}
+    shared = pairs = bad = 0
+    for j, s in enumerate(shs):
+        if all(s.sizes[a] == 1 for a in s.replicated_axes):
+            continue
+        shared += 1
+        held = {}
+        for r in ranks:
+            key = tuple(at[r][a] for a in s.sizes
+                        if a not in s.replicated_axes)
+            if key in held:
+                pairs += 1
+                bad += int(fps[r, j] != fps[held[key], j])
+            else:
+                held[key] = r
+    return shared, pairs, bad
+
+
+def zero_state(params, model, gsh, moment_dtype, device):
+    """A step-0 ``TrainState`` over this rank's parameter shards, with
+    zero moments of ``gsh``'s shard shapes."""
+    from repro_torch.models.base import leaves, unflatten
+    from repro_torch.train import TrainState
+    zeros = lambda: unflatten(params, [
+        torch.zeros(s.shard_shape(p.shape), dtype=moment_dtype,
+                    device=device)
+        for (_, s), (_, p) in zip(leaves(gsh), leaves(model.decls()))])
+    return TrainState(step=torch.zeros((), dtype=torch.int32,
+                                       device=device),
+                      params=params, m=zeros(), v=zeros())
+
+
+def zero_shard_check(state, sh, model) -> tuple[int, int]:
+    """-> (elements this rank holds, elements of the full state); raises
+    if a local leaf's shape is not its spec's shard of the declared
+    shape."""
+    from repro_torch.models.base import leaves
+    decls = dict(leaves(model.decls()))
+    mine = full = 0
+    for part in ("params", "m", "v"):
+        for (path, t), (_, s) in zip(leaves(getattr(state, part)),
+                                     leaves(getattr(sh, part))):
+            whole = decls[path].shape
+            if tuple(t.shape) != s.shard_shape(whole):
+                raise AssertionError(f"{part} {path}: local {tuple(t.shape)}"
+                                     f" is not the shard of {whole}")
+            mine += t.numel()
+            full += math.prod(whole)
+    return mine, full
+
+
+def zero_bf16(rank: int, mesh, device) -> dict:
+    """(a) on one rank."""
+    from repro_torch.models import ShardCtx, build, torch_dtype
+    from repro_torch.sharding.rules import merged_rules
+    from repro_torch.train import (AdamWConfig, make_train_step,
+                                   state_shardings, zero_shardings)
+    cfg = zero_cfg("a")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build(cfg, ShardCtx(mesh, merged_rules(mesh)), device="meta")
+    psh, gsh = zero_shardings(model, mesh)
+    sh = state_shardings(psh, gsh)
+    opt = AdamWConfig(lr=ZERO_LR, warmup_steps=1,
+                      moment_dtype=torch_dtype(cfg.opt_moment_dtype))
+    state = zero_state(zero_draw(cfg, device, SEED + 180, psh), model,
+                       gsh, opt.moment_dtype, device)
+    mine, full = zero_shard_check(state, sh, model)
+    init_s = time.perf_counter() - t0
+    zero_note(rank, f"(a) state placed in {init_s:.1f} s")
+    step = make_train_step(model, opt, gsh, param_shardings=psh,
+                           device=device)
+    batch = train_batch(cfg, ZERO_ACCUM, ZERO_BATCH, ZERO_SEQ, SEED + 181)
+    losses, norms, wall_ms, event_ms, replicas = [], [], [], [], []
+    for i in range(ZERO_STEPS):
+        s_ev = torch.cuda.Event(enable_timing=True)
+        e_ev = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        s_ev.record()
+        state, metrics = step(state, batch, i)
+        e_ev.record()
+        torch.cuda.synchronize()
+        wall_ms.append((time.perf_counter() - t1) * 1e3)
+        event_ms.append(s_ev.elapsed_time(e_ev))
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        replicas.append(zero_replicas(state, sh, mesh))
+        zero_note(rank, f"(a) step {i}: loss {losses[-1]:.4f}, "
+                        f"{wall_ms[-1]:.0f} ms")
+    out = dict(params=model.n_params(), mine=mine, full=full,
+               init_s=init_s, losses=losses, grad_norms=norms,
+               wall_ms=wall_ms, event_ms=event_ms, replicas=replicas,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def zero_one_device(rank: int, out_dir: str, device: str = "cuda") -> None:
+    """(b)'s one-device step, in a process of its own: the loss, each
+    leaf's gradient (``backward_into``) and update of one
+    ``train_step``, written to ``out_dir`` for the world's rank 0; and the
+    same again one ulp away (random signs), whose worst leaves are the
+    floor of a comparison on this card."""
+    from repro_torch.models import build
+    from repro_torch.models.base import leaves, tree_map
+    from repro_torch.train import AdamWConfig, init_state, make_train_step
+    from repro_torch.train.step import backward_into
+    device = torch.device(device)
+    cfg = zero_cfg("b")
+    model = build(cfg, device="meta")
+    opt = AdamWConfig(lr=TRAIN_CPU_LR, warmup_steps=1)
+    batch = train_batch(cfg, 1, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, SEED + 183)
+    gen = torch.Generator(device).manual_seed(SEED + 184)
+    nudge = lambda t: t.mul_(1 + (torch.randint(
+        0, 2, t.shape, generator=gen, device=device) * 2 - 1) * 2.0 ** -23)
+    t0 = time.perf_counter()
+    out, kept = {}, {}
+    for tag in ("", "nudged"):
+        tweak = nudge if tag else (lambda t: t)
+        masters = tree_map(lambda t: tweak(t).requires_grad_(), zero_draw(
+            cfg, device, SEED + 182, soften=True))
+        loss = backward_into(model, masters, {k: torch.from_numpy(v[0]).to(
+            device) for k, v in batch.items()})
+        grads = {p: m.grad for p, m in leaves(masters)}
+        del masters
+        state = init_state(tree_map(tweak, zero_draw(
+            cfg, device, SEED + 182, soften=True)), opt)
+        before = {p: t.clone() for p, t in leaves(state.params)}
+        state, metrics = make_train_step(model, opt, device=device)(
+            state, batch, 0)
+        upd = {p: t - before[p] for p, t in leaves(state.params)}
+        del state, before
+        if not tag:
+            for p in grads:
+                k = "/".join(map(str, p)).replace("/", ".")
+                np.save(os.path.join(out_dir, f"grad_{k}.npy"),
+                        grads[p].cpu().numpy())
+                np.save(os.path.join(out_dir, f"upd_{k}.npy"),
+                        upd[p].cpu().numpy())
+            out.update(loss=float(loss), step_loss=float(metrics["loss"]),
+                       grad_norm=float(metrics["grad_norm"]))
+            kept = dict(grads=grads, upd=upd, loss=float(loss))
+        else:
+            ug = [zero_gaps(zero_sums(u, kept["upd"][p]))
+                  for p, u in upd.items()]
+            out["floor"] = dict(
+                loss=abs(float(loss) - kept["loss"]) / abs(kept["loss"]),
+                grad=max(zero_gaps(zero_sums(g, kept["grads"][p]))[0]
+                         for p, g in grads.items()),
+                update=max(x[0] for x in ug),
+                gap=max(x[1] for x in ug) / (2 * TRAIN_CPU_LR),
+                cos=min(x[2] for x in ug))
+        del grads, upd
+        gc.collect()
+    out.update(seconds=time.perf_counter() - t0,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    with open(os.path.join(out_dir, "one.json"), "w") as f:
+        json.dump(out, f)
+
+
+def zero_f32(rank: int, mesh, device, out_dir: str):
+    """(b) on one rank: one step on the same weights as the one-device
+    process's; rank 0 holds every gathered leaf to its files.  -> (result,
+    the state after the step, its shardings)."""
+    from repro_torch.models import ShardCtx, build
+    from repro_torch.models.base import leaves
+    from repro_torch.sharding.rules import merged_rules
+    from repro_torch.train import (AdamWConfig, apply_updates,
+                                   make_train_step, state_shardings,
+                                   zero_shardings)
+    cfg = zero_cfg("b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build(cfg, ShardCtx(mesh, merged_rules(mesh)), device="meta")
+    psh, gsh = zero_shardings(model, mesh)
+    opt = AdamWConfig(lr=TRAIN_CPU_LR, warmup_steps=1)
+    state = zero_state(zero_draw(cfg, device, SEED + 182, psh, soften=True),
+                       model, gsh, torch.float32, device)
+    step = make_train_step(model, opt, gsh, param_shardings=psh,
+                           device=device)
+    batch = train_batch(cfg, 1, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, SEED + 183)
+    zero_note(rank, "(b) state placed")
+    loss, grads = step.grads(state, batch)
+    state, metrics = apply_updates(state, grads, opt, param_shardings=psh,
+                                   grad_shardings=gsh)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    zero_note(rank, f"(b) one step in {step_s:.1f} s")
+    # The weights before the step, drawn again (a copy kept through the
+    # step would cost every rank its size).  Each rank holds its own
+    # blocks to the same blocks of the one-device files; the partial sums
+    # of the ranks that own them add up to each leaf's gaps.
+    before = zero_draw(cfg, device, SEED + 182, psh, soften=True)
+    paths, sums = [], []
+    for (path, g), (_, gs), (_, p), (_, s), (_, b) in zip(
+            leaves(grads), leaves(gsh), leaves(state.params), leaves(psh),
+            leaves(before)):
+        k = "/".join(map(str, path)).replace("/", ".")
+        paths.append("/".join(map(str, path)))
+        for kind, t, sh_ in (("grad", g, gs), ("upd", p - b, s)):
+            if not owns(sh_):
+                sums.append([0.0] * 5)
+                continue
+            a = np.load(os.path.join(out_dir, f"{kind}_{k}.npy"),
+                        mmap_mode="r")
+            want = torch.from_numpy(np.array(a[tuple(
+                slice(lo, hi) for lo, hi in sh_.bounds(a.shape))]))
+            sums.append(zero_sums(t, want.to(device)))
+            del want
+    del grads, before
+    rows = world_rows(sums, torch.float64)       # (world, leaves x 2, 5)
+    total = rows.sum(0)
+    total[:, 4] = rows[:, :, 4].max(0).values
+    worst = {"grad": (0.0, ""), "update": (0.0, ""), "gap": (0.0, ""),
+             "cos": (1.0, "")}
+    for i, path in enumerate(paths):
+        rel_g = zero_gaps(total[2 * i].tolist())[0]
+        rel_u, top, cos = zero_gaps(total[2 * i + 1].tolist())
+        for w, v in (("grad", rel_g), ("update", rel_u),
+                     ("gap", top / (2 * TRAIN_CPU_LR)), ("cos", cos)):
+            if (v < worst[w][0]) if w == "cos" else (v > worst[w][0]):
+                worst[w] = (v, path)
+    gc.collect()
+    zero_note(rank, f"(b) compared ({time.perf_counter() - t0:.1f} s)")
+    res = dict(loss=float(loss), grad_norm=float(
+        metrics["grad_norm"]), step_s=step_s, worst=worst,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    return res, state, state_shardings(psh, gsh), model
+
+
+def state_fingerprints(state, sh, full: dict) -> list[int]:
+    """Each leaf of params, m and v: the fingerprint of the full array,
+    from this rank's block if it owns it (``full``: leaf path -> full
+    shape) summed over the world; whole leaves without ``sh``."""
+    from repro_torch.models.base import leaves
+    mine = []
+    for part in ("params", "m", "v"):
+        tree = getattr(state, part)
+        shs = (dict(leaves(getattr(sh, part))) if sh is not None else {})
+        for path, t in leaves(tree):
+            s = shs.get(path)
+            if s is None:
+                mine.append(fingerprint(t))
+            elif owns(s):
+                mine.append(fingerprint(t, s.bounds(full[path]),
+                                        full[path]))
+            else:
+                mine.append(0)
+    return mine
+
+
+def zero_ckpt(rank: int, state, sh, model, device, out_dir: str) -> dict:
+    """(c) on one rank: save (b)'s state, restore it on one device (rank
+    0) and on a 1 x 4 mesh; every leaf's fingerprint (``fingerprint``,
+    summed over the blocks of the ranks that own them) equals the live
+    state's, so no array crosses the world to check it."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.base import leaves
+    from repro_torch.train import (CheckpointManager, state_shardings,
+                                   zero_shardings)
+    ckpt = os.path.join(out_dir, "ckpt")
+    full = {p: d.shape for p, d in leaves(model.decls())}
+    total = lambda fps: [sum(int(x) for x in col) % 2**64
+                         for col in world_rows([signed(f) for f in fps],
+                                               torch.int64).T]
+    live = total(state_fingerprints(state, sh, full))
+    t0 = time.perf_counter()
+    CheckpointManager(ckpt).save(1, state, shardings=sh)
+    save_s = time.perf_counter() - t0
+    zero_note(rank, f"(c) saved in {save_s:.1f} s")
+    t1 = time.perf_counter()
+    one_equal = True
+    if rank == 0:
+        # The template gives the tree and each leaf's device.
+        one = CheckpointManager(ckpt).restore(state)[0]
+        one_equal = (int(one.step) == 1
+                     and state_fingerprints(one, None, full) == live)
+        del one
+        gc.collect()
+        torch.cuda.empty_cache()
+    one_s = time.perf_counter() - t1
+    mesh14 = make_debug_mesh(1, 4, device_type=device.type)
+    sh14 = state_shardings(*zero_shardings(model, mesh14))
+    t2 = time.perf_counter()
+    m14, _ = CheckpointManager(ckpt).restore(state, shardings=sh14)
+    m14_s = time.perf_counter() - t2
+    zero_shard_check(m14, sh14, model)
+    m14_equal = (int(m14.step) == 1
+                 and total(state_fingerprints(m14, sh14, full)) == live)
+    del m14
+    gc.collect()
+    torch.cuda.empty_cache()
+    files = sum(os.path.getsize(os.path.join(d, f))
+                for d, _, fs in os.walk(ckpt) for f in fs)
+    return dict(save_s=save_s, one_s=one_s, m14_s=m14_s, leaves=len(live),
+                one_equal=bool(one_equal), m14_equal=bool(m14_equal),
+                bytes=files)
+
+
+def zero_rank(rank: int, out_dir: str, device: str = "cuda") -> None:
+    """Phase 15 on one rank of the gloo world: (a), (b), (c); writes
+    ``zero_rank<rank>.json``."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        # Four processes share the card: each returns what it frees.
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
+        torch.cuda.set_device(0)
+    mesh = make_debug_mesh(*ZERO_MESH, device_type=dev.type)
+    res = dict(rank=rank, coordinate=list(mesh.get_coordinate()),
+               context_gib=torch.cuda.memory_reserved() / 2**30)
+    res["a"] = zero_bf16(rank, mesh, dev)
+    res["b"], state, sh, model = zero_f32(rank, mesh, dev, out_dir)
+    res["c"] = zero_ckpt(rank, state, sh, model, dev, out_dir)
+    with open(os.path.join(out_dir, f"zero_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def zero_path(card: str) -> dict:
+    """Phase 15: ZeRO training in a gloo world of four on the card."""
+    import tempfile
+    from repro_torch.launch.mesh import spawn
+    t0 = time.perf_counter()
+    gc.collect()
+    before = torch.cuda.memory_allocated()
+    # cuBLAS keeps a 32 MiB workspace for every stream it has run on (the
+    # graph captures of phase 10 used many), allocated through the caching
+    # allocator; it makes them again on demand.
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    print(f"phase 15: the parent holds {held / 2**20:.1f} MiB of CUDA "
+          f"memory ({torch.cuda.memory_reserved() / 2**20:.1f} MiB "
+          f"reserved) before the spawn, {before / 2**20:.1f} MiB before "
+          f"cuBLAS's per-stream workspaces were freed")
+    if held > ZERO_PARENT_BYTES:
+        live = sorted(((t.numel() * t.element_size(), tuple(t.shape),
+                        t.dtype) for t in gc.get_objects()
+                       if isinstance(t, torch.Tensor) and t.is_cuda),
+                      key=lambda x: -x[0])[:8]
+        fail(f"phase 15: the parent holds {held} bytes of CUDA memory; the "
+             f"largest live tensors: {live}")
+    with tempfile.TemporaryDirectory() as tmp:
+        spawn(zero_one_device, 1, tmp, init_method=f"file://{tmp}/store1")
+        one = json.load(open(os.path.join(tmp, "one.json")))
+        t1 = time.perf_counter()
+        spawn(zero_rank, ZERO_WORLD, tmp, "cuda",
+              init_method=f"file://{tmp}/store4")
+        world_s = time.perf_counter() - t1
+        ranks = [json.load(open(os.path.join(tmp, f"zero_rank{r}.json")))
+                 for r in range(ZERO_WORLD)]
+    a0, b0, c0 = ranks[0]["a"], ranks[0]["b"], ranks[0]["c"]
+    cfg = zero_cfg("a")
+    print(f"phase 15 (a) {TRAIN_ARCH} x {ZERO_LAYERS} layers at full width "
+          f"(d {cfg.d_model}, d_ff {cfg.d_ff}, V {cfg.vocab}), "
+          f"{a0['params']:,} f32 master parameters, zero3 {cfg.zero3}, "
+          f"{cfg.dtype} compute, remat {cfg.remat}, {ZERO_STEPS} steps of "
+          f"{ZERO_ACCUM} x {ZERO_BATCH} x {ZERO_SEQ} on a "
+          f"{ZERO_MESH[0]} x {ZERO_MESH[1]} gloo mesh: losses "
+          + ", ".join(f"{x:.4f}" for x in a0["losses"]) + "; grad norms "
+          + ", ".join(f"{x:.4g}" for x in a0["grad_norms"]) + f"; {card}")
+    for r in ranks:
+        a = r["a"]
+        print(f"  rank {r['rank']} at {tuple(r['coordinate'])}: holds "
+              f"{a['mine']:,} of {a['full']:,} state elements "
+              f"({100 * a['mine'] / a['full']:.1f}%), peak "
+              f"{a['peak_gib']:.2f} GiB (torch.cuda.max_memory_allocated; "
+              f"context {r['context_gib']:.2f} GiB reserved at start), "
+              f"steps " + ", ".join(f"{x:.0f}" for x in a["wall_ms"])
+              + " ms host wall (" + ", ".join(f"{x:.0f}" for x in
+                                             a["event_ms"])
+              + " ms CUDA events), init "
+              f"{a['init_s']:.1f} s; replicated shards after each step: "
+              + "; ".join(f"{s} leaves, {p} pairs, {d} differ"
+                          for s, p, d in a["replicas"]))
+    losses = [r["a"]["losses"] for r in ranks]
+    if any(x != losses[0] for x in losses):
+        fail(f"phase 15 (a): ranks report different losses {losses}")
+    if not all(np.isfinite(losses[0])) or not losses[0][-1] < losses[0][0]:
+        fail(f"phase 15 (a): loss did not fall: {losses[0]}")
+    if any(d for r in ranks for _, _, d in r["a"]["replicas"]) or not all(
+            p for r in ranks for _, p, _ in r["a"]["replicas"]):
+        fail("phase 15 (a): replicated shards differ across ranks")
+    if any(r["a"]["mine"] >= r["a"]["full"] for r in ranks):
+        fail("phase 15 (a): a rank holds the whole state")
+    loss_rel = abs(b0["loss"] - one["step_loss"]) / abs(one["step_loss"])
+    w = b0["worst"]
+    print(f"phase 15 (b) {TRAIN_ARCH} x {ZERO_F32_LAYERS} layer f32, zero3, "
+          f"wq and wk x {TRAIN_CPU_SOFTEN}, B = {TRAIN_CPU_BATCH}, S = "
+          f"{TRAIN_CPU_SEQ}, lr {TRAIN_CPU_LR}: the world against one device"
+          f" (its own process, {one['seconds']:.1f} s, peak "
+          f"{one['peak_gib']:.2f} GiB): loss {b0['loss']:.7f} / "
+          f"{one['step_loss']:.7f} (rel {loss_rel:.2e}, bound "
+          f"{TRAIN_CPU_LOSS_RTOL}); grad norm {b0['grad_norm']:.6g} / "
+          f"{one['grad_norm']:.6g}; worst gradient {w['grad'][0]:.2e} "
+          f"{w['grad'][1]} (bound {TRAIN_CPU_GRAD_FROB}); worst update "
+          f"{w['update'][0]:.2e} {w['update'][1]} (bound "
+          f"{max(ZERO_UPDATE_FROB, one['floor']['update']):.2e}: "
+          f"{ZERO_UPDATE_FROB} or the floor below), largest update gap {w['gap'][0]:.3f} of "
+          f"2 lr, least update cosine {w['cos'][0]:.5f}; one device one "
+          f"ulp from itself: loss {one['floor']['loss']:.2e}, gradient "
+          f"{one['floor']['grad']:.2e}, update {one['floor']['update']:.2e}"
+          f" (cosine {one['floor']['cos']:.5f}); world step "
+          f"{b0['step_s']:.1f} s with init, peaks "
+          + ", ".join(f"{r['b']['peak_gib']:.2f}" for r in ranks)
+          + f" GiB; {card}")
+    if not loss_rel <= TRAIN_CPU_LOSS_RTOL:
+        fail(f"phase 15 (b): loss {b0['loss']} one device "
+             f"{one['step_loss']}")
+    if not w["grad"][0] <= TRAIN_CPU_GRAD_FROB:
+        fail(f"phase 15 (b): gradient {w['grad']}")
+    # Adam's first step moves an element by lr x the sign of its
+    # gradient, so an element whose gradient sits at the noise level
+    # moves the other way: one device one ulp from itself is as far from
+    # its own update as the floor printed above.  Each leaf's update is
+    # held to ZERO_UPDATE_FROB or that floor, whichever is larger, and to
+    # phase 14 (b)'s gates: no element off by more than 2 lr, a cosine of
+    # TRAIN_CPU_UPDATE_COS.
+    bound = max(ZERO_UPDATE_FROB, one["floor"]["update"])
+    if not (w["update"][0] <= bound and w["gap"][0] <= 1.0
+            and w["cos"][0] >= TRAIN_CPU_UPDATE_COS):
+        fail(f"phase 15 (b): update {w['update']} (bound {bound}), gap "
+             f"{w['gap']}, cosine {w['cos']}")
+    print(f"phase 15 (c) the (b) state saved from the world "
+          f"({c0['bytes'] / 2**30:.2f} GiB of files, {c0['save_s']:.1f} s), "
+          f"restored on one device ({c0['one_s']:.1f} s) and on a 1 x 4 "
+          f"mesh ({c0['m14_s']:.1f} s): {c0['leaves']} leaves, each leaf's "
+          f"fingerprint (a position-weighted 64-bit sum of its bits, "
+          f"which any one differing element changes) equal to the live "
+          f"state's: one device {c0['one_equal']}, 1 x 4 on every rank "
+          f"{all(r['c']['m14_equal'] for r in ranks)}")
+    if not c0["one_equal"] or not all(r["c"]["m14_equal"] for r in ranks):
+        fail("phase 15 (c): a restored leaf differs from the gathered state")
+    wall = time.perf_counter() - t0
+    print(f"phase 15 (d): ZeRO path done in {wall:.1f} s (the world "
+          f"{world_s:.1f} s, the one-device process "
+          f"{one['seconds']:.1f} s of its own work); {card}")
+    return dict(ranks=ranks, one=one, seconds=wall)
+
+
 def kernel_resources(source: str) -> list[str]:
     """Each kernel of ``source`` with its registers, shared memory and
     spills, from the build's ``nvcc --resource-usage`` report."""
@@ -5012,6 +5638,10 @@ def main() -> int:
     _, ssm_row = ssm_path(device, card)
     rows.append(ssm_row)
     train_lm_path(device, card)
+    # Phase 15's world needs the card to itself: drop what the earlier
+    # phases hold.
+    del served, trained, compressed, coresident, _
+    zero_path(card)
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

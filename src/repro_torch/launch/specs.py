@@ -4,9 +4,10 @@ one-device part of ``repro.launch.specs``).
 ``synth_tokens`` is the reference's numpy Markov chain: the same tokens
 for the same seed, bit for bit.  ``train_batch_specs`` gives the batch
 tree of a training cell with its leading accumulation axis, as ``meta``
-tensors by default (shapes and dtypes, nothing allocated).  The
-reference's prefill / decode specs, the dry run and the HLO checks stay
-in ROADMAP.
+tensors by default (shapes and dtypes, nothing allocated), and
+``train_batch_axes`` its logical axes, by which the ZeRO train step
+splits the batch over the data axes.  The reference's prefill / decode
+specs and axes, the dry run and the HLO checks stay in ROADMAP.
 """
 from __future__ import annotations
 
@@ -37,6 +38,18 @@ def train_batch_specs(cfg: ModelConfig, shape: ShapeSpec, *,
                                   torch.bfloat16),
                 "positions": z((A, 3, B, S), torch.int32)}
     return {"tokens": z((A, B, S), torch.int32)}
+
+
+def train_batch_axes(cfg: ModelConfig) -> dict:
+    """Logical axes of the train batch's leaves (the leading accumulation
+    axis whole on every rank)."""
+    if cfg.modality == "audio":
+        return {"tokens": (None, "batch", None, None)}
+    if cfg.modality == "vlm":
+        return {"tokens": (None, "batch", None),
+                "extra_embeds": (None, "batch", None, None),
+                "positions": (None, None, "batch", None)}
+    return {"tokens": (None, "batch", None)}
 
 
 def synth_tokens(cfg: ModelConfig, batch: int, seq: int,

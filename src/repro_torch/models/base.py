@@ -19,9 +19,12 @@ reference's tree of tensors (``tree`` / ``load_tree``), running on an
 explicit tree (``bound``, what the train step does) and ``remat``.
 
 The logical axes ("embed", "heads", "kv", "mlp", "experts", "layers", ...)
-are kept so the trees compare equal with the reference's; on one device
-nothing reads them.  The reference's ``ShardCtx`` (logical axes to mesh
-shardings) has no counterpart yet: the port's models run on one device.
+are the reference's.  ``ShardCtx`` resolves them to mesh layouts
+(``sharding.layout.Sharding``) through a rule table
+(``sharding.rules``): the ZeRO train step (``train.step``) lays out the
+parameters, moments and gradients by them.  A model keeps its ctx
+(``build(cfg, ctx)``), but computes on one device or, in a sharded step,
+on each data group's gathered weights: its layers call no ``constrain``.
 """
 from __future__ import annotations
 
@@ -36,6 +39,8 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..device import resolve_device
+from ..launch.mesh import axis_sizes
+from ..sharding.layout import Sharding, entry_names
 from .config import torch_dtype
 
 Tree = Any
@@ -129,6 +134,85 @@ def abstract(decls: Tree, dtype: torch.dtype | None = None) -> Tree:
     and dtypes, nothing allocated."""
     return tree_map(lambda p: torch.empty(p.shape, dtype=dtype or p.dtype,
                                           device="meta"), decls)
+
+
+# ---------------------------------------------------------------------------
+# Sharding context
+# ---------------------------------------------------------------------------
+
+class ShardCtx:
+    """Resolves logical axes to mesh layouts (the port of the reference's
+    ``ShardCtx``).
+
+    ``mesh=None`` (one device) makes every method a no-op.  A logical axis
+    maps to the mesh axes its rule names only where they divide the dim
+    evenly; otherwise, or when one of those mesh axes is already used by
+    an earlier dim, that dim is whole on every rank.  So one table serves
+    every architecture (kv = 2 GQA heads on a model axis of 16 fall back
+    to ``head_dim``), and a batch of one is never split.  Sizes are read
+    through ``launch.mesh.axis_sizes``: a ``DeviceMesh``, or any object
+    whose ``shape`` maps axis names to sizes.
+    """
+
+    def __init__(self, mesh, rules: dict[str, Any] | None = None):
+        self.mesh = mesh
+        self.rules = rules or {}
+
+    def _axis_size(self, entry) -> int:
+        sizes = axis_sizes(self.mesh)
+        return math.prod(sizes.get(a, 1) for a in entry_names(entry))
+
+    def spec(self, shape: tuple[int, ...],
+             axes: tuple[str | None, ...]) -> tuple:
+        """One entry a dim (the reference's ``PartitionSpec`` entries):
+        ``None``, a mesh axis name, or a tuple of names; ``()`` without a
+        mesh."""
+        if self.mesh is None:
+            return ()
+        entries, used = [], set()
+        for dim, ax in zip(shape, axes):
+            entry = self.rules.get(ax) if ax else None
+            if entry is not None and any(a in used
+                                         for a in entry_names(entry)):
+                entry = None
+            if entry is not None and dim % self._axis_size(entry) != 0:
+                entry = None
+            used.update(entry_names(entry))
+            if isinstance(entry, tuple) and len(entry) == 1:
+                entry = entry[0]     # as PartitionSpec spells it
+            entries.append(entry)
+        return tuple(entries)
+
+    def sharding(self, shape, axes) -> Sharding | None:
+        """The layout of a ``shape`` tensor with logical ``axes`` (the
+        counterpart of ``NamedSharding``); None without a mesh."""
+        if self.mesh is None:
+            return None
+        return Sharding(self.mesh, self.spec(tuple(shape), tuple(axes)))
+
+    def constrain(self, x, *axes: str | None):
+        """Lay ``x`` out by ``axes``: a DTensor is redistributed to the
+        spec's placements; a plain tensor, or any tensor without a mesh,
+        is returned as it is.  In the ZeRO train step each data group
+        computes its microbatch on the gathered weights, so the model's
+        activations are plain local tensors there and the reference's
+        constraint points have nothing to move (its tensor-parallel
+        compute is not ported)."""
+        if self.mesh is None:
+            return x
+        from torch.distributed.tensor import DTensor
+        if isinstance(x, DTensor):
+            return x.redistribute(self.mesh, self.sharding(
+                x.shape, axes).placements)
+        return x
+
+    def param_shardings(self, decls: Tree) -> Tree:
+        """A ``Sharding`` (None without a mesh) for every leaf of a
+        declaration tree."""
+        return tree_map(lambda p: self.sharding(p.shape, p.axes), decls)
+
+
+NULL_CTX = ShardCtx(None)
 
 
 class ParamTree(nn.Module):
@@ -284,9 +368,11 @@ class StackedLM(nn.Module):
     ``"meta"`` allocates nothing.  Parameters start uninitialized: fill
     them with ``init`` or copy them in."""
 
-    def __init__(self, cfg, *, device: str | torch.device | None = None):
+    def __init__(self, cfg, ctx: ShardCtx = NULL_CTX, *,
+                 device: str | torch.device | None = None):
         super().__init__()
         self.cfg = cfg
+        self.ctx = ctx
         dev = resolve_device(device)
         decls = self.decls()
         tree = {k: v for k, v in decls.items() if k != "layers"}

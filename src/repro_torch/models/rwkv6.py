@@ -25,8 +25,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .base import (P, StackedLM, dense, dense_out, layer_norm,
-                   next_token_loss, sigmoid, silu)
+from .base import (NULL_CTX, P, ShardCtx, StackedLM, dense, dense_out,
+                   layer_norm, next_token_loss, sigmoid, silu)
 from .ssm_common import chunked_la, la_step
 from .transformer import _stack
 
@@ -46,12 +46,13 @@ def _shift(x: torch.Tensor, x_prev: torch.Tensor | None) -> torch.Tensor:
 class RWKV6LM(StackedLM):
     """RWKV6 of one config on one device (``StackedLM``)."""
 
-    def __init__(self, cfg, *, device: str | torch.device | None = None):
+    def __init__(self, cfg, ctx: ShardCtx = NULL_CTX, *,
+                 device: str | torch.device | None = None):
         if cfg.ssm is None or cfg.ssm.kind != "rwkv6":
             raise ValueError(f"{cfg.name} is not an rwkv6 config")
         self.head_dim = cfg.ssm.head_dim
         self.n_heads_ssm = cfg.d_model // self.head_dim
-        super().__init__(cfg, device=device)
+        super().__init__(cfg, ctx, device=device)
 
     # -- declarations --------------------------------------------------------
     def _block_decls(self) -> dict:

@@ -25,7 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from .attention import _bf16_f32, _write_slot, chunked_attention
-from .base import P, StackedLM, dense, dense_out, next_token_loss, rms_norm
+from .base import (NULL_CTX, P, ShardCtx, StackedLM, dense, dense_out,
+                   next_token_loss, rms_norm)
 from .ffn import decls_mlp, mlp_forward
 from .mamba2 import decls_mamba, init_mamba_state, mamba_forward
 from .rope import apply_rope, rope_angles
@@ -39,13 +40,14 @@ EMPTY_POS = -10 ** 9   # position of a ring slot that holds nothing yet
 class Zamba2LM(StackedLM):
     """Zamba2 of one config on one device (``StackedLM``)."""
 
-    def __init__(self, cfg, *, device: str | torch.device | None = None):
+    def __init__(self, cfg, ctx: ShardCtx = NULL_CTX, *,
+                 device: str | torch.device | None = None):
         if cfg.ssm is None or cfg.hybrid_attn_every <= 0:
             raise ValueError(f"{cfg.name} is not a hybrid config")
         self.d_concat = 2 * cfg.d_model
         self.attn_head_dim = self.d_concat // cfg.n_heads
         self.n_invocations = cfg.n_layers // cfg.hybrid_attn_every
-        super().__init__(cfg, device=device)
+        super().__init__(cfg, ctx, device=device)
 
     # -- declarations ---------------------------------------------------------
     def _shared_decls(self) -> dict:

@@ -4,8 +4,9 @@
 One table serves every architecture of the LM stack, which applies the
 rules with divisibility fallbacks per tensor (``"experts"`` -> ``"model"``
 only when the expert count divides the model axis; otherwise the expert
-hidden dim picks up ``"model"``).  The LM stack is not ported yet; it
-will read the first three tables.
+hidden dim picks up ``"model"``).  ``models.base.ShardCtx`` applies
+them; the ZeRO train step reads the first two (parameters, moments and
+gradients) and ``act_rules``' batch entry.
 
 * ``param_rules`` — weights.  ``zero3=True`` also shards the d_model
   ("embed") dims over the data axes (ZeRO-3 / FSDP).

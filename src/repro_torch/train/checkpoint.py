@@ -31,8 +31,20 @@ raw dtype); the port's can.
 ``restore`` is template-driven, as the reference's: the template gives
 the tree, the leaf ids and each leaf's device; the arrays keep the
 dtype they were saved with.  The manifest's ``treedef`` is a description
-of the structure for tools; neither package reads it.  Shardings (the
-reference's elastic restore onto a mesh) are a mesh leg and raise.
+of the structure for tools; neither package reads it.
+
+**On a mesh** (ZeRO: each leaf this rank's shard) every rank calls
+``save(..., shardings=)`` and ``restore(..., shardings=)`` with a tree
+of ``sharding.layout.Sharding`` (or None) leaves.  ``save`` gathers each
+sharded leaf to its full array on rank 0's host (``gather_to_host``), a
+collective, on the calling thread before any write starts; rank 0 alone
+writes (the ranks share the directory), and the others wait for its
+files at a barrier in ``wait`` (the next save's first step, or before a
+blocking save returns).  The
+files hold the full arrays, as on one device, so a checkpoint crosses
+topologies: ``restore`` places each leaf with its ``Sharding`` on the
+current mesh, any mesh, or on one device without shardings, and the
+reference's manager reads it too.
 """
 from __future__ import annotations
 
@@ -42,19 +54,23 @@ import os
 import pathlib
 import shutil
 import threading
+import warnings
 from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from .step import MESH_LEG
+from ..sharding.layout import Sharding, gather_to_host
 
 Tree = Any
 
 
 def _children(tree) -> list[tuple[str, Any]] | None:
     """(keystr part, child) pairs of a tree node in jax's flattening
-    order, or None for a leaf."""
+    order, or None for a leaf (a ``Sharding`` is one)."""
+    if isinstance(tree, Sharding):
+        return None
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         return [(f".{f.name}", getattr(tree, f.name))
                 for f in dataclasses.fields(tree)]
@@ -102,10 +118,12 @@ def _structure(tree: Tree) -> str:
     return f"{type(tree).__name__}({inner})"
 
 
-def _host(x) -> np.ndarray:
-    """A host copy of a leaf as numpy; bf16 as two raw bytes an element."""
+def _host(x, copy: bool = True) -> np.ndarray:
+    """A host copy of a leaf as numpy (the leaf itself if it is a host
+    tensor of its own and ``copy`` is False); bf16 as two raw bytes an
+    element."""
     if isinstance(x, torch.Tensor):
-        x = x.detach().to("cpu", copy=True)
+        x = x.detach().to("cpu", copy=copy)
         if x.dtype == torch.bfloat16:
             return x.view(torch.int16).numpy().view(np.dtype("V2"))
         return x.numpy()
@@ -118,12 +136,19 @@ def _dtype_name(x, a: np.ndarray) -> str:
     return str(a.dtype)
 
 
-def _load(path: pathlib.Path, dtype: str) -> torch.Tensor:
-    a = np.load(path)
+def _load(path: pathlib.Path, dtype: str, lazy: bool = False
+          ) -> torch.Tensor:
+    """A leaf's array; ``lazy`` maps the file instead of reading it (the
+    caller copies the block it needs, so a rank reads its shard only)."""
+    a = np.load(path, mmap_mode="r" if lazy else None)
     if dtype == "bfloat16":
-        return torch.from_numpy(a.view(np.int16).copy()).view(
-            torch.bfloat16)
-    return torch.from_numpy(a)
+        a = a.view(np.int16)
+        a = a if lazy else a.copy()
+    with warnings.catch_warnings():
+        # a read-only map is never written: ``Sharding.place`` copies
+        warnings.simplefilter("ignore", UserWarning)
+        t = torch.from_numpy(a)
+    return t.view(torch.bfloat16) if dtype == "bfloat16" else t
 
 
 class CheckpointManager:
@@ -132,15 +157,38 @@ class CheckpointManager:
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
         self._thread: threading.Thread | None = None
+        self._barrier = False       # a sharded save's ranks meet in wait()
 
     # -- save -----------------------------------------------------------------
-    def save(self, step: int, tree: Tree, *, blocking: bool = True):
+    def save(self, step: int, tree: Tree, *, blocking: bool = True,
+             shardings: Tree | None = None):
         """Snapshot every leaf to host memory and persist it; returns at
-        once if ``blocking`` is False (the write runs on a thread)."""
+        once if ``blocking`` is False (the write runs on a thread).  With
+        ``shardings`` every rank calls it (module docstring)."""
         self.wait()
         flat = _flatten(tree)
         ids = leaf_ids(tree)
-        host = [_host(x) for _, x in flat]
+        if shardings is None:
+            writer = True
+            host = [_host(x) for _, x in flat]
+        else:
+            sh = _shardings(shardings, len(flat))
+            writer = dist.get_rank() == 0
+            host = []
+            for (_, x), s in zip(flat, sh):
+                if s is None:
+                    if writer:
+                        host.append(_host(x))
+                    continue
+                full = gather_to_host(x, s)
+                if writer:
+                    host.append(_host(full, copy=False))
+                del full
+            self._barrier = True
+        if not writer:
+            if blocking:
+                self.wait()
+            return
         manifest = {
             "step": int(step),
             "treedef": _structure(tree),
@@ -175,14 +223,20 @@ class CheckpointManager:
 
         if blocking:
             write()
+            self.wait()
         else:
             self._thread = threading.Thread(target=write, daemon=True)
             self._thread.start()
 
     def wait(self):
+        """Join the pending write; after a sharded save, every rank waits
+        here until rank 0's files are published (a collective then)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            self._barrier = False
+            dist.barrier()
 
     def _gc(self):
         for s in self.steps()[:-self.keep]:
@@ -210,9 +264,9 @@ class CheckpointManager:
                 shardings: Tree | None = None) -> tuple[Tree, int]:
         """-> (the tree of ``template``'s structure with the saved arrays,
         each on its template leaf's device (the CPU for a leaf that is not
-        a tensor), step)."""
-        if shardings is not None:
-            raise NotImplementedError(MESH_LEG)
+        a tensor), step).  ``shardings`` (``template``'s structure, a
+        ``Sharding`` or None a leaf) places each sharded leaf's block on
+        this rank (``Sharding.place``): elastic across topologies."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -224,9 +278,25 @@ class CheckpointManager:
         if ids != saved:
             raise ValueError(f"tree structure changed: the template's leaves "
                              f"{ids} differ from step {step}'s {saved}")
+        flat = _flatten(template)
+        sh = (_shardings(shardings, len(flat)) if shardings is not None
+              else [None] * len(flat))
         out = []
-        for (_, like), e in zip(_flatten(template), manifest["leaves"]):
-            t = _load(d / f"{e['id']}.npy", e["dtype"])
-            out.append(t.to(like.device) if isinstance(like, torch.Tensor)
-                       else t)
+        for (_, like), e, s in zip(flat, manifest["leaves"], sh):
+            t = _load(d / f"{e['id']}.npy", e["dtype"], lazy=s is not None)
+            dev = like.device if isinstance(like, torch.Tensor) else None
+            if s is not None:
+                t = s.place(t, device=dev)
+            elif dev is not None:
+                t = t.to(dev)
+            out.append(t)
         return _rebuild(template, iter(out)), step
+
+
+def _shardings(shardings: Tree, n: int) -> list:
+    """The ``Sharding`` (or None) leaves of a shardings tree, checked
+    against the ``n`` leaves of the tree they lay out."""
+    sh = [s for _, s in _flatten(shardings)]
+    if len(sh) != n:
+        raise ValueError(f"{len(sh)} shardings for a tree of {n} leaves")
+    return sh

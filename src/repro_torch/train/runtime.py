@@ -18,8 +18,14 @@ straggler detection, a heartbeat (the port of ``repro.train.runtime``).
 * **heartbeat**: ``HEARTBEAT`` in the checkpoint directory, every
   ``heartbeat_every`` steps.
 
-The reference's ``state_shardings`` (restore onto a mesh) is a mesh leg:
-a value other than None raises.
+With ``state_shardings`` (the state's tree of ``sharding.layout
+.Sharding``, a ZeRO state of shards) every rank of the mesh runs the
+loop: saves and the resume gather and place each leaf
+(``CheckpointManager(shardings=)``).  A save is a collective, so every
+decision that leads to one is the same on every rank: each step's time
+is the slowest rank's (one all-reduce of the ranks' step times), the
+straggler count follows from it alike everywhere, and ``save_every`` and
+the final save are counted in steps.  Rank 0 alone writes the heartbeat.
 """
 from __future__ import annotations
 
@@ -31,10 +37,10 @@ import time
 from typing import Any, Callable, Iterator
 
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
 from .checkpoint import CheckpointManager
-from .step import MESH_LEG
 
 Tree = Any
 
@@ -65,14 +71,13 @@ class TrainLoop:
                  state_shardings: Tree | None = None,
                  on_straggler: Callable[[int, float], None] | None = None,
                  device: str | torch.device | None = None):
-        if state_shardings is not None:
-            raise NotImplementedError(MESH_LEG)
         self.device = resolve_device(device)
         self.train_step = train_step
         self.state = state
         self.data_iter = data_iter
         self.cfg = cfg
         self.mgr = CheckpointManager(cfg.ckpt_dir, keep=cfg.keep)
+        self.state_shardings = state_shardings
         self.on_straggler = on_straggler
         self.step_times: list[float] = []
         self.straggler_events = 0
@@ -82,16 +87,32 @@ class TrainLoop:
     def maybe_resume(self) -> int:
         if self.mgr.latest_step() is None:
             return 0
-        self.state, step = self.mgr.restore(self.state)
+        self.state, step = self.mgr.restore(
+            self.state, shardings=self.state_shardings)
         return step
 
+    def _save(self, step: int, blocking: bool):
+        self.mgr.save(step, self.state, blocking=blocking,
+                      shardings=self.state_shardings)
+
     def _heartbeat(self, step: int):
+        if self.state_shardings is not None and dist.get_rank() != 0:
+            return
         hb = pathlib.Path(self.cfg.ckpt_dir) / "HEARTBEAT"
         hb.write_text(json.dumps({"step": step, "t": time.time()}))
 
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _agreed(self, dt: float) -> float:
+        """The step's time as every rank sees it: the slowest rank's on a
+        mesh (an exact max, the same on every rank), else ``dt``."""
+        if self.state_shardings is None:
+            return dt
+        t = torch.tensor([dt], dtype=torch.float64)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return float(t)
 
     # -- main loop -----------------------------------------------------------
     def run(self, seed: int = 0) -> Tree:
@@ -106,7 +127,7 @@ class TrainLoop:
             self.state, metrics = self.train_step(self.state, batch,
                                                   seed + step)
             self._sync()
-            dt = time.time() - t0
+            dt = self._agreed(time.time() - t0)
             self.step_times.append(dt)
             self.metrics_log.append({k: float(v) for k, v in metrics.items()})
 
@@ -119,14 +140,14 @@ class TrainLoop:
                     if self.on_straggler:
                         self.on_straggler(step, dt)
                     if consecutive_slow >= self.cfg.straggler_patience:
-                        self.mgr.save(step + 1, self.state, blocking=False)
+                        self._save(step + 1, blocking=False)
                         consecutive_slow = 0
                 else:
                     consecutive_slow = 0
 
             if (step + 1) % self.cfg.save_every == 0:
-                self.mgr.save(step + 1, self.state, blocking=False)
+                self._save(step + 1, blocking=False)
             if (step + 1) % self.cfg.heartbeat_every == 0:
                 self._heartbeat(step + 1)
-        self.mgr.save(self.cfg.max_steps, self.state, blocking=True)
+        self._save(self.cfg.max_steps, blocking=True)
         return self.state

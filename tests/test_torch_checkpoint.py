@@ -245,9 +245,16 @@ def test_port_checkpoint_restores_in_reference(tmp_path, moments):
             np.testing.assert_array_equal(x, np.asarray(y).astype(x.dtype))
 
 
-def test_state_shardings_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="mesh legs"):
-        CheckpointManager(tmp_path).restore(_tree(), shardings={})
-    with pytest.raises(NotImplementedError, match="mesh legs"):
-        TrainLoop(None, None, iter(()), RuntimeConfig(str(tmp_path)),
-                  state_shardings={}, device="cpu")
+def test_restore_checks_the_shardings_tree(tmp_path):
+    """``restore(shardings=)`` takes one ``Sharding`` (or None) a leaf of
+    the template (``tests/test_torch_zero.py`` restores on meshes); None
+    leaves restore whole, as on one device."""
+    mgr = CheckpointManager(tmp_path)
+    t = _tree()
+    mgr.save(2, t)
+    with pytest.raises(ValueError, match="3 leaves"):
+        mgr.restore(t, shardings={"a": None})
+    got, step = mgr.restore(t, shardings={"a": None, "b": {"c": None,
+                                                           "d": None}})
+    assert step == 2
+    _equal(t, got)

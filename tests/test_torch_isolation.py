@@ -47,7 +47,8 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
         "repro_torch.launch, repro_torch.sharding, "
         "repro_torch.sharding.crossbar, repro_torch.crossbar_scaling, "
         "repro_torch.models, repro_torch.configs, repro_torch.serve_lm, "
-        "repro_torch.train_lm, repro_torch.launch.specs\n"
+        "repro_torch.train_lm, repro_torch.launch.specs, "
+        "repro_torch.sharding.layout, repro_torch.train.step\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"

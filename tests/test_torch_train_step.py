@@ -322,8 +322,13 @@ def test_serving_after_training_builds_no_graph(name):
         assert t.grad_fn is None and not t.requires_grad
 
 
-def test_grad_shardings_raise():
+def test_sharded_step_needs_both_layouts():
+    """A ZeRO step takes the moments' and the parameters' layouts
+    together (``tests/test_torch_zero.py`` runs it on a mesh)."""
     model = build(tconfigs.get_config("llama3-8b").smoke(), device="meta")
-    with pytest.raises(NotImplementedError, match="mesh legs"):
+    with pytest.raises(ValueError, match="both"):
         make_train_step(model, AdamWConfig(), grad_shardings={},
+                        device="cpu")
+    with pytest.raises(ValueError, match="both"):
+        make_train_step(model, AdamWConfig(), param_shardings={},
                         device="cpu")
