@@ -165,10 +165,12 @@ Phases, each of which must pass or the script exits non-zero:
    a share of the bf16 peak, peak memory against the state, and one
    step under ``torch.profiler`` (busy share, largest device items);
 15. ZeRO training on a mesh (``repro_torch.train`` with
-   ``grad_shardings`` / ``param_shardings`` / ``state_shardings``), which
-   reaches no kernel of the port: one spawn of four processes on the card
-   forms a gloo world of 4 (data 2 x model 2; NCCL refuses two ranks on
-   one card); the parent holds no CUDA memory beyond its context.  (a)
+   ``grad_shardings`` / ``param_shardings`` / ``state_shardings``; for
+   llama3-8b the step computes tensor parallel over the model axis),
+   which reaches no kernel of the port: one spawn of four processes on
+   the card forms a gloo world of 4 (data 2 x model 2; NCCL refuses two
+   ranks on one card); the parent holds no CUDA memory beyond its
+   context.  (a)
    llama3-8b at full width, 2 layers deep, its own posture (``zero3``
    off, f32 ``opt_rules`` moments, bf16 compute, remat), 3 AdamW steps
    of 2 microbatches of 4 x 512 ``synth_tokens``: every rank holds only
@@ -183,7 +185,34 @@ Phases, each of which must pass or the script exits non-zero:
    1e-2 in relative Frobenius norm; (c) the world's state after (b)
    saved (every rank gathers, rank 0 writes), restored on one device and
    on a 1 x 4 mesh of the same world, every leaf bit for bit the gathered
-   state; (d) the phase's wall time.
+   state; (d) the phase's wall time;
+16. tensor-parallel compute over the model axis (``repro_torch.models``
+   built with a ``ShardCtx`` on a mesh; the three explicit legs of the
+   reference): one process computes the one-device references, then one
+   spawn of four forms a gloo world of 4 on the card with the 2 x 2 and
+   1 x 4 meshes.  (a) llama3-8b and (b) deepseek-v2-lite-16b (its dense
+   front layer and one MoE layer of 64 experts, 32 a rank through
+   ``_routed_ep``) on 2 x 2, (c) qwen2-vl-2b with 16 patch embeddings
+   and M-RoPE positions on 1 x 4 (its 2 KV heads take the head_dim
+   decode leg), each at full width and 2 layers deep: every rank holds
+   its blocks of the one-device weights, a prefill of 4 x 512 and 16
+   decode steps fed the one-device run's greedy tokens through
+   ``prefill`` / ``decode_step``, the logits end to end at bounds set
+   from TP's own readings on the card, each layer teacher-forced on the
+   one-device run's input to it (prefill and every step) at phase 12's
+   layer bounds (the tight gate), the TP greedy tokens printed; no
+   collective over the model axis carries a tensor of the shape of a
+   weight that the rules split over it; each
+   rank's share of the parameters, peak memory, prefill and decode-step
+   times (CUDA events and host wall) and the bytes it sends over each
+   mesh axis a prefill and a decode step; (a) also 3 ZeRO + TP AdamW
+   steps of phase 15 (a)'s batch (falling loss, replicated shards the
+   same bits, bytes a step); (d) ``chunked_attention``'s
+   context-parallel leg on 1 x 4 at (4, 256, 6, 16) f32 and (2, 4096, 6,
+   128) bf16 within 2e-2 of one device; (e) the CoTM head on (a)'s
+   pooled prefill states (gathered whole), one ``fused_cotm`` launch in
+   rank 0's own count window, bit for bit against ``fused_cotm_ref``,
+   added to the head's row of the kernel table.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -3665,26 +3694,23 @@ def decode_per_layer(name: str, model, ext, pos_ext, extra, n_prompt: int,
                 decs.append(dec)
                 wants.append(out[:, n:n + 1])
             x = out
-    return layer_gate(name, decs, wants, len(blocks), steps)
+    return layer_gate(name, decs, wants, f"decode vs forward, "
+                      f"teacher-forced, {len(blocks)} layers x steps {steps}")
 
 
-def layer_gate(name: str, decs: list, wants: list, n_blocks: int,
-               steps: tuple) -> dict:
-    """Hold each teacher-forced decode output to the forward's output of
-    its layer at its position (``LM_LAYER_BOUNDS``), each step's gap
-    relative to its own layer's largest output."""
-    scale = torch.stack([w.double().abs().amax() for w in wants])
-    stats = rel_stats(
-        torch.stack([d.double() for d in decs]) / scale.view(-1, 1, 1, 1),
-        torch.stack([w.double() for w in wants]) / scale.view(-1, 1, 1, 1))
-    print(f"  {name} decode vs forward, teacher-forced, {n_blocks} "
-          f"layers x steps {steps}: rel err median {stats['median']:.3e} "
-          f"p99 {stats['p99']:.3e} max {stats['max']:.3e} (bounds "
+def layer_gate(name: str, got: list, want: list, what: str) -> dict:
+    """Hold each layer output in ``got`` to its counterpart in ``want``
+    (``LM_LAYER_BOUNDS``), each gap relative to the largest value of that
+    layer output in ``want``; ``what`` names the comparison."""
+    rel = lambda x, w: (x.double() / w.double().abs().amax()).flatten()
+    stats = rel_stats(torch.cat([rel(g, w) for g, w in zip(got, want)]),
+                      torch.cat([rel(w, w) for w in want]))
+    print(f"  {name} {what}: rel err median {stats['median']:.3e} p99 "
+          f"{stats['p99']:.3e} max {stats['max']:.3e} (bounds "
           f"{LM_LAYER_BOUNDS})")
     for k, b in zip(("median", "p99", "max"), LM_LAYER_BOUNDS):
         if not stats[k] <= b:
-            fail(f"{name}: teacher-forced decode {k} rel err "
-                 f"{stats[k]:.3e} > {b}")
+            fail(f"{name}: {what}: {k} rel err {stats[k]:.3e} > {b}")
     return stats
 
 
@@ -4100,7 +4126,8 @@ def ssm_decode_per_layer(name: str, model, ext, pos_ext, n_prompt: int,
                 decs.append(dec)
                 wants.append(out[:, n:n + 1])
             x = out
-    return layer_gate(name, decs, wants, len(runs), steps)
+    return layer_gate(name, decs, wants, f"decode vs forward, "
+                      f"teacher-forced, {len(runs)} layers x steps {steps}")
 
 
 def recording_engine(model, max_len: int):
@@ -5550,6 +5577,554 @@ def zero_path(card: str) -> dict:
     return dict(ranks=ranks, one=one, seconds=wall)
 
 
+# -- phase 16 --------------------------------------------------------------
+
+# Tensor-parallel compute over the model axis in one gloo world of
+# TP_WORLD on the card (the (2, 2) and (1, 4) meshes of that world),
+# held to one-device runs of the same models in a process of their own:
+# (a) llama3-8b and (b) deepseek-v2-lite-16b (its dense front layer and
+# one MoE layer of 64 experts) on 2 x 2, (c) qwen2-vl-2b with
+# TP_IMAGE patch embeddings and M-RoPE positions on 1 x 4, each at full
+# width and TP_LAYERS layers deep, random weights from a seed: a prefill
+# of LM_BATCH x LM_PROMPT and LM_DECODE decode steps fed the one-device
+# run's greedy tokens; each layer teacher-forced (its one-device input)
+# at LM_LAYER_BOUNDS, the logits end to end at TP_E2E_BOUNDS; (a)
+# also TP_STEPS ZeRO + TP AdamW steps of phase 15 (a)'s batch, and (e)
+# the CoTM head on its pooled prefill states through ``fused_cotm``; (d)
+# ``chunked_attention``'s context-parallel leg on 1 x 4 at TP_CP's
+# shapes, within TP_CP_BOUND of one device (tests/test_sharding.py's
+# bound).  Phase 15 (b) holds one f32 layer of this same train step to
+# one device.
+TP_WORLD, TP_LAYERS, TP_IMAGE = 4, 2, 16
+TP_ARCHS = (("llama3-8b", (2, 2)), ("deepseek-v2-lite-16b", (2, 2)),
+            ("qwen2-vl-2b", (1, 4)))
+TP_STEPS = ZERO_STEPS
+# (shape (B, S, H, D), dtype, q_chunk, k_chunk): the reference test's,
+# and a long bf16 sequence at head_dim 128 with the configs' chunks.
+TP_CP = (((4, 256, 6, 16), torch.float32, 64, 64),
+         ((2, 4096, 6, 128), torch.bfloat16, 512, 2048))
+TP_CP_BOUND = 2e-2
+# (median, p99, max) of |TP - one device| / max |one device| over the
+# prefill's and the 16 steps' logits, and the least share of positions
+# whose argmax agrees, set from TP's own readings on the H100 (700 W):
+# median 3.05e-3 / 3.25e-3 / 1.49e-3, p99 5.15e-2 / 2.60e-2 / 7.25e-2,
+# max 0.192 / 0.0723 / 0.289, argmax 0.882 / 0.956 / 0.927 for (a) /
+# (b) / (c).  Room: about 3x the largest median, 2x the largest p99,
+# 1.5x the largest max.  The max is one logit of 68 x V, where a bf16
+# rounding that TP's other sum order flips has turned the init's nearly
+# one-hot attention to another key; it catches a gross fault (a wrong
+# block or layer moves it to ~1) and no more.  The tight gate is the
+# teacher-forced one (LM_LAYER_BOUNDS), where one layer's rounding, not
+# its propagation, sets the gap.
+TP_E2E_BOUNDS, TP_E2E_ARGMAX = (1e-2, 1.5e-1, 4.5e-1), 0.75
+TP_HEADS_NOTE = (
+    "no full-width config takes this leg on 4 ranks: the ten configs "
+    "have 12, 16, 24, 32, 48 or 64 heads, and each divides a model axis "
+    "of 2 or 4 (the reference takes it for starcoder2's 24 and "
+    "qwen2-vl's 12 heads on its 16-wide axis)")
+
+
+def tp_cfg(name: str):
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    n_front = cfg.moe.first_dense_layers if cfg.moe else 0
+    return dataclasses.replace(cfg, n_layers=max(TP_LAYERS, n_front + 1))
+
+
+def tp_inputs(cfg, index: int, device):
+    """The prompt of (a)-(c): tokens, positions and (vlm) patch
+    embeddings on ``device``."""
+    rng = np.random.default_rng(SEED + 190 + index)
+    n_img = TP_IMAGE if cfg.rope_style == "mrope" else 0
+    return tuple(None if x is None else x.to(device)
+                 for x in lm_inputs(cfg, LM_BATCH, LM_PROMPT, rng, n_img))
+
+
+def tp_walk(model, tokens, positions, extra, max_len: int, fed=None,
+            forced=None, lay=None) -> dict:
+    """A prefill and LM_DECODE decode steps layer by layer, as
+    ``prefill`` / ``decode_step`` run them: each layer's input and output
+    (whole: every row, every position) and the logits (whole over the
+    vocab and the rows).  The steps feed ``fed`` (B, LM_DECODE), else the
+    greedy tokens; with ``forced`` (another walk's record) every layer
+    takes that walk's input to it (teacher forcing).  ``lay`` takes this
+    rank's block of a whole input by logical axes."""
+    from repro_torch.launch.specs import decode_axes, prefill_axes
+    from repro_torch.sharding.layout import all_gather_axis
+    cfg, ctx = model.cfg, model.ctx
+    lay = lay or (lambda t, axes: t)
+    pa, da = prefill_axes(cfg), decode_axes(cfg)
+    B, S = tokens.shape[0], positions.shape[-1]
+    rows = lambda t: ctx.gather_rows(t, B)
+    whole = lambda t: rows(model.gather_vocab(t))
+    blocks = [(p, False) for p in (model.params["front"]
+                                   if "front" in model.params else ())]
+    blocks += [(p, cfg.moe is not None) for p in model.params["layers"]]
+    rec = dict(ins=[], outs=[], dec_ins=[], dec_outs=[], logits=[],
+               fed=[])
+    caches = []
+    pos = lay(positions, pa["positions"])
+    with torch.no_grad():
+        x = model.embed(lay(tokens, pa["tokens"]), None if extra is None
+                        else lay(extra, pa["extra_embeds"]))
+        for i, (p, moe) in enumerate(blocks):
+            if forced is not None:
+                x = lay(forced["ins"][i], ("batch", "seq", None))
+            rec["ins"].append(rows(ctx.gather_seq(x, S)))
+            x, _, c = model._block(p, x, pos, moe_layer=moe,
+                                   fill_len=max_len)
+            rec["outs"].append(rows(ctx.gather_seq(x, S)))
+            caches.append(c)
+        last = x[:, -1:]
+        if ctx.seq_split(S):
+            last = all_gather_axis(last, ctx.mesh, "model", 1)[:, -1:]
+        rec["logits"].append(whole(model.logits(last)))
+        nxt = rec["logits"][0].argmax(-1)
+        for t in range(LM_DECODE):
+            tok = fed[:, t:t + 1] if fed is not None else nxt
+            rec["fed"].append(tok)
+            p_t = lay(positions[..., -1:] + 1 + t, da["positions"])
+            x = model.embed(lay(tok, da["tokens"]))
+            di, do = [], []
+            for i, (p, moe) in enumerate(blocks):
+                if forced is not None:
+                    x = lay(forced["dec_ins"][t][i], ("batch", None, None))
+                di.append(rows(x))
+                x, _, new = model._block(p, x, p_t, moe_layer=moe,
+                                         cache=caches[i])
+                caches[i]["len"] = new["len"]
+                do.append(rows(x))
+            rec["dec_ins"].append(di)
+            rec["dec_outs"].append(do)
+            rec["logits"].append(whole(model.logits(x)))
+            nxt = rec["logits"][-1].argmax(-1)
+    rec["fed"] = torch.cat(rec["fed"], 1)
+    rec["logits"] = torch.cat(rec["logits"], 1)
+    return rec
+
+
+def tp_one_device(rank: int, out_dir: str, device: str = "cuda") -> None:
+    """(a)-(c) on one device, in a process of its own: each model's
+    greedy walk (``tp_walk``) written to ``out_dir`` (``torch.save``); for
+    deepseek also the aux loss of each data shard's rows."""
+    from repro_torch.models import build
+    dev = torch.device(device)
+    for i, (name, shape) in enumerate(TP_ARCHS):
+        cfg = tp_cfg(name)
+        t0 = time.perf_counter()
+        model = build(cfg, device=dev).init(
+            torch.Generator(dev).manual_seed(SEED + 195 + i))
+        tokens, positions, extra = tp_inputs(cfg, i, dev)
+        max_len = positions.shape[-1] + LM_DECODE
+        rec = tp_walk(model, tokens, positions, extra, max_len)
+        if cfg.moe is not None:
+            n = LM_BATCH // shape[0]
+            with torch.no_grad():
+                rec["aux"] = sum(float(model.hidden(
+                    tokens[j * n:(j + 1) * n], positions[j * n:(j + 1) * n]
+                    if positions.ndim == 2 else positions[:, j * n:(j + 1)
+                                                          * n])[1])
+                    for j in range(shape[0])) / shape[0]
+        rec["seconds"] = time.perf_counter() - t0
+        rec["params"] = model.n_params()
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        torch.save(tree_to_cpu(rec), os.path.join(out_dir, f"tp_one_{i}.pt"))
+        del model, rec
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def tree_to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: tree_to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to_cpu(v) for v in tree]
+    return tree.cpu() if isinstance(tree, torch.Tensor) else tree
+
+
+def tp_traffic(fn, weights: set, crossed: list):
+    """-> (fn(), the bytes this rank sent over each mesh axis in it);
+    appends to ``crossed`` each collective over the model axis whose
+    tensor has a shape in ``weights``."""
+    from repro_torch.sharding import layout
+    with layout.record_traffic() as sent:
+        out = fn()
+    crossed += [r for r in sent.calls
+                if r[1] == "model" and r[2] in weights]
+    return out, sent.bytes
+
+
+def weight_shapes(model, ctx) -> set:
+    """The shape of each weight that the rules split over the model axis,
+    whole and as a rank's block (one layer's of a stacked leaf).  (The
+    gradients of the others, partial sums over the axis, are summed over
+    it in a train step.)"""
+    from repro_torch.models.base import leaves
+    out = set()
+    for path, p in leaves(model.decls()):
+        block = ctx.sharding(p.shape, p.axes).shard_shape(p.shape)
+        if block == tuple(p.shape):
+            continue
+        for shape in (p.shape, block):
+            out.add(tuple(shape[1:] if path[0] == "layers" else shape))
+    return out
+
+
+def tp_serve(rank: int, i: int, name: str, mesh, device, one: dict) -> dict:
+    """(a)-(c) on one rank: the TP model (this rank's blocks of the
+    one-device weights: the same draws), the prefill and decode steps
+    timed, held end to end and layer by layer to the one-device walk."""
+    from repro_torch.launch.specs import decode_axes, prefill_axes
+    from repro_torch.models import ShardCtx, build
+    from repro_torch.sharding.rules import merged_rules
+    cfg = tp_cfg(name)
+    ctx = ShardCtx(mesh, merged_rules(mesh))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build(cfg, ctx, device=device).init(
+        torch.Generator(device).manual_seed(SEED + 195 + i))
+    mine = sum(p.numel() for p in model.parameters())
+    init_s = time.perf_counter() - t0
+    tokens, positions, extra = tp_inputs(cfg, i, device)
+    max_len = positions.shape[-1] + LM_DECODE
+    lay = lambda t, axes: ctx.local(t, *axes).to(device)
+    pa, da = prefill_axes(cfg), decode_axes(cfg)
+    weights, crossed = weight_shapes(model, ctx), []
+    B = tokens.shape[0]
+    whole = lambda t: ctx.gather_rows(model.gather_vocab(t), B)
+    fed = one["fed"].to(device)
+    args = (lay(tokens, pa["tokens"]), lay(positions, pa["positions"]),
+            max_len, None if extra is None else lay(extra,
+                                                     pa["extra_embeds"]))
+    with torch.no_grad():
+        model.prefill(*args)          # warm: the first call's set-up
+    # the entry points a user calls, between CUDA events: the prefill,
+    # then the decode steps fed the one-device run's tokens
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    w0 = time.perf_counter()
+    ev[0].record()
+    with torch.no_grad():
+        (logits, cache), pre_bytes = tp_traffic(
+            lambda: model.prefill(*args), weights, crossed)
+    ev[1].record()
+    torch.cuda.synchronize()
+    pre_wall = (time.perf_counter() - w0) * 1e3
+    got = [whole(logits)]
+    step_ms, step_wall, step_bytes = [], [], []
+    last = positions[..., -1:]
+    for t in range(LM_DECODE):
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        w1 = time.perf_counter()
+        e[0].record()
+        with torch.no_grad():
+            (logits, cache), b = tp_traffic(lambda: model.decode_step(
+                cache, lay(fed[:, t:t + 1], da["tokens"]),
+                lay(last + 1 + t, da["positions"])), weights, crossed)
+        e[1].record()
+        torch.cuda.synchronize()
+        step_wall.append((time.perf_counter() - w1) * 1e3)
+        step_ms.append(e[0].elapsed_time(e[1]))
+        step_bytes.append(b)
+        got.append(whole(logits))
+    got = torch.cat(got, 1)
+    res = dict(name=name, mine=mine, full=model.n_params(), init_s=init_s,
+               prefill_ms=ev[0].elapsed_time(ev[1]), prefill_wall_ms=pre_wall,
+               step_ms=step_ms, step_wall_ms=step_wall,
+               prefill_bytes=pre_bytes, step_bytes=step_bytes,
+               crossed=[list(map(str, r)) for r in crossed],
+               greedy=got.argmax(-1).cpu().tolist())
+    forced = tp_walk(model, tokens, positions, extra, max_len, fed=fed,
+                     forced=one, lay=lay)
+    if rank == 0:
+        res["e2e"] = lm_gate(f"phase 16 {name} TP vs one device, prefill "
+                             f"and {LM_DECODE} steps", got.cpu(),
+                             one["logits"], TP_E2E_BOUNDS, TP_E2E_ARGMAX)
+        res["layers"] = layer_gate(
+            f"phase 16 {name}", [x.cpu() for x in forced["outs"]]
+            + [x.cpu() for d in forced["dec_outs"] for x in d],
+            one["outs"] + [x for d in one["dec_outs"] for x in d],
+            f"TP vs one device, teacher-forced, {len(forced['outs'])} "
+            f"layers, the prefill and {LM_DECODE} steps")
+        res["greedy_equal"] = float((got.argmax(-1).cpu()[:, :LM_DECODE]
+                                     == one["fed"]).double().mean())
+    if cfg.moe is not None:
+        with torch.no_grad():
+            _, aux = model.hidden(lay(tokens, pa["tokens"]),
+                                  lay(positions, pa["positions"]))
+        res["aux"] = float(aux)
+    if name == TP_ARCHS[0][0]:
+        res["head"] = tp_head(rank, model, tokens, positions, lay, pa,
+                              device)
+    del model, cache, forced
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return res
+
+
+def tp_head(rank: int, model, tokens, positions, lay, pa, device) -> dict:
+    """(e) the CoTM head on the pooled prefill states, whole over the
+    rows and positions on every rank (``hidden(..., batch=)``), scored
+    through ``fused_cotm`` on rank 0 in its own launch-count window,
+    bit for bit against ``fused_cotm_ref``."""
+    from repro_torch import kernels
+    from repro_torch.models import TMHead, TMHeadConfig, pool_features
+    with torch.no_grad():
+        hidden, _ = model.hidden(lay(tokens, pa["tokens"]),
+                                 lay(positions, pa["positions"]),
+                                 batch=tokens.shape[0])
+    feats = pool_features(hidden)
+    if rank != 0:
+        return {}
+    head = TMHead(TMHeadConfig(), d_features=model.cfg.d_model)
+    hp = tm_head_params(head.cotm_cfg.n_literals, head.cfg.n_clauses,
+                        head.cfg.n_classes, head.cfg.n_states, SEED + 123,
+                        device)
+    kernels.reset_launch_counts()
+    scores, err = head_scores("phase 16 TM head scores", head, hp, feats)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()["fused_cotm_i32"]
+    return dict(launches=launches, err=err, shape=list(feats.shape),
+                nonzero=int((scores != 0).sum()), n=scores.numel())
+
+
+def tp_train(rank: int, mesh, device) -> dict:
+    """(a)'s training: TP_STEPS ZeRO + TP AdamW steps of phase 15 (a)'s
+    batch on llama3-8b x TP_LAYERS, the bytes each step sends, each
+    rank's share of the state and peak memory."""
+    from repro_torch.models import ShardCtx, build, torch_dtype
+    from repro_torch.sharding.rules import merged_rules
+    from repro_torch.train import (AdamWConfig, make_train_step,
+                                   state_shardings, zero_shardings)
+    cfg = zero_cfg("a")
+    torch.cuda.reset_peak_memory_stats()
+    model = build(cfg, ShardCtx(mesh, merged_rules(mesh)), device="meta")
+    psh, gsh = zero_shardings(model, mesh)
+    sh = state_shardings(psh, gsh)
+    opt = AdamWConfig(lr=ZERO_LR, warmup_steps=1,
+                      moment_dtype=torch_dtype(cfg.opt_moment_dtype))
+    state = zero_state(zero_draw(cfg, device, SEED + 180, psh), model, gsh,
+                       opt.moment_dtype, device)
+    mine, full = zero_shard_check(state, sh, model)
+    step = make_train_step(model, opt, gsh, param_shardings=psh,
+                           device=device)
+    if not step.tp:
+        fail("phase 16 (a): the train step does not compute tensor parallel")
+    batch = train_batch(cfg, ZERO_ACCUM, ZERO_BATCH, ZERO_SEQ, SEED + 181)
+    losses, wall_ms, sent, replicas = [], [], [], []
+    weights, crossed = weight_shapes(model, model.ctx), []
+    for i in range(TP_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        (state, metrics), b = tp_traffic(lambda: step(state, batch, i),
+                                         weights, crossed)
+        torch.cuda.synchronize()
+        wall_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(metrics["loss"]))
+        sent.append(b)
+        replicas.append(zero_replicas(state, sh, mesh))
+    out = dict(losses=losses, wall_ms=wall_ms, bytes=sent,
+               replicas=replicas, mine=mine, full=full,
+               crossed=[list(map(str, r)) for r in crossed],
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_context_parallel(mesh, device) -> list[dict]:
+    """(d) ``chunked_attention`` at TP_CP's shapes on ``mesh`` (its model
+    axis does not divide the 6 heads) against one device on the same
+    card tensors, each between CUDA events."""
+    from repro_torch.models import ShardCtx, attention
+    from repro_torch.sharding import layout
+    from repro_torch.sharding.rules import merged_rules
+    ctx = ShardCtx(mesh, merged_rules(mesh))
+    out = []
+    for j, (shape, dtype, cq, ck) in enumerate(TP_CP):
+        gen = torch.Generator(device).manual_seed(SEED + 199 + j)
+        q, k, v = (torch.randn(shape, generator=gen, device=device,
+                               dtype=torch.float32).to(dtype)
+                   for _ in range(3))
+        scale = 1.0 / math.sqrt(shape[-1]) if j else 0.25
+        kw = dict(scale=scale, q_chunk=cq, k_chunk=ck)
+        times = {}
+        for tag, c in (("one", None), ("cp", ctx)) * 2:   # warm, then timed
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            with layout.record_traffic() as sent:
+                ev[0].record()
+                res = (attention.chunked_attention(q, k, v, **kw)
+                       if c is None else
+                       attention.chunked_attention(q, k, v, ctx=c, **kw))
+                ev[1].record()
+                torch.cuda.synchronize()
+            times[tag] = (res, ev[0].elapsed_time(ev[1]), len(sent.calls))
+        err = (times["cp"][0].double() - times["one"][0].double()).abs()
+        out.append(dict(shape=list(shape), dtype=str(dtype), q_chunk=min(
+            cq, shape[1] // ctx.model_size), max_err=float(err.max()),
+            median_err=float(err.median()), cp_ms=times["cp"][1],
+            one_ms=times["one"][1], collectives=times["cp"][2]))
+    return out
+
+
+def tp_rank(rank: int, out_dir: str, device: str = "cuda") -> None:
+    """Phase 16 on one rank of the gloo world: (a)-(e); writes
+    ``tp_rank<rank>.json``."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
+        torch.cuda.set_device(0)
+    meshes = {s: make_debug_mesh(*s, device_type=dev.type)
+              for s in {s for _, s in TP_ARCHS} | {(1, 4)}}
+    res = dict(rank=rank, coordinate={f"{a}x{b}": list(m.get_coordinate())
+                                      for (a, b), m in meshes.items()})
+    for i, (name, shape) in enumerate(TP_ARCHS):
+        one = torch.load(os.path.join(out_dir, f"tp_one_{i}.pt"))
+        res[name] = tp_serve(rank, i, name, meshes[shape], dev, one)
+        del one
+        gc.collect()
+    res["train"] = tp_train(rank, meshes[(2, 2)], dev)
+    res["cp"] = tp_context_parallel(meshes[(1, 4)], dev)
+    with open(os.path.join(out_dir, f"tp_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def gb(b: dict) -> str:
+    return ", ".join(f"{a} {v / 1e9:.4f} GB" for a, v in sorted(b.items()))
+
+
+def tp_path(card: str) -> dict:
+    """Phase 16: tensor-parallel compute in a gloo world of four on the
+    card; -> the results, with the ``fused_cotm`` launches of (e)."""
+    import tempfile
+    from repro_torch.launch.mesh import spawn
+    t0 = time.perf_counter()
+    gc.collect()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        spawn(tp_one_device, 1, tmp, init_method=f"file://{tmp}/store1")
+        ones = [torch.load(os.path.join(tmp, f"tp_one_{i}.pt"))
+                for i in range(len(TP_ARCHS))]
+        t1 = time.perf_counter()
+        spawn(tp_rank, TP_WORLD, tmp, "cuda",
+              init_method=f"file://{tmp}/store4")
+        world_s = time.perf_counter() - t1
+        ranks = [json.load(open(os.path.join(tmp, f"tp_rank{r}.json")))
+                 for r in range(TP_WORLD)]
+    r0 = ranks[0]
+    for i, (name, shape) in enumerate(TP_ARCHS):
+        cfg, one, a = tp_cfg(name), ones[i], r0[name]
+        tag = "abc"[i]
+        print(f"phase 16 ({tag}) {name} x {cfg.n_layers} layers at full "
+              f"width (d {cfg.d_model}, heads {cfg.n_heads}/"
+              f"{cfg.n_kv_heads}, V {cfg.vocab}), {a['full']:,} "
+              f"parameters, on {shape[0]} x {shape[1]}: prefill "
+              f"{LM_BATCH} x {LM_PROMPT}"
+              + (f" + {TP_IMAGE} patch embeddings" if cfg.rope_style
+                 == "mrope" else "")
+              + f", {LM_DECODE} decode steps fed the one-device tokens "
+              f"(one device: {one['seconds']:.1f} s, peak "
+              f"{one['peak_gib']:.2f} GiB); {card}")
+        e, l = a["e2e"], a["layers"]
+        print(f"  rank 0's gates: layers teacher-forced vs one device "
+              f"max {l['max']:.3e} (bounds {LM_LAYER_BOUNDS}), end to end "
+              f"median {e['median']:.3e} p99 {e['p99']:.3e} max "
+              f"{e['max']:.3e} (bounds {TP_E2E_BOUNDS}); greedy tokens of "
+              f"the TP logits equal one device's at "
+              f"{a['greedy_equal']:.4f} of {LM_BATCH * LM_DECODE}: "
+              + str(a["greedy"][0][:LM_DECODE]))
+        for r in ranks:
+            x = r[name]
+            print(f"  rank {r['rank']}: holds {x['mine']:,} of "
+                  f"{x['full']:,} parameters "
+                  f"({100 * x['mine'] / x['full']:.1f}%), peak "
+                  f"{x['peak_gib']:.2f} GiB; prefill {x['prefill_ms']:.2f}"
+                  f" ms CUDA events / {x['prefill_wall_ms']:.2f} ms host "
+                  f"wall, sent {gb(x['prefill_bytes'])}; decode step "
+                  f"median {statistics.median(x['step_ms']):.3f} ms / "
+                  f"{statistics.median(x['step_wall_ms']):.3f} ms host, "
+                  f"sent {gb(x['step_bytes'][-1])} a step")
+            if x["mine"] >= x["full"]:
+                fail(f"phase 16 ({tag}): rank {r['rank']} holds every "
+                     f"parameter")
+        if cfg.moe is not None:
+            auxes = [r[name]["aux"] for r in ranks]
+            print(f"  aux loss (per data shard, averaged over the data "
+                  f"axis) {auxes[0]:.6f} on every rank vs one device's "
+                  f"mean of its two row halves {one['aux']:.6f}")
+            if len(set(auxes)) != 1 or not abs(
+                    auxes[0] - one["aux"]) <= 1e-2 * abs(one["aux"]):
+                fail(f"phase 16 ({tag}): aux {auxes} vs {one['aux']}")
+    greedy = {json.dumps(r[n]["greedy"]) for r in ranks for n, _ in
+              TP_ARCHS[:1]}
+    if len(greedy) != 1:
+        fail("phase 16: ranks disagree on the greedy tokens")
+
+    t = r0["train"]
+    print(f"phase 16 (a) training: {TRAIN_ARCH} x {ZERO_LAYERS} layers, "
+          f"{TP_STEPS} ZeRO + TP steps of {ZERO_ACCUM} x {ZERO_BATCH} x "
+          f"{ZERO_SEQ} on 2 x 2: losses "
+          + ", ".join(f"{x:.4f}" for x in t["losses"])
+          + "; (phase 15 (b) holds one f32 layer of this step to one "
+          f"device); {card}")
+    for r in ranks:
+        x = r["train"]
+        print(f"  rank {r['rank']}: holds {x['mine']:,} of {x['full']:,} "
+              f"state elements ({100 * x['mine'] / x['full']:.1f}%), peak "
+              f"{x['peak_gib']:.2f} GiB, steps "
+              + ", ".join(f"{w:.0f}" for w in x["wall_ms"])
+              + " ms host wall, sent " + "; ".join(gb(b) for b in
+                                                  x["bytes"])
+              + "; replicated shards: " + "; ".join(
+                  f"{s} leaves, {p} pairs, {d} differ"
+                  for s, p, d in x["replicas"]))
+    losses = [r["train"]["losses"] for r in ranks]
+    if any(x != losses[0] for x in losses) or not losses[0][-1] < \
+            losses[0][0]:
+        fail(f"phase 16 (a): losses {losses}")
+    if any(d for r in ranks for _, _, d in r["train"]["replicas"]):
+        fail("phase 16 (a): replicated shards differ across ranks")
+    crossed = [(r["rank"], k, r[k]["crossed"]) for r in ranks
+               for k in [n for n, _ in TP_ARCHS] + ["train"]
+               if r[k]["crossed"]]
+    print(f"phase 16: collectives over the model axis with a weight's "
+          f"shape (whole or a block) in every prefill, decode step and "
+          f"train step of (a)-(c) on every rank: {len(crossed)}")
+    if crossed:
+        fail(f"phase 16: a weight crossed the model axis: {crossed[:4]}")
+
+    for c in r0["cp"]:
+        print(f"phase 16 (d) chunked_attention {tuple(c['shape'])} "
+              f"{c['dtype']} context parallel on 1 x 4 (q_chunk "
+              f"{c['q_chunk']}, one all-gather: {c['collectives']} "
+              f"collective) vs one device: max abs err {c['max_err']:.3e}, "
+              f"median {c['median_err']:.3e} (bound {TP_CP_BOUND}); "
+              f"{c['cp_ms']:.3f} ms a rank vs {c['one_ms']:.3f} ms one "
+              f"device, CUDA events; {TP_HEADS_NOTE}")
+        if not c["max_err"] < TP_CP_BOUND or c["collectives"] != 1:
+            fail(f"phase 16 (d): {c}")
+    h = r0[TP_ARCHS[0][0]]["head"]
+    print(f"phase 16 (e) TM head on the pooled TP prefill states "
+          f"{tuple(h['shape'])}: fused_cotm launched {h['launches']} "
+          f"time(s) in the window, scores bitwise equal to "
+          f"fused_cotm_ref ({h['nonzero']} nonzero of {h['n']})")
+    if h["launches"] == 0:
+        fail("phase 16 (e): fused_cotm was never launched on the TP path")
+    wall = time.perf_counter() - t0
+    print(f"phase 16: tensor-parallel path done in {wall:.1f} s (the world "
+          f"{world_s:.1f} s); {card}")
+    return dict(ranks=ranks, seconds=wall, launches=h["launches"],
+                err=h["err"])
+
+
 def kernel_resources(source: str) -> list[str]:
     """Each kernel of ``source`` with its registers, shared memory and
     spills, from the build's ``nvcc --resource-usage`` report."""
@@ -5642,6 +6217,9 @@ def main() -> int:
     # phases hold.
     del served, trained, compressed, coresident, _
     zero_path(card)
+    tp = tp_path(card)
+    head_row["launches"] += tp["launches"]
+    head_row["max_abs_err"] = max(head_row["max_abs_err"], tp["err"])
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,10 @@ for the same seed, bit for bit.  ``train_batch_specs`` gives the batch
 tree of a training cell with its leading accumulation axis, as ``meta``
 tensors by default (shapes and dtypes, nothing allocated), and
 ``train_batch_axes`` its logical axes, by which the ZeRO train step
-splits the batch over the data axes.  The reference's prefill / decode
-specs and axes, the dry run and the HLO checks stay in ROADMAP.
+splits the batch over the data axes; ``prefill_axes`` / ``decode_axes``
+lay out the inputs of a tensor-parallel prefill and decode step (each
+rank passes its block, ``ShardCtx.local``).  The reference's prefill /
+decode specs, the dry run and the HLO checks stay in ROADMAP.
 """
 from __future__ import annotations
 
@@ -50,6 +52,29 @@ def train_batch_axes(cfg: ModelConfig) -> dict:
                 "extra_embeds": (None, "batch", None, None),
                 "positions": (None, None, "batch", None)}
     return {"tokens": (None, "batch", None)}
+
+
+def prefill_axes(cfg: ModelConfig) -> dict:
+    """Logical axes of a prefill's inputs (the reference's
+    ``launch/specs.py:101``)."""
+    if cfg.modality == "audio":
+        return {"tokens": ("batch", None, None),
+                "positions": ("batch", None)}
+    if cfg.modality == "vlm":
+        return {"tokens": ("batch", None),
+                "extra_embeds": ("batch", None, None),
+                "positions": (None, "batch", None)}
+    return {"tokens": ("batch", None), "positions": ("batch", None)}
+
+
+def decode_axes(cfg: ModelConfig) -> dict:
+    """Logical axes of a decode step's tokens and positions (the
+    reference's ``launch/specs.py:112``)."""
+    tok = (("batch", None, None) if cfg.modality == "audio"
+           else ("batch", None))
+    pos = ((None, "batch", None) if cfg.rope_style == "mrope"
+           else ("batch", None))
+    return {"tokens": tok, "positions": pos}
 
 
 def synth_tokens(cfg: ModelConfig, batch: int, seq: int,

@@ -23,8 +23,15 @@ are the reference's.  ``ShardCtx`` resolves them to mesh layouts
 (``sharding.layout.Sharding``) through a rule table
 (``sharding.rules``): the ZeRO train step (``train.step``) lays out the
 parameters, moments and gradients by them.  A model keeps its ctx
-(``build(cfg, ctx)``), but computes on one device or, in a sharded step,
-on each data group's gathered weights: its layers call no ``constrain``.
+(``build(cfg, ctx)``).  A ``StackedLM`` whose class computes tensor
+parallel (``tensor_parallel``: the transformer family) built on a mesh
+holds each weight as this rank's block over the ``"model"`` axis and
+computes on the blocks: its layers move their activations at the
+reference's constraint points with the explicit collectives of
+``sharding.layout`` (``ShardCtx.gather_seq`` / ``scatter_seq`` and the
+legs in ``attention.py`` / ``ffn.py``).  Every method then takes and
+returns this rank's batch rows.  The other families compute on one
+device, or in a sharded step on each data group's gathered weights.
 """
 from __future__ import annotations
 
@@ -40,7 +47,8 @@ from torch import nn
 
 from ..device import resolve_device
 from ..launch.mesh import axis_sizes
-from ..sharding.layout import Sharding, entry_names
+from ..sharding.layout import (Sharding, all_gather_axis, all_reduce_axis,
+                               entry_names, reduce_scatter_axis)
 from .config import torch_dtype
 
 Tree = Any
@@ -193,11 +201,13 @@ class ShardCtx:
     def constrain(self, x, *axes: str | None):
         """Lay ``x`` out by ``axes``: a DTensor is redistributed to the
         spec's placements; a plain tensor, or any tensor without a mesh,
-        is returned as it is.  In the ZeRO train step each data group
-        computes its microbatch on the gathered weights, so the model's
-        activations are plain local tensors there and the reference's
-        constraint points have nothing to move (its tensor-parallel
-        compute is not ported)."""
+        is returned as it is.  The tensor-parallel models hold their
+        activations as plain local shards and move them at the
+        reference's constraint points with explicit collectives
+        (``gather_seq`` / ``scatter_seq``, ``sharding.layout``): DTensor
+        has no sharding strategy for the MoE dispatch's argsort /
+        scatter_add / gather, and three of the reference's four mesh
+        mechanisms are explicit ``shard_map`` s."""
         if self.mesh is None:
             return x
         from torch.distributed.tensor import DTensor
@@ -210,6 +220,105 @@ class ShardCtx:
         """A ``Sharding`` (None without a mesh) for every leaf of a
         declaration tree."""
         return tree_map(lambda p: self.sharding(p.shape, p.axes), decls)
+
+    # -- what the tensor-parallel layers read ------------------------------
+    @property
+    def sizes(self) -> dict[str, int]:
+        return {} if self.mesh is None else axis_sizes(self.mesh)
+
+    @property
+    def model_size(self) -> int:
+        """The size of the ``"model"`` axis (1 without a mesh)."""
+        return self.sizes.get("model", 1)
+
+    @property
+    def data_axes(self) -> tuple[str, ...]:
+        """The mesh's data axes, ``("pod", "data")`` or ``("data",)``."""
+        return tuple(a for a in ("pod", "data") if a in self.sizes)
+
+    def coordinate(self) -> dict[str, int]:
+        """Axis name -> this rank's index on it (empty without a mesh)."""
+        if self.mesh is None:
+            return {}
+        return dict(zip(self.sizes, (int(c) for c in
+                                     self.mesh.get_coordinate())))
+
+    @property
+    def model_rank(self) -> int:
+        return self.coordinate().get("model", 0)
+
+    def shards(self, n: int, axis: str) -> bool:
+        """Whether a dim of ``n`` with the logical axis ``axis`` (leading,
+        no earlier dim on the model axis) is split over ``"model"``."""
+        m = self.model_size
+        return (m > 1 and "model" in entry_names(self.rules.get(axis))
+                and n % m == 0)
+
+    def model_spec(self, shape, axes) -> tuple:
+        """``spec`` with only its ``"model"`` entries: the block a
+        tensor-parallel model holds (whole over the data axes)."""
+        return tuple("model" if "model" in entry_names(e) else None
+                     for e in self.spec(tuple(shape), tuple(axes)))
+
+    def local(self, x: torch.Tensor, *axes: str | None) -> torch.Tensor:
+        """This rank's block (a view) of the full tensor ``x`` laid out by
+        the logical ``axes``; ``x`` without a mesh."""
+        if self.mesh is None:
+            return x
+        return self.sharding(x.shape, axes).local(x)
+
+    def seq_split(self, S: int) -> bool:
+        """Whether a sequence of ``S`` positions is split over the model
+        axis at the layer boundaries (``act_rules``' ``"seq"``)."""
+        return self.shards(S, "seq")
+
+    def gather_seq(self, x: torch.Tensor, S: int) -> torch.Tensor:
+        """The sequence-parallel all-gather: this rank's positions of a
+        sequence of ``S`` (dim 1) -> all ``S`` of them, on every rank of
+        the model axis."""
+        if not self.seq_split(S):
+            return x
+        return all_gather_axis(x, self.mesh, "model", 1)
+
+    def scatter_seq(self, y: torch.Tensor, partial: bool) -> torch.Tensor:
+        """``y`` (B, S, ...) whole over the sequence to the layer
+        boundary's layout ``("batch", "seq", None)``: a partial sum over
+        the model axis (a row-parallel product's output) is
+        reduce-scattered, or all-reduced where S does not split; a tensor
+        every model rank holds in full is cut to this rank's positions."""
+        if self.mesh is None:
+            return y
+        S = y.shape[1]
+        if self.seq_split(S):
+            if partial:
+                return reduce_scatter_axis(y, self.mesh, "model", 1)
+            n = S // self.model_size
+            return y.narrow(1, self.model_rank * n, n)
+        return all_reduce_axis(y, self.mesh, "model") if partial else y
+
+    def as_partial(self, y: torch.Tensor) -> torch.Tensor:
+        """A tensor every model rank holds in full, as a partial sum over
+        the model axis (itself on model rank 0, zeros on the others), to
+        add to a row-parallel product's output."""
+        return y if self.model_rank == 0 else torch.zeros_like(y)
+
+    def mean_data(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean of ``x`` over the data axes (the reference's ``pmean``
+        over them)."""
+        n = math.prod(self.sizes[a] for a in self.data_axes)
+        if n == 1:
+            return x
+        return all_reduce_axis(x, self.mesh, self.data_axes) / n
+
+    def gather_rows(self, x: torch.Tensor, batch: int) -> torch.Tensor:
+        """This rank's rows (dim 0) of a batch of ``batch`` rows laid out
+        by ``"batch"`` -> all of them."""
+        if self.mesh is None:
+            return x
+        entry = self.spec((batch,), ("batch",))[0]
+        for a in reversed(entry_names(entry)):
+            x = all_gather_axis(x, self.mesh, a, 0)
+        return x
 
 
 NULL_CTX = ShardCtx(None)
@@ -226,24 +335,39 @@ class ParamTree(nn.Module):
     ``"w_gate" in p``."""
 
     def __init__(self, decls: dict, device: torch.device,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None, specs: dict | None = None):
         super().__init__()
+        # name -> the spec of this rank's block over the model axis, for
+        # each parameter of a tensor-parallel model (``model_split``)
+        self.specs = {}
         for name, d in decls.items():
+            s = None if specs is None else specs[name]
             if isinstance(d, P):
+                if s is not None:
+                    self.specs[name] = s
                 self.register_parameter(name, nn.Parameter(
                     torch.empty(d.shape, dtype=dtype or d.dtype,
                                 device=device), requires_grad=False))
             elif isinstance(d, dict):
-                self.add_module(name, ParamTree(d, device, dtype))
+                self.add_module(name, ParamTree(d, device, dtype, s))
             else:
                 self.add_module(name, nn.ModuleList(
-                    ParamTree(x, device, dtype) for x in d))
+                    ParamTree(x, device, dtype, None if s is None else s[i])
+                    for i, x in enumerate(d)))
 
     def __getitem__(self, name: str):
         return getattr(self, name)
 
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
+
+
+def model_split(p, name: str, dim: int) -> bool:
+    """Whether parameter ``name`` of the ``ParamTree`` ``p`` is this
+    rank's block over the model axis along ``dim`` (False on one device,
+    or for a plain dict of tensors)."""
+    spec = p.specs.get(name) if isinstance(p, ParamTree) else None
+    return spec is not None and spec[dim] == "model"
 
 
 def init_leaf(t: torch.Tensor, p: P, generator: torch.Generator) -> None:
@@ -343,6 +467,16 @@ def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor,
     logits = logits[:, :-1]
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+    return loss_terms(nll, torch.logsumexp(logits, dim=-1), mask)
+
+
+def loss_terms(nll: torch.Tensor, lse: torch.Tensor,
+               mask: torch.Tensor | None = None,
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(the mean of the next-token ``nll`` (B, S - 1[, C]) over ``mask``
+    (B, S) (all positions without one), the z-loss of the softmax
+    normalizers ``lse``): the tail of ``next_token_loss`` and of the
+    vocab-parallel loss (``TransformerLM._vocab_parallel_loss``)."""
     if mask is not None:
         mask = mask[:, 1:].to(torch.float32)
         if nll.ndim == 3:                            # audio codebooks
@@ -351,7 +485,7 @@ def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor,
     else:
         ce = nll.mean()
     # z-loss keeps the softmax normalizer bounded (stability at scale).
-    zl = 1e-4 * torch.square(torch.logsumexp(logits, dim=-1)).mean()
+    zl = 1e-4 * torch.square(lse).mean()
     return ce, zl
 
 
@@ -366,7 +500,17 @@ class StackedLM(nn.Module):
     (``repro_torch.convert.lm_params_from_arrays``).  Built with
     ``device=None`` it lives on ``cuda`` (raising without a card);
     ``"meta"`` allocates nothing.  Parameters start uninitialized: fill
-    them with ``init`` or copy them in."""
+    them with ``init`` or copy them in.
+
+    A class with ``tensor_parallel`` built with a ``ctx`` on a mesh is
+    tensor parallel: each parameter is this rank's block under
+    ``ctx.model_spec`` (the ``"model"`` entries of ``ctx.spec``: whole
+    over the data axes), ``init`` draws each full leaf as one device does
+    and keeps the block, ``load_tree`` / ``bound`` take a leaf at its
+    full shape (and keep its block) or at the block's, and ``tree`` gives
+    the blocks."""
+
+    tensor_parallel = False
 
     def __init__(self, cfg, ctx: ShardCtx = NULL_CTX, *,
                  device: str | torch.device | None = None):
@@ -375,12 +519,30 @@ class StackedLM(nn.Module):
         self.ctx = ctx
         dev = resolve_device(device)
         decls = self.decls()
+        self.tp = self.tensor_parallel and ctx.mesh is not None
+        # leaf path -> Sharding of this rank's block (tensor parallel)
+        self._blocks = ({path: Sharding(ctx.mesh, ctx.model_spec(
+            p.shape, p.axes)) for path, p in leaves(decls)}
+            if self.tp else {})
+
+        def local(path, p):
+            if not self.tp:
+                return p
+            return P(self._blocks[path].shard_shape(p.shape), p.axes,
+                     p.dtype, p.init, p.scale)
+        decls = tree_map(local, decls, with_path=True)
+        specs = (tree_map(lambda path, _: self._blocks[path].spec, decls,
+                          with_path=True) if self.tp else None)
         tree = {k: v for k, v in decls.items() if k != "layers"}
         n = next(leaves(decls["layers"]))[1].shape[0]
         one = tree_map(lambda p: P(p.shape[1:], p.axes[1:], p.dtype, p.init,
                                    p.scale), decls["layers"])
         tree["layers"] = [one] * n
-        self.params = ParamTree(tree, dev, torch_dtype(cfg.param_dtype))
+        if specs is not None:       # a spec tuple is a leaf of tree_map
+            specs = {k: v for k, v in specs.items() if k != "layers"} | {
+                "layers": [tree_map(lambda sp: sp[1:], specs["layers"])] * n}
+        self.params = ParamTree(tree, dev, torch_dtype(cfg.param_dtype),
+                                specs)
 
     def decls(self) -> dict:
         raise NotImplementedError
@@ -404,16 +566,29 @@ class StackedLM(nn.Module):
     def init(self, generator: torch.Generator):
         """Draw every parameter from ``generator`` (on the model's device),
         leaf by leaf in the tree's order, each stacked leaf layer by layer,
-        with the reference's init rule (``P.std`` of the stacked leaf)."""
+        with the reference's init rule (``P.std`` of the stacked leaf).
+        Tensor parallel, each layer's full leaf is drawn (the same values
+        as on one device) and this rank's block kept."""
         for path, p in leaves(self.decls()):
             t = self.leaf(path)
-            for x in t if path[0] == "layers" else [t]:
-                init_leaf(x, p, generator)
+            stacked = path[0] == "layers"
+            shape = p.shape[1:] if stacked else p.shape
+            for x in t if stacked else [t]:
+                if tuple(x.shape) == shape:
+                    init_leaf(x, p, generator)
+                    continue
+                full = torch.empty(shape, dtype=x.dtype, device=x.device)
+                init_leaf(full, p, generator)
+                spec = self._blocks[path].spec[1 if stacked else 0:]
+                with torch.no_grad():
+                    x.copy_(Sharding(self.ctx.mesh, spec).local(full))
+                del full
         return self
 
     def tree(self) -> dict:
         """The reference's parameter tree as tensors on the model's
-        device, ``"layers"`` stacked: a copy, detached from the module."""
+        device, ``"layers"`` stacked: a copy, detached from the module
+        (tensor parallel: this rank's blocks)."""
         def get(path, _):
             t = self.leaf(path)
             if path[0] == "layers":
@@ -425,7 +600,8 @@ class StackedLM(nn.Module):
         """(module, parameter name, tensor) for each parameter, from a
         tree in the reference's layout: a stacked leaf is split into its
         layers (``unbind``).  Raises unless the tree's paths and shapes
-        are the declarations'."""
+        are the declarations' (tensor parallel: a leaf at its full shape
+        gives its block, a view; or it is the block already)."""
         want = dict(leaves(self.decls()))
         got = list(leaves(dict(tree)))
         paths = {path for path, _ in got}
@@ -435,10 +611,17 @@ class StackedLM(nn.Module):
                 f"declarations: missing "
                 f"{sorted(map(str, set(want) - paths))}, extra "
                 f"{sorted(map(str, paths - set(want)))}")
-        for path, t in got:
-            if tuple(t.shape) != want[path].shape:
+        for i, (path, t) in enumerate(got):
+            full = want[path].shape
+            block = (self._blocks[path].shard_shape(full) if self.tp
+                     else full)
+            if tuple(t.shape) == full and block != full:
+                got[i] = (path, self._blocks[path].local(t))
+            elif tuple(t.shape) != block:
                 raise ValueError(f"{path}: shape {tuple(t.shape)}, "
-                                 f"declared {want[path].shape}")
+                                 f"declared {full}" + (
+                                     f" (this rank's block {block})"
+                                     if self.tp else ""))
         for path, t in got:
             if path[0] == "layers":
                 for layer, x in zip(self.params["layers"], t.unbind(0)):

@@ -1,5 +1,5 @@
 """Feed-forward layers: gated dense MLP and mixture-of-experts (the port
-of ``repro.models.ffn``, single-device path).
+of ``repro.models.ffn``).
 
 MoE dispatch is sort-based (no (tokens, E, C) one-hot products): entries
 are ranked within their expert by a stable argsort and a running count,
@@ -7,8 +7,17 @@ dropped beyond capacity into the drop bin ``E*C``, scatter-added into a
 (B, E*C, d) buffer, processed by batched expert matmuls and gathered back.
 Compute therefore tracks the active experts (x capacity factor).
 
-Not ported here (it needs a mesh): the reference's expert-parallel
-``_routed_ep``.
+On a mesh (``ctx``, a tensor-parallel model's ``ShardCtx``) the layers
+take their input whole over the sequence on every rank of the model axis
+and return it at ``("batch", "seq", None)``.  The MLP is column-parallel
+(up / gate) and row-parallel (down), its partial sums reduce-scattered.
+The MoE dispatch stays group-local on the data shard.  Where the experts
+divide the model axis, ``_routed_ep`` (the reference's expert-parallel
+``shard_map``): each rank runs its E / model experts, combines the
+slots they own, and one reduce of (B, S, d) over the model axis (with
+the shared experts' partial sums) completes the output; else
+``_routed`` with the expert hidden dim ("moe_mlp") split where it
+divides the axis (grok's 8 experts on a 16-wide axis).
 """
 from __future__ import annotations
 
@@ -17,7 +26,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .base import ACTIVATIONS, P, dense
+from .base import ACTIVATIONS, NULL_CTX, P, ShardCtx, dense, model_split
 from .config import ModelConfig, MoEConfig
 
 
@@ -35,12 +44,21 @@ def decls_mlp(d_model: int, d_ff: int, gated: bool = True) -> dict:
     return decls
 
 
-def mlp_forward(p, x: torch.Tensor, act: str) -> torch.Tensor:
+def _mlp(p, x: torch.Tensor, act: str) -> torch.Tensor:
     if "w_gate" in p:
         h = ACTIVATIONS[act](dense(x, p["w_gate"])) * dense(x, p["w_up"])
     else:
         h = ACTIVATIONS[act](dense(x, p["w_up"]))
     return dense(h, p["w_down"])
+
+
+def mlp_forward(p, x: torch.Tensor, act: str, *,
+                ctx: ShardCtx = NULL_CTX) -> torch.Tensor:
+    """x (B, S, d) -> (B, S, d).  On a mesh (the reference's
+    ``ffn.py:48-50``): column-parallel up / gate and row-parallel down on
+    this rank's block of the hidden dim, the partial sums
+    reduce-scattered to the sequence shard."""
+    return ctx.scatter_seq(_mlp(p, x, act), model_split(p, "w_down", 0))
 
 
 # ---------------------------------------------------------------------------
@@ -70,23 +88,48 @@ def _capacity(tokens_per_group: int, moe: MoEConfig) -> int:
 MOE_GROUP_TOKENS = 4096   # dispatch-group size: bounds the (G,E,C,d) buffers
 
 
-def moe_forward(p, x: torch.Tensor,
-                cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+def _ep_sharded(cfg: ModelConfig, ctx: ShardCtx) -> bool:
+    """The reference's ``_ep_sharded``: the experts divide the model axis
+    (expert parallelism, ``_routed_ep``)."""
+    m = ctx.model_size
+    return m > 1 and cfg.moe.n_experts % m == 0
+
+
+def moe_forward(p, x: torch.Tensor, cfg: ModelConfig, *,
+                ctx: ShardCtx = NULL_CTX
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (out (B, S, d), aux load-balance loss scalar).
 
     Dispatch groups are ``MOE_GROUP_TOKENS``-token sequence slices when S
     is a multiple of it (GShard-style per-group capacity), else the whole
-    sequence."""
+    sequence.  On a mesh (the reference's ``ffn.py:89-118``): ``_routed_ep``
+    where ``_ep_sharded``, else ``_routed``; the routed experts' and the
+    shared experts' outputs are added as partial sums over the model axis
+    and reduced once to ``("batch", "seq", None)``."""
     B, S, d = x.shape
     G = MOE_GROUP_TOKENS
+    routed = _routed_ep if _ep_sharded(cfg, ctx) else _routed
     if S > G and S % G == 0:
-        out, aux = _routed(p, x.reshape(B * (S // G), G, d), cfg)
+        out, aux = routed(p, x.reshape(B * (S // G), G, d), cfg, ctx)
         out = out.reshape(B, S, d)
     else:
-        out, aux = _routed(p, x, cfg)
+        out, aux = routed(p, x, cfg, ctx)
+    if ctx.mesh is None:
+        if cfg.moe.n_shared:
+            out = out + _mlp(p["shared"], x, cfg.act)
+        return out, aux
+    partial = model_split(p, "w_gate", 0) or model_split(p, "w_gate", 2)
     if cfg.moe.n_shared:
-        out = out + mlp_forward(p["shared"], x, cfg.act)
-    return out, aux
+        shared = _mlp(p["shared"], x, cfg.act)
+        if model_split(p["shared"], "w_down", 0) != partial:
+            # the one that every rank holds whole, as a partial sum
+            if partial:
+                shared = ctx.as_partial(shared)
+            else:
+                out = ctx.as_partial(out)
+            partial = True
+        out = out + shared
+    return ctx.scatter_seq(out, partial), aux
 
 
 def _dispatch_plan(x: torch.Tensor, router: torch.Tensor, moe: MoEConfig):
@@ -119,39 +162,89 @@ def _dispatch_plan(x: torch.Tensor, router: torch.Tensor, moe: MoEConfig):
     return probs, top_p, top_e, keep, slot, C
 
 
-def _routed(p, x: torch.Tensor,
-            cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
-    moe = cfg.moe
-    B, S, d = x.shape
-    E, K = moe.n_experts, moe.top_k
-    probs, top_p, top_e, keep, slot, C = _dispatch_plan(x, p["router"], moe)
+def _experts(p, buf: torch.Tensor, act: str) -> torch.Tensor:
+    """The expert FFN batched over E: buf (B, E, C, d) -> (B, E, C, d)."""
+    h = (ACTIVATIONS[act](
+            torch.einsum("becd,edf->becf", buf, p["w_gate"].to(buf.dtype)))
+         * torch.einsum("becd,edf->becf", buf, p["w_up"].to(buf.dtype)))
+    return torch.einsum("becf,efd->becd", h, p["w_down"].to(buf.dtype))
 
-    # dispatch: scatter tokens into the (B, E*C + drop bin, d) buffer.  A
-    # kept slot receives exactly one token, so the adds are exact.
+
+def _dispatch(x: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
+              E: int, C: int) -> torch.Tensor:
+    """Scatter the tokens into the (B, E, C, d) buffer.  A kept slot
+    receives exactly one token, so the adds are exact."""
+    B, S, d = x.shape
     buf = torch.zeros((B, E * C + 1, d), dtype=x.dtype, device=x.device)
-    for j in range(K):
+    for j in range(slot.shape[-1]):
         buf.scatter_add_(1, slot[:, :, j, None].expand(B, S, d),
                          x * keep[:, :, j:j + 1].to(x.dtype))
-    buf = buf[:, :E * C].reshape(B, E, C, d)
+    return buf[:, :E * C].reshape(B, E, C, d)
 
-    # expert FFN, batched over E
-    h = (ACTIVATIONS[cfg.act](
-            torch.einsum("becd,edf->becf", buf, p["w_gate"].to(x.dtype)))
-         * torch.einsum("becd,edf->becf", buf, p["w_up"].to(x.dtype)))
-    out_buf = torch.einsum("becf,efd->becd", h, p["w_down"].to(x.dtype))
-    out_flat = torch.cat([out_buf.reshape(B, E * C, d),
-                          x.new_zeros((B, 1, d))], dim=1)     # drop bin
 
-    # combine: gather own slots, weight by the router probabilities
-    out = torch.zeros((B, S, d), dtype=x.dtype, device=x.device)
+def _combine(out_flat: torch.Tensor, slot: torch.Tensor,
+             weight: torch.Tensor) -> torch.Tensor:
+    """sum_j out_flat[slot_j] * weight_j: out_flat (B, n + 1, d) with the
+    drop bin last, slot / weight (B, S, K) -> (B, S, d)."""
+    B, S, K = slot.shape
+    d = out_flat.shape[-1]
+    out = torch.zeros((B, S, d), dtype=out_flat.dtype,
+                      device=out_flat.device)
     for j in range(K):
         gathered = torch.gather(out_flat, 1,
                                 slot[:, :, j, None].expand(B, S, d))
-        w = (top_p[:, :, j] * keep[:, :, j]).to(x.dtype)
-        out = out + gathered * w[:, :, None]
+        out = out + gathered * weight[:, :, j, None].to(out_flat.dtype)
+    return out
 
-    # aux load-balance loss (Switch/GShard style)
-    me = probs.mean(dim=(0, 1))                               # (E,)
-    assign = F.one_hot(top_e[..., 0], E).to(torch.float32).mean(dim=(0, 1))
-    aux = moe.aux_loss_weight * E * torch.sum(me * assign)
-    return out, aux
+
+def _aux(probs: torch.Tensor, top_e: torch.Tensor, moe: MoEConfig,
+         mean=lambda t: t) -> torch.Tensor:
+    """The Switch / GShard load-balance loss; ``mean`` averages the two
+    batch means over the data axes (the reference's global means)."""
+    E = moe.n_experts
+    me = mean(probs.mean(dim=(0, 1)))                         # (E,)
+    assign = mean(F.one_hot(top_e[..., 0], E).to(torch.float32)
+                  .mean(dim=(0, 1)))
+    return moe.aux_loss_weight * E * torch.sum(me * assign)
+
+
+def _routed(p, x: torch.Tensor, cfg: ModelConfig, ctx: ShardCtx = NULL_CTX
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """All experts on every rank of the model axis (the reference's
+    ``_routed``, ``ffn.py:211``); on a mesh their hidden dim is this rank's block
+    where ``"moe_mlp"`` splits it (the output then a partial sum over the
+    model axis), and the aux loss's batch means are taken over the data
+    axes too, as GSPMD takes them."""
+    moe = cfg.moe
+    E = moe.n_experts
+    probs, top_p, top_e, keep, slot, C = _dispatch_plan(x, p["router"], moe)
+    out_buf = _experts(p, _dispatch(x, slot, keep, E, C), cfg.act)
+    B, d = x.shape[0], x.shape[-1]
+    out_flat = torch.cat([out_buf.reshape(B, E * C, d),
+                          x.new_zeros((B, 1, d))], dim=1)     # drop bin
+    out = _combine(out_flat, slot, top_p * keep)
+    mean = (lambda t: t) if ctx.mesh is None else ctx.mean_data
+    return out, _aux(probs, top_e, moe, mean)
+
+
+def _routed_ep(p, x: torch.Tensor, cfg: ModelConfig, ctx: ShardCtx
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's expert-parallel ``_routed_ep`` (``ffn.py:149``):
+    every rank of the model axis routes its data shard's tokens, runs its
+    E / model local experts [lo, lo + e_loc) and combines only the slots
+    in [lo C, (lo + e_loc) C) -> (a partial sum over the model axis, the
+    aux loss averaged over the data axes)."""
+    moe = cfg.moe
+    E = moe.n_experts
+    e_loc = E // ctx.model_size
+    lo = ctx.model_rank * e_loc
+    probs, top_p, top_e, keep, slot, C = _dispatch_plan(x, p["router"], moe)
+    buf = _dispatch(x, slot, keep, E, C)[:, lo:lo + e_loc]
+    out_loc = _experts(p, buf, cfg.act)                  # (B, e_loc, C, d)
+    B, d = x.shape[0], x.shape[-1]
+    out_flat = torch.cat([out_loc.reshape(B, e_loc * C, d),
+                          x.new_zeros((B, 1, d))], dim=1)
+    mine = (slot >= lo * C) & (slot < (lo + e_loc) * C) & keep
+    slot_loc = torch.where(mine, slot - lo * C, e_loc * C)
+    out = _combine(out_flat, slot_loc, top_p * mine)
+    return out, ctx.mean_data(_aux(probs, top_e, moe))

@@ -8,6 +8,16 @@ every weight in the reference's layout (``wq`` (d, H, hd), ``lm_head``
 ``params.front``.  ``forward`` runs the front layers, then the stacked
 layers, as a Python loop.
 
+Built with a ``ShardCtx`` on a mesh it is tensor parallel
+(``StackedLM``): each weight is this rank's block over the model axis,
+the residual stream between layers holds this rank's rows and, where the
+sequence divides the model axis, its positions (``act_rules``' layout
+``("batch", "seq", None)``), each block all-gathers the sequence after
+its norms (``_block``), the embedding is a masked lookup in this rank's
+vocab rows reduce-scattered to the sequence shard, the logits stay
+vocab-sharded and the loss takes a vocab-parallel log-softmax.  Caches
+are this rank's blocks under ``cache_axes``.
+
 ``hidden`` / ``forward`` / ``loss`` run under autograd when the caller
 records it (the train step runs them on a tree it differentiates,
 ``StackedLM.bound``); with ``cfg.remat`` each layer, front layers too,
@@ -30,9 +40,10 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from ..sharding.layout import all_gather_axis, all_reduce_axis, all_reduce_max
 from .attention import attn_decls, attn_forward, init_attn_cache
-from .base import (P, StackedLM, layer_norm, next_token_loss, rms_norm,
-                   tree_map)
+from .base import (P, StackedLM, layer_norm, loss_terms, model_split,
+                   next_token_loss, rms_norm, tree_map)
 from .config import ModelConfig
 from .ffn import decls_mlp, decls_moe, mlp_forward, moe_forward
 
@@ -57,9 +68,11 @@ def _norm(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 class TransformerLM(StackedLM):
-    """The transformer LM of one config on one device (``StackedLM``:
-    built with ``device=None`` it lives on ``cuda``; ``"meta"`` allocates
-    nothing)."""
+    """The transformer LM of one config on one device, or tensor parallel
+    on a mesh (``StackedLM``: built with ``device=None`` it lives on
+    ``cuda``; ``"meta"`` allocates nothing)."""
+
+    tensor_parallel = True
 
     @property
     def n_front(self) -> int:
@@ -116,42 +129,76 @@ class TransformerLM(StackedLM):
     def _block(self, p, x: torch.Tensor, positions: torch.Tensor, *,
                moe_layer: bool, cache: dict | None = None,
                fill_len: int | None = None):
-        cfg = self.cfg
-        h, new_cache = attn_forward(p["attn"], _norm(p["ln1"], x, cfg),
-                                    positions, cfg, cache=cache,
-                                    fill_len=fill_len)
+        """One layer; on a mesh ``x`` is at the layer boundary's layout
+        and each norm's output is all-gathered over the sequence before
+        the attention / FFN (the reference's ``transformer.py:116``)."""
+        cfg, ctx = self.cfg, self.ctx
+        S = positions.shape[-1]
+        h, new_cache = attn_forward(
+            p["attn"], ctx.gather_seq(_norm(p["ln1"], x, cfg), S),
+            positions, cfg, ctx=ctx, cache=cache, fill_len=fill_len)
         x = x + h
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        h = ctx.gather_seq(_norm(p["ln2"], x, cfg), S)
         if moe_layer:
-            h, aux = moe_forward(p["moe"], _norm(p["ln2"], x, cfg), cfg)
+            h, aux = moe_forward(p["moe"], h, cfg, ctx=ctx)
         else:
-            h = mlp_forward(p["mlp"], _norm(p["ln2"], x, cfg), cfg.act)
+            h = mlp_forward(p["mlp"], h, cfg.act, ctx=ctx)
         return x + h, aux, new_cache
 
     # -- embedding / head ----------------------------------------------------
+    def _vocab(self) -> tuple[int, int] | None:
+        """(first vocab row, rows) of this rank's block of the embedding,
+        None where the vocab is whole."""
+        emb = self.params["embed"]
+        dim = emb.ndim - 2
+        if not model_split(self.params, "embed", dim):
+            return None
+        n = emb.shape[dim]
+        return self.ctx.model_rank * n, n
+
     def embed(self, tokens: torch.Tensor,
               extra_embeds: torch.Tensor | None = None) -> torch.Tensor:
         """Token embeddings in the compute dtype: audio codebooks summed,
         tied embeddings scaled by sqrt(d), vlm patch embeddings
-        (``extra_embeds`` (B, S_img, d)) prepended to the text."""
-        cfg = self.cfg
+        (``extra_embeds`` (B, S_img, d)) prepended to the text.  On a mesh
+        (the reference's ``transformer.py:132``) a vocab-sharded table is
+        looked up where the token is this rank's (zeros elsewhere) and the
+        partial sums reduce-scattered to ``("batch", "seq", None)`` (each
+        position has one nonzero term, so the sum is exact)."""
+        cfg, ctx = self.cfg, self.ctx
         emb = self.params["embed"]
         tokens = tokens.long()
+        vocab = self._vocab() if ctx.mesh is not None else None
+
+        def look(t, table):
+            if vocab is None:
+                return F.embedding(t, table)
+            lo, n = vocab
+            i = t - lo
+            hit = (i >= 0) & (i < n)
+            return F.embedding(i.clamp(0, n - 1), table) * hit[..., None]
         if cfg.modality == "audio" and cfg.n_codebooks > 1:
-            x = sum(F.embedding(tokens[..., c], emb[c])
+            x = sum(look(tokens[..., c], emb[c])
                     for c in range(cfg.n_codebooks))
         else:
-            x = F.embedding(tokens, emb)
+            x = look(tokens, emb)
         x = x.to(self.compute_dtype)
         if cfg.tie_embeddings:
             x = x * math.sqrt(cfg.d_model)
         if extra_embeds is not None:
-            x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
-        return x
+            extra = extra_embeds.to(x.dtype)
+            if vocab is not None:
+                extra = ctx.as_partial(extra)
+            x = torch.cat([extra, x], dim=1)
+        return ctx.scatter_seq(x, vocab is not None)
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         """Final norm and head -> f32 logits (B, S, V), or (B, S, C, V)
-        for the audio codebooks."""
+        for the audio codebooks.  On a mesh ``x`` is whole over the
+        sequence and the logits are this rank's vocab block (the
+        reference's ``transformer.py:152``); ``gather_vocab`` assembles
+        them."""
         cfg = self.cfg
         x = _norm(self.params["final_norm"], x, cfg)
         if cfg.tie_embeddings:
@@ -163,12 +210,20 @@ class TransformerLM(StackedLM):
             out = x @ self.params["lm_head"].to(x.dtype)
         return out.to(torch.float32)
 
+    def gather_vocab(self, logits: torch.Tensor) -> torch.Tensor:
+        """Vocab-sharded logits -> whole over the vocab on every rank of
+        the model axis (as they are without a mesh)."""
+        if self.ctx.mesh is None or self._vocab() is None:
+            return logits
+        return all_gather_axis(logits, self.ctx.mesh, "model",
+                               logits.ndim - 1)
+
     # -- full forward ---------------------------------------------------------
-    def hidden(self, tokens: torch.Tensor, positions: torch.Tensor,
+    def _stack(self, tokens: torch.Tensor, positions: torch.Tensor,
                extra_embeds: torch.Tensor | None = None
                ) -> tuple[torch.Tensor, torch.Tensor]:
-        """-> (final hidden states (B, S, d) before the final norm, aux
-        loss): the stack ``forward`` and ``prefill`` run."""
+        """-> (final hidden states before the final norm at the layer
+        boundary's layout, aux loss)."""
         x = self.embed(tokens, extra_embeds)
         for p in self.params["front"] if "front" in self.params else ():
             x, _, _ = self.remat(self._block, p, x, positions,
@@ -181,17 +236,36 @@ class TransformerLM(StackedLM):
             aux = aux + a
         return x, aux
 
+    def hidden(self, tokens: torch.Tensor, positions: torch.Tensor,
+               extra_embeds: torch.Tensor | None = None, *,
+               batch: int | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+        """-> (final hidden states (B, S, d) before the final norm, aux
+        loss): the stack ``forward`` and ``prefill`` run.  On a mesh the
+        states are gathered whole over the sequence, and with ``batch``
+        (the global batch of which ``tokens`` are this rank's rows) over
+        the rows too: what ``pool_features`` and the CoTM head read."""
+        x, aux = self._stack(tokens, positions, extra_embeds)
+        x = self.ctx.gather_seq(x, positions.shape[-1])
+        if batch is not None:
+            x = self.ctx.gather_rows(x, batch)
+        return x, aux
+
     def forward(self, tokens: torch.Tensor, positions: torch.Tensor,
                 extra_embeds: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-        """-> (logits, aux_loss)."""
+        """-> (logits, aux_loss); on a mesh the logits are this rank's
+        vocab block."""
         x, aux = self.hidden(tokens, positions, extra_embeds)
         return self.logits(x), aux
 
     # -- loss ----------------------------------------------------------------
     def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
         """Next-token CE + z-loss + MoE aux.  batch: tokens
-        (B, S[, C]), optional loss_mask, positions, extra_embeds."""
+        (B, S[, C]), optional loss_mask, positions, extra_embeds.  On a
+        mesh the same value on every rank of the model axis; a
+        vocab-sharded head takes ``_vocab_parallel_loss`` (the reference's
+        ``transformer.py:192``)."""
         tokens = batch["tokens"]
         positions = batch.get("positions")
         if positions is None:
@@ -201,16 +275,47 @@ class TransformerLM(StackedLM):
                                    batch.get("extra_embeds"))
         if batch.get("extra_embeds") is not None:
             logits = logits[:, -tokens.shape[1]:]    # text positions only
-        ce, zl = next_token_loss(logits, tokens, batch.get("loss_mask"))
+        vocab = self._vocab() if self.ctx.mesh is not None else None
+        if vocab is None:
+            ce, zl = next_token_loss(logits, tokens, batch.get("loss_mask"))
+        else:
+            ce, zl = self._vocab_parallel_loss(logits, tokens, vocab[0],
+                                               batch.get("loss_mask"))
         return ce + zl + aux, {"ce": ce, "aux": aux, "zloss": zl}
+
+    def _vocab_parallel_loss(self, logits: torch.Tensor,
+                             tokens: torch.Tensor, lo: int,
+                             mask: torch.Tensor | None = None
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+        """``next_token_loss`` on this rank's vocab block (rows lo..) of
+        the logits: the max, the sum of exponentials and the target's
+        logit each reduced over the model axis, so the (B, S, V) logits
+        are never gathered."""
+        mesh = self.ctx.mesh
+        targets = tokens[:, 1:].long()
+        lg = logits[:, :-1]
+        mx = all_reduce_max(lg.amax(dim=-1), mesh, "model")
+        i = targets - lo
+        hit = (i >= 0) & (i < lg.shape[-1])
+        tgt = torch.gather(lg, -1, i.clamp(0, lg.shape[-1] - 1)[..., None]
+                           )[..., 0] * hit
+        se, tgt = all_reduce_axis(torch.stack(
+            [torch.exp(lg - mx[..., None]).sum(dim=-1), tgt]), mesh,
+            "model").unbind(0)
+        lse = mx + torch.log(se)
+        return loss_terms(lse - tgt, lse, mask)
 
     # -- serving -------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int,
                    dtype: torch.dtype = torch.bfloat16) -> dict:
         """{"layers": {name: (L, ...)}, "front": [one layer's, ...]}, the
-        reference's layout: each stacked leaf has a leading layer axis."""
+        reference's layout: each stacked leaf has a leading layer axis.
+        On a mesh ``batch`` rows of this rank's blocks under
+        ``cache_axes``."""
+        axes = self.cache_axes()["layers"]
+        axes = {k: v[1:] for k, v in axes.items()}
         one = lambda: init_attn_cache(self.cfg, batch, max_len, dtype,
-                                      self.device)
+                                      self.device, self.ctx, axes)
         cache = {"layers": {k: torch.stack([v] * self.n_stacked)
                             for k, v in one().items()}}
         if self.n_front:
@@ -236,7 +341,10 @@ class TransformerLM(StackedLM):
     def prefill(self, tokens: torch.Tensor, positions: torch.Tensor,
                 max_len: int, extra_embeds: torch.Tensor | None = None):
         """Process a full prompt -> (last-position logits, cache padded to
-        max_len)."""
+        max_len).  On a mesh the reference's ``transformer.py:208-276``:
+        the tokens are this rank's rows (``launch.specs.prefill_axes``),
+        the logits its vocab block and the cache its blocks under
+        ``cache_axes``."""
         x = self.embed(tokens, extra_embeds)
         new_front = []
         for p in self.params["front"] if "front" in self.params else ():
@@ -253,13 +361,18 @@ class TransformerLM(StackedLM):
                             for k in layer_caches[0]}}
         if new_front:
             cache["front"] = new_front
-        return self.logits(x[:, -1:]), cache
+        last = x[:, -1:]
+        if self.ctx.seq_split(positions.shape[-1]):
+            # the last rank's last row: each rank's last rows, gathered
+            last = all_gather_axis(last, self.ctx.mesh, "model", 1)[:, -1:]
+        return self.logits(last), cache
 
     @torch.no_grad()
     def decode_step(self, cache: dict, tokens: torch.Tensor,
                     positions: torch.Tensor) -> tuple[torch.Tensor, dict]:
         """One decode step: tokens (B, 1[, C]) -> (logits (B, 1, V[, C]),
-        cache).  The cache is updated in place and returned."""
+        cache).  The cache is updated in place and returned.  On a mesh as
+        ``prefill`` (``launch.specs.decode_axes``)."""
         x = self.embed(tokens)
         for p, c in zip(self.params["front"] if "front" in self.params
                         else (), cache.get("front", [])):

@@ -31,12 +31,38 @@ per-axis process groups (``DeviceMesh.get_group``):
   the same order, so a norm or a mean that must be equal everywhere is
   equal bit for bit.
 
+The tensor-parallel model code (``models/attention.py``, ``ffn.py``,
+``transformer.py``) moves its activations with three collectives over
+one mesh axis that autograd differentiates, each backward the other's
+transpose:
+
+* ``all_gather_axis``     — concatenate the group's tensors along a dim;
+  its backward is a reduce-scatter along that dim;
+* ``reduce_scatter_axis`` — this rank's 1/n along a dim of the group's
+  sum; its backward is an all-gather;
+* ``all_reduce_axis``     — the group's sum; its backward is itself.
+
+Read so, a tensor that every rank of the group holds in full stands for
+the SUM of the ranks' tensors in the backward: the loss a tensor-parallel
+model returns is the same on every rank of the model axis, and its
+backward is seeded with ``1 / model`` on each (``train.step``).
+
+Within a ``record_traffic()`` block, every collective of this module
+adds the bytes a rank sends over each mesh axis to the yielded
+``Traffic`` (``bytes`` by axis; ``calls`` lists each call's operation,
+axis and tensor shape); outside one it counts nothing.  A ring
+collective over n ranks of a tensor of b bytes (the all-gather's local
+input, the reduce-scatter's and the all-reduce's full input) counts (n -
+1) b, (n - 1) b / n and 2 (n - 1) b / n; a collective over the whole
+world (``gather_to_host``, ``gather_scalar``) counts under ``"world"``.
+
 ``gloo`` carries all of them on CPU and CUDA tensors alike (it stages a
 CUDA tensor through the host itself), so the ranks of a world may share
 one card.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import math
@@ -144,13 +170,51 @@ def _group(mesh, axis: str):
     return mesh.get_group(axis)
 
 
+@dataclasses.dataclass(eq=False)
+class Traffic:
+    """What this rank's collectives sent within one ``record_traffic``
+    block: bytes by mesh axis (``"world"`` for the whole-world
+    collectives), and (operation, axis, shape of the tensor counted) of
+    each call in call order."""
+    bytes: dict[str, float] = dataclasses.field(default_factory=dict)
+    calls: list[tuple[str, str, tuple[int, ...]]] = dataclasses.field(
+        default_factory=list)
+
+
+_OPEN: list[Traffic] = []
+
+
+@contextlib.contextmanager
+def record_traffic():
+    """Within the block, each collective is added to the yielded
+    ``Traffic`` (and to any enclosing block's)."""
+    record = Traffic()
+    _OPEN.append(record)
+    try:
+        yield record
+    finally:
+        _OPEN.remove(record)
+
+
+def _count(op: str, axis: str, t: torch.Tensor, factor: float) -> None:
+    """Add ``factor`` x ``t``'s bytes to ``axis``'s count of each open
+    record, and the call to its list."""
+    if not _OPEN:
+        return
+    b = factor * t.numel() * t.element_size()
+    for record in _OPEN:
+        record.bytes[axis] = record.bytes.get(axis, 0.0) + b
+        record.calls.append((op, axis, tuple(t.shape)))
+
+
 def all_gather_dim(t: torch.Tensor, mesh, axis: str, n: int,
-                    dim: int) -> torch.Tensor:
+                   dim: int) -> torch.Tensor:
     """``t`` from every rank of ``axis``'s group, concatenated along
     ``dim`` in the group's order."""
     x = t.movedim(dim, 0).contiguous()
     out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]),
                       dtype=x.dtype, device=x.device)
+    _count("all_gather", axis, t, n - 1)
     dist.all_gather_into_tensor(out, x, group=_group(mesh, axis))
     return out.movedim(0, dim)
 
@@ -162,8 +226,89 @@ def _reduce_scatter_dim(t: torch.Tensor, mesh, axis: str, n: int,
     x = t.movedim(dim, 0).contiguous()
     out = torch.empty((x.shape[0] // n,) + tuple(x.shape[1:]),
                       dtype=x.dtype, device=x.device)
+    _count("reduce_scatter", axis, t, (n - 1) / n)
     dist.reduce_scatter_tensor(out, x, group=_group(mesh, axis))
     return out.movedim(0, dim)
+
+
+def _all_reduce(t: torch.Tensor, mesh, axis: str, n: int,
+                op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``t`` reduced in place over ``axis``'s group (contiguous)."""
+    _count("all_reduce", axis, t, 2 * (n - 1) / n)
+    dist.all_reduce(t, op=op, group=_group(mesh, axis))
+    return t
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, n, dim):
+        ctx.args = (mesh, axis, n, dim)
+        return all_gather_dim(t, mesh, axis, n, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_reduce_scatter_dim(g, *ctx.args),) + (None,) * 4
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, n, dim):
+        ctx.args = (mesh, axis, n, dim)
+        return _reduce_scatter_dim(t, mesh, axis, n, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (all_gather_dim(g, *ctx.args),) + (None,) * 4
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, n):
+        ctx.args = (mesh, axis, n)
+        return _all_reduce(t.contiguous().clone(), mesh, axis, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_all_reduce(g.contiguous().clone(), *ctx.args),) + \
+            (None,) * 3
+
+
+def all_gather_axis(t: torch.Tensor, mesh, axis: str,
+                    dim: int) -> torch.Tensor:
+    """The group of ``axis``'s tensors concatenated along ``dim`` in the
+    group's order; the backward reduce-scatters along ``dim``.  ``t``
+    itself on an axis of one rank.  A collective over ``axis``."""
+    n = axis_sizes(mesh).get(axis, 1)
+    return t if n == 1 else _AllGather.apply(t, mesh, axis, n, dim)
+
+
+def reduce_scatter_axis(t: torch.Tensor, mesh, axis: str,
+                        dim: int) -> torch.Tensor:
+    """This rank's 1/n along ``dim`` of the sum of the group of
+    ``axis``'s tensors; the backward all-gathers.  A collective over
+    ``axis``."""
+    n = axis_sizes(mesh).get(axis, 1)
+    return t if n == 1 else _ReduceScatter.apply(t, mesh, axis, n, dim)
+
+
+def all_reduce_axis(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The sum of ``t`` over the group of each mesh axis in ``axes`` (a
+    name or a tuple of names), a new tensor; the backward is the same
+    sum.  A collective over those axes."""
+    sizes = axis_sizes(mesh)
+    for a in entry_names(axes):
+        if sizes.get(a, 1) > 1:
+            t = _AllReduce.apply(t, mesh, a, sizes[a])
+    return t
+
+
+def all_reduce_max(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The elementwise max of ``t`` over ``axis``'s group, a new tensor
+    outside autograd (a softmax's shift, whose gradient cancels)."""
+    n = axis_sizes(mesh).get(axis, 1)
+    t = t.detach().contiguous().clone()
+    return t if n == 1 else _all_reduce(t, mesh, axis, n,
+                                        dist.ReduceOp.MAX)
 
 
 def gather(t: torch.Tensor, sharding: Sharding) -> torch.Tensor:
@@ -211,7 +356,7 @@ def reduce_shard(t: torch.Tensor, sharding: Sharding,
     used = {a for ns in names for a in ns}
     for a in over:
         if a not in used and sizes[a] > 1:
-            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=_group(mesh, a))
+            _all_reduce(t, mesh, a, sizes[a])
     return t
 
 
@@ -226,6 +371,8 @@ def gather_to_host(t: torch.Tensor, sharding: Sharding,
     rank = dist.get_rank()
     blocks = ([torch.empty_like(mine) for _ in range(dist.get_world_size())]
               if rank == dst else None)
+    if rank != dst:
+        _count("gather", "world", mine, 1)
     dist.gather(mine, blocks, dst=dst)
     if rank != dst:
         return None
@@ -244,5 +391,6 @@ def gather_scalar(x: torch.Tensor, mesh) -> torch.Tensor:
     the whole world (the mesh must span it)."""
     world = dist.get_world_size()
     out = torch.empty(world, dtype=x.dtype, device=x.device)
+    _count("all_gather", "world", x.reshape(1), world - 1)
     dist.all_gather_into_tensor(out, x.reshape(1).contiguous())
     return out[mesh.mesh.to(x.device).long()]

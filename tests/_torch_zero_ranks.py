@@ -10,7 +10,8 @@ and runs on them:
   param_shardings=)``) of each config: its loss and gradient shards
   (``step.grads``) and one step, and the port's one-device step on the
   same tree in this process;
-* a batch that does not divide the data axis;
+* a batch that does not divide the data axis, and the same batch with
+  the gradients laid out over the model axis alone (``_data_group``);
 * a checkpoint saved on (2, 2), restored on one device, on (1, 4) and
   back on (2, 2);
 * ``TrainLoop(state_shardings=)``: uninterrupted, failing and resumed,
@@ -33,7 +34,7 @@ from repro_torch.configs import get_config
 from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.models import ShardCtx, build
 from repro_torch.models.base import leaves, tree_map, unflatten
-from repro_torch.sharding.layout import gather
+from repro_torch.sharding.layout import Sharding, entry_names, gather
 from repro_torch.sharding.rules import act_rules, merged_rules
 from repro_torch.train import (AdamWConfig, CheckpointManager, RuntimeConfig,
                                SimulatedFailure, TrainLoop, apply_updates,
@@ -139,6 +140,26 @@ def _case(rank, name, cfg, host, tokens, mesh, tag, out):
         if rank == 0:
             _put(out, f"{tag}/{part}", full)
     return model, psh, gsh, state
+
+
+def _data_group(rank, model, host, tokens, psh, tag, out) -> None:
+    """The gradient of a batch that every data rank holds whole, laid out
+    over the model axis alone: each data group computes it tensor
+    parallel on its own model axis, and nothing crosses the data axis."""
+    mesh = model.ctx.mesh
+    msh = tree_map(lambda s: Sharding(mesh, tuple(
+        "model" if "model" in entry_names(e) else None for e in s.spec)),
+        psh)
+    opt = AdamWConfig(**OPT)
+    step = make_train_step(model, opt, msh, param_shardings=psh,
+                           device="cpu")
+    loss, grads = step.grads(shard_state(host, opt, psh, msh),
+                             {"tokens": tokens})
+    out[f"{tag}/grads_loss"] = float(loss)
+    _put(out, f"{tag}/local/grads", grads)
+    full = _gathered(grads, msh)
+    if rank == 0:
+        _put(out, f"{tag}/grads", full)
 
 
 def _checkpoints(rank, cfg, host, state, psh, gsh, mesh14, tmp, out):
@@ -272,7 +293,10 @@ def zero_main(rank: int, tmp: str) -> None:
     host = _host_tree(z, name, cfg)
     odd = z[f"{name}/tokens_odd"]
     _one_device(name, cfg, host, odd, out)
-    _case(rank, name, cfg, host, odd, meshes[shape], f"odd/{name}", out)
+    odd_model, odd_psh, _, _ = _case(rank, name, cfg, host, odd,
+                                     meshes[shape], f"odd/{name}", out)
+    _data_group(rank, odd_model, host, odd, odd_psh, f"odd/{name}/group",
+                out)
     model, psh, gsh, state = kept[name, shape]
     _checkpoints(rank, cfg, host, state, psh, gsh, meshes[MESHES[1]], tmp,
                  out)

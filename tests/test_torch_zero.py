@@ -28,8 +28,12 @@ over the tree and 0.9 in each leaf, m is held at 1e-2 and v (a square)
 at 2e-2.  Shards that the mesh
 replicates are equal bit for bit across the ranks that hold them, and so
 are the metrics; a batch that does not divide the data axis is whole on
-every data rank and gives the port's one-device gradients bit for bit;
-checkpoints cross one device, both meshes and the reference bit for bit.
+every data rank and gives bit for bit the gradient that one data group
+computes alone (tensor parallel on its model axis, nothing over the
+data axis), and the port's one-device gradients within the bounds (the
+model axis's partial sums add in another order than one device's);
+checkpoints cross one device, both meshes and the reference bit for
+bit.
 
 The MoE load-balance loss is taken per data shard (``_torch_zero_ranks
 .SPLIT``), as the reference's expert-parallel path takes it on a mesh, so
@@ -346,21 +350,43 @@ def test_kv_weights_are_whole_on_1x4(world):
 
 def test_indivisible_batch_gives_one_device_grads(world):
     """A batch of 3 rows on a data axis of 2 is whole on every data rank:
-    the gradient is the port's one-device gradient bit for bit, and the
-    reference's within the bounds."""
+    the ZeRO step's gradient is bit for bit the one that each data group
+    computes alone (the same step with the gradients laid out over the
+    model axis only: nothing crosses the data axis), every data rank
+    holds the same bits of it and of the loss, and it is the port's
+    one-device gradient and the reference's within the bounds (tensor
+    parallel over the model axis, the sums run in another order than
+    one device's)."""
     ref, out, _ = world
     name = ranks.CONFIGS[0]
     got = out[0]
-    keys = _leaf_keys(got, f"odd/{name}/grads")
+    odd, group = f"odd/{name}", f"odd/{name}/group"
+    keys = _leaf_keys(got, f"{odd}/grads")
     tag = ranks.one_tag(name, ranks.B_ODD)
     assert keys and keys == _leaf_keys(out[0], f"{tag}/grads")
+    assert keys == _leaf_keys(got, f"{group}/grads")
     for k in keys:
-        np.testing.assert_array_equal(got[f"odd/{name}/grads/{k}"],
-                                      out[0][f"{tag}/grads/{k}"], err_msg=k)
-        rel = _rel_frob(got[f"odd/{name}/grads/{k}"], ref[f"{tag}/grads/{k}"])
-        assert rel <= FROB, f"{k}: rel Frobenius {rel:.2e}"
-    loss = got[f"odd/{name}/grads_loss"]
-    assert abs(loss - ref[f"{tag}/loss"]) <= LOSS_RTOL * abs(loss)
+        np.testing.assert_array_equal(got[f"{odd}/grads/{k}"],
+                                      got[f"{group}/grads/{k}"], err_msg=k)
+        for want in (out[0][f"{tag}/grads/{k}"], ref[f"{tag}/grads/{k}"]):
+            rel = _rel_frob(got[f"{odd}/grads/{k}"], want)
+            assert rel <= FROB, f"{k}: rel Frobenius {rel:.2e}"
+    by_model: dict = {}
+    for o in out:              # the (2, 2) mesh's model coordinate
+        by_model.setdefault(int(o["coordinate"][0][1]), []).append(o)
+    assert sorted(len(v) for v in by_model.values()) == [2, 2]
+    local = _leaf_keys(got, f"{group}/local/grads")
+    assert local
+    for a, b in by_model.values():
+        for k in local:
+            np.testing.assert_array_equal(a[f"{group}/local/grads/{k}"],
+                                          b[f"{group}/local/grads/{k}"],
+                                          err_msg=k)
+    loss = got[f"{odd}/grads_loss"]
+    assert len({float(o[p]) for o in out for p in (
+        f"{odd}/grads_loss", f"{group}/grads_loss")}) == 1
+    for want in (out[0][f"{tag}/loss"], ref[f"{tag}/loss"]):
+        assert abs(loss - want) <= LOSS_RTOL * abs(loss)
 
 
 @pytest.mark.parametrize("where", ["one", "m14", "m22"])
