@@ -194,7 +194,10 @@ Phases, each of which must pass or the script exits non-zero:
    front layer and one MoE layer of 64 experts, 32 a rank through
    ``_routed_ep``) on 2 x 2, (c) qwen2-vl-2b with 16 patch embeddings
    and M-RoPE positions on 1 x 4 (its 2 KV heads take the head_dim
-   decode leg), each at full width and 2 layers deep: every rank holds
+   decode leg), (f) rwkv6-7b on 2 x 2 and (g) zamba2-7b on 1 x 4 (7
+   layers: a group of 6 mamba layers, the shared block, a tail layer;
+   its ``in_proj`` blocks cut across z | x | B | C | dt), each at full
+   width and 2 layers deep (zamba2 7): every rank holds
    its blocks of the one-device weights, a prefill of 4 x 512 and 16
    decode steps fed the one-device run's greedy tokens through
    ``prefill`` / ``decode_step``, the logits end to end at bounds set
@@ -205,14 +208,17 @@ Phases, each of which must pass or the script exits non-zero:
    weight that the rules split over it; each
    rank's share of the parameters, peak memory, prefill and decode-step
    times (CUDA events and host wall) and the bytes it sends over each
-   mesh axis a prefill and a decode step; (a) also 3 ZeRO + TP AdamW
-   steps of phase 15 (a)'s batch (falling loss, replicated shards the
-   same bits, bytes a step); (d) ``chunked_attention``'s
-   context-parallel leg on 1 x 4 at (4, 256, 6, 16) f32 and (2, 4096, 6,
-   128) bf16 within 2e-2 of one device; (e) the CoTM head on (a)'s
-   pooled prefill states (gathered whole), one ``fused_cotm`` launch in
-   rank 0's own count window, bit for bit against ``fused_cotm_ref``,
-   added to the head's row of the kernel table.
+   mesh axis a prefill and a decode step; (a) and (f) also 3 ZeRO + TP
+   AdamW steps of phase 15 (a)'s batch, (g) one (falling loss,
+   replicated shards the same bits, bytes a step, the step computing on
+   its model-axis blocks), and (f) one f32 rwkv6 layer's loss and
+   gradient against one device at phase 15 (b)'s bounds; (d)
+   ``chunked_attention``'s context-parallel leg on 1 x 4 at (4, 256, 6,
+   16) f32 and (2, 4096, 6, 128) bf16 within 2e-2 of one device; (e)
+   the CoTM head on the pooled prefill states of (a), (f) and (g)
+   (gathered whole), one ``fused_cotm`` launch each in rank 0's own
+   count window, bit for bit against ``fused_cotm_ref``, added to the
+   head's row of the kernel table at its K (8192 or 7168).
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -3829,6 +3835,14 @@ def cpu_parity(model, device, n_layers: int = LM_CPU_LAYERS) -> dict:
                    LM_CPU_ARGMAX)
 
 
+def head_literals(name: str) -> int:
+    """K of the CoTM head on ``name``'s pooled states (2 x d_model)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import TMHead, TMHeadConfig
+    return TMHead(TMHeadConfig(), d_features=get_config(
+        name).d_model).cotm_cfg.n_literals
+
+
 def head_kernel_row(head, params, feats, launches: int, err: float,
                     name: str = "fused_cotm (TM head)") -> dict:
     """(e) ``fused_cotm`` at the head's shape: the kernel, its plain
@@ -4087,22 +4101,50 @@ def check_ssm_cache(name: str, cache: dict, n: int) -> None:
               ring_positions(n, ring["pos"].shape[-1], ring["pos"]))
 
 
-def ssm_blocks(model, max_len: int) -> list:
-    """The model's blocks in order, each ``run(x, x0, pos, state) ->
-    (out, state)``: the full sequence with ``state`` None (its prefill
-    state back), one token against a state otherwise."""
-    if not hasattr(model, "groups"):                      # rwkv6
-        return [lambda x, x0, pos, st, p=p: model._block(p, x, st)
-                for p in model.params["layers"]]
-    runs = []
-    for layers, g in model.groups():
-        runs += [lambda x, x0, pos, st, i=i: model._mamba(i, x, st)
-                 for i in layers]
+def layer_runs(model, max_len: int) -> list:
+    """The layers of ``model`` in the order its prefill runs them, each
+    as ``fn(x, x0, positions, S, state) -> (x, state)``: ``state`` None
+    is the prefill of a sequence of ``S`` (caches of ``max_len``), else
+    one decode step against the layer's state (written in place where the
+    model writes it); ``x0`` is the embedding (zamba2's shared block
+    reads it)."""
+    cfg = model.cfg
+    if cfg.ssm is None:
+        blocks = [(p, False) for p in (model.params["front"]
+                                       if "front" in model.params else ())]
+        blocks += [(p, cfg.moe is not None) for p in model.params["layers"]]
+
+        def block(p, moe):
+            def fn(x, x0, pos, S, st):
+                x, _, c = model._block(p, x, pos, moe_layer=moe, cache=st,
+                                       fill_len=max_len if st is None
+                                       else None)
+                if st is not None:
+                    st["len"] = c["len"]
+                    c = st
+                return x, c
+            return fn
+        return [block(p, moe) for p, moe in blocks]
+    if cfg.hybrid_attn_every == 0:
+        def rwkv(p):
+            def fn(x, x0, pos, S, st):
+                x, new = model._block(p, x, st, S)
+                if st is None:        # the prefill hands these on in bf16
+                    new = dict(new, x_tm=new["x_tm"].to(torch.bfloat16),
+                               x_cm=new["x_cm"].to(torch.bfloat16))
+                return x, new
+            return fn
+        return [rwkv(p) for p in model.params["layers"]]
+    from repro_torch.models.zamba2 import ATTN_WINDOW
+    out = []
+    for group, g in model.groups():
+        out += [lambda x, x0, pos, S, st, i=i: model._mamba(i, x, S, st)
+                for i in group]
         if g is not None:
-            runs.append(lambda x, x0, pos, st: model._shared_attn(
-                x, x0, pos, cache=st,
-                fill_window=None if st is not None else max_len))
-    return runs
+            out.append(lambda x, x0, pos, S, st: model._shared_attn(
+                x, x0, pos, cache=st, fill_window=(
+                    min(ATTN_WINDOW, max_len) if st is None else None)))
+    return out
 
 
 def ssm_decode_per_layer(name: str, model, ext, pos_ext, n_prompt: int,
@@ -4113,16 +4155,16 @@ def ssm_decode_per_layer(name: str, model, ext, pos_ext, n_prompt: int,
     it; held to the forward's output of that block (``layer_gate``)."""
     x0 = model.embed(ext)
     x = x0
-    runs = ssm_blocks(model, max_len)
+    runs = layer_runs(model, max_len)
     decs, wants = [], []
     with torch.no_grad():
         for run in runs:
-            out, _ = run(x, x0, pos_ext, None)
+            out, _ = run(x, x0, pos_ext, x.shape[1], None)
             for t in steps:
                 n = n_prompt + t
-                _, st = run(x[:, :n], x0[:, :n], pos_ext[:, :n], None)
+                _, st = run(x[:, :n], x0[:, :n], pos_ext[:, :n], n, None)
                 dec, _ = run(x[:, n:n + 1], x0[:, n:n + 1],
-                             pos_ext[:, n:n + 1], st)
+                             pos_ext[:, n:n + 1], 1, st)
                 decs.append(dec)
                 wants.append(out[:, n:n + 1])
             x = out
@@ -5584,21 +5626,34 @@ def zero_path(card: str) -> dict:
 # held to one-device runs of the same models in a process of their own:
 # (a) llama3-8b and (b) deepseek-v2-lite-16b (its dense front layer and
 # one MoE layer of 64 experts) on 2 x 2, (c) qwen2-vl-2b with
-# TP_IMAGE patch embeddings and M-RoPE positions on 1 x 4, each at full
-# width and TP_LAYERS layers deep, random weights from a seed: a prefill
-# of LM_BATCH x LM_PROMPT and LM_DECODE decode steps fed the one-device
-# run's greedy tokens; each layer teacher-forced (its one-device input)
-# at LM_LAYER_BOUNDS, the logits end to end at TP_E2E_BOUNDS; (a)
-# also TP_STEPS ZeRO + TP AdamW steps of phase 15 (a)'s batch, and (e)
-# the CoTM head on its pooled prefill states through ``fused_cotm``; (d)
-# ``chunked_attention``'s context-parallel leg on 1 x 4 at TP_CP's
-# shapes, within TP_CP_BOUND of one device (tests/test_sharding.py's
-# bound).  Phase 15 (b) holds one f32 layer of this same train step to
-# one device.
+# TP_IMAGE patch embeddings and M-RoPE positions on 1 x 4, (f)
+# rwkv6-7b on 2 x 2 and (g) zamba2-7b on 1 x 4 (one group of 6 mamba
+# layers, the shared block and one tail layer: zamba2-7b's 14704-wide
+# in_proj is 3676 columns a rank, blocks that cut across z | x | B | C |
+# dt), each at full width and TP_LAYERS layers deep (TP_DEPTH for
+# zamba2), random weights from a seed: a prefill of LM_BATCH x
+# LM_PROMPT and LM_DECODE decode steps fed the one-device run's greedy
+# tokens; each layer teacher-forced (its one-device input) at
+# LM_LAYER_BOUNDS, the logits end to end at TP_E2E_BOUNDS; ZeRO + TP
+# AdamW steps of phase 15 (a)'s batch (TP_TRAIN: (a), (f), (g)), and
+# the CoTM head on the pooled prefill states of (a), (f) and (g)
+# through ``fused_cotm`` ((e), TP_HEADS); (d) ``chunked_attention``'s
+# context-parallel leg on 1 x 4 at TP_CP's shapes, within TP_CP_BOUND
+# of one device (tests/test_sharding.py's bound).  Phase 15 (b) holds
+# one f32 layer of this same train step to one device for llama3-8b,
+# and (f) for rwkv6-7b at its bounds (TP_F32_ARCH).
 TP_WORLD, TP_LAYERS, TP_IMAGE = 4, 2, 16
 TP_ARCHS = (("llama3-8b", (2, 2)), ("deepseek-v2-lite-16b", (2, 2)),
-            ("qwen2-vl-2b", (1, 4)))
+            ("qwen2-vl-2b", (1, 4)), ("rwkv6-7b", (2, 2)),
+            ("zamba2-7b", (1, 4)))
+TP_TAGS = "abcfg"
+TP_DEPTH = {"zamba2-7b": 7}
+TP_HEADS = ("llama3-8b", "rwkv6-7b", "zamba2-7b")
 TP_STEPS = ZERO_STEPS
+# (architecture, mesh, steps): the ZeRO + TP steps of (a), (f), (g)
+TP_TRAIN = (("llama3-8b", (2, 2), TP_STEPS), ("rwkv6-7b", (2, 2), TP_STEPS),
+            ("zamba2-7b", (1, 4), 1))
+TP_F32_ARCH = "rwkv6-7b"
 # (shape (B, S, H, D), dtype, q_chunk, k_chunk): the reference test's,
 # and a long bf16 sequence at head_dim 128 with the configs' chunks.
 TP_CP = (((4, 256, 6, 16), torch.float32, 64, 64),
@@ -5628,7 +5683,8 @@ def tp_cfg(name: str):
     from repro_torch.configs import get_config
     cfg = get_config(name)
     n_front = cfg.moe.first_dense_layers if cfg.moe else 0
-    return dataclasses.replace(cfg, n_layers=max(TP_LAYERS, n_front + 1))
+    return dataclasses.replace(cfg, n_layers=TP_DEPTH.get(
+        name, max(TP_LAYERS, n_front + 1)))
 
 
 def tp_inputs(cfg, index: int, device):
@@ -5643,56 +5699,48 @@ def tp_inputs(cfg, index: int, device):
 def tp_walk(model, tokens, positions, extra, max_len: int, fed=None,
             forced=None, lay=None) -> dict:
     """A prefill and LM_DECODE decode steps layer by layer, as
-    ``prefill`` / ``decode_step`` run them: each layer's input and output
-    (whole: every row, every position) and the logits (whole over the
-    vocab and the rows).  The steps feed ``fed`` (B, LM_DECODE), else the
-    greedy tokens; with ``forced`` (another walk's record) every layer
-    takes that walk's input to it (teacher forcing).  ``lay`` takes this
-    rank's block of a whole input by logical axes."""
+    ``prefill`` / ``decode_step`` run them (``layer_runs``): each layer's
+    input and output (whole: every row, every position) and the logits
+    (whole over the vocab and the rows).  The steps feed ``fed`` (B,
+    LM_DECODE), else the greedy tokens; with ``forced`` (another walk's
+    record) every layer takes that walk's input to it (teacher forcing).
+    ``lay`` takes this rank's block of a whole input by logical axes."""
     from repro_torch.launch.specs import decode_axes, prefill_axes
-    from repro_torch.sharding.layout import all_gather_axis
     cfg, ctx = model.cfg, model.ctx
     lay = lay or (lambda t, axes: t)
     pa, da = prefill_axes(cfg), decode_axes(cfg)
     B, S = tokens.shape[0], positions.shape[-1]
     rows = lambda t: ctx.gather_rows(t, B)
     whole = lambda t: rows(model.gather_vocab(t))
-    blocks = [(p, False) for p in (model.params["front"]
-                                   if "front" in model.params else ())]
-    blocks += [(p, cfg.moe is not None) for p in model.params["layers"]]
+    embed = lambda t, e=None: (model.embed(t) if e is None
+                               else model.embed(t, e))
     rec = dict(ins=[], outs=[], dec_ins=[], dec_outs=[], logits=[],
                fed=[])
-    caches = []
+    fns, states = layer_runs(model, max_len), []
     pos = lay(positions, pa["positions"])
     with torch.no_grad():
-        x = model.embed(lay(tokens, pa["tokens"]), None if extra is None
-                        else lay(extra, pa["extra_embeds"]))
-        for i, (p, moe) in enumerate(blocks):
+        x = x0 = embed(lay(tokens, pa["tokens"]), None if extra is None
+                       else lay(extra, pa["extra_embeds"]))
+        for i, fn in enumerate(fns):
             if forced is not None:
                 x = lay(forced["ins"][i], ("batch", "seq", None))
             rec["ins"].append(rows(ctx.gather_seq(x, S)))
-            x, _, c = model._block(p, x, pos, moe_layer=moe,
-                                   fill_len=max_len)
+            x, st = fn(x, x0, pos, S, None)
             rec["outs"].append(rows(ctx.gather_seq(x, S)))
-            caches.append(c)
-        last = x[:, -1:]
-        if ctx.seq_split(S):
-            last = all_gather_axis(last, ctx.mesh, "model", 1)[:, -1:]
-        rec["logits"].append(whole(model.logits(last)))
+            states.append(st)
+        rec["logits"].append(whole(model.logits(model.last_position(x, S))))
         nxt = rec["logits"][0].argmax(-1)
         for t in range(LM_DECODE):
             tok = fed[:, t:t + 1] if fed is not None else nxt
             rec["fed"].append(tok)
             p_t = lay(positions[..., -1:] + 1 + t, da["positions"])
-            x = model.embed(lay(tok, da["tokens"]))
+            x = x0 = embed(lay(tok, da["tokens"]))
             di, do = [], []
-            for i, (p, moe) in enumerate(blocks):
+            for i, fn in enumerate(fns):
                 if forced is not None:
                     x = lay(forced["dec_ins"][t][i], ("batch", None, None))
                 di.append(rows(x))
-                x, _, new = model._block(p, x, p_t, moe_layer=moe,
-                                         cache=caches[i])
-                caches[i]["len"] = new["len"]
+                x, states[i] = fn(x, x0, p_t, 1, states[i])
                 do.append(rows(x))
             rec["dec_ins"].append(di)
             rec["dec_outs"].append(do)
@@ -5703,12 +5751,43 @@ def tp_walk(model, tokens, positions, extra, max_len: int, fed=None,
     return rec
 
 
+def tp_f32_cfg():
+    """(f)'s f32 check: one layer of TP_F32_ARCH in f32, ZeRO-3, as phase
+    15 (b) holds llama3-8b."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(TP_F32_ARCH),
+                               n_layers=ZERO_F32_LAYERS, dtype="float32",
+                               zero3=True)
+
+
+def tp_f32_one(out_dir: str, dev) -> None:
+    """(f)'s one-device f32 loss and gradient, written to ``out_dir``
+    (``tp_f32.pt``, read back with mmap by the world's ranks)."""
+    from repro_torch.models import build
+    from repro_torch.models.base import leaves, tree_map
+    from repro_torch.train.step import backward_into
+    cfg = tp_f32_cfg()
+    batch = train_batch(cfg, 1, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, SEED + 187)
+    masters = tree_map(lambda t: t.requires_grad_(), zero_draw(
+        cfg, dev, SEED + 186))
+    loss = backward_into(build(cfg, device="meta"), masters, {
+        k: torch.from_numpy(v[0]).to(dev) for k, v in batch.items()})
+    torch.save(dict(loss=float(loss), grads={
+        "/".join(map(str, p)): m.grad.cpu() for p, m in leaves(masters)}),
+        os.path.join(out_dir, "tp_f32.pt"))
+    del masters
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def tp_one_device(rank: int, out_dir: str, device: str = "cuda") -> None:
-    """(a)-(c) on one device, in a process of its own: each model's
-    greedy walk (``tp_walk``) written to ``out_dir`` (``torch.save``); for
-    deepseek also the aux loss of each data shard's rows."""
+    """(a)-(c), (f), (g) on one device, in a process of its own: each
+    model's greedy walk (``tp_walk``) written to ``out_dir``
+    (``torch.save``); for deepseek also the aux loss of each data shard's
+    rows; and (f)'s f32 gradient (``tp_f32_one``)."""
     from repro_torch.models import build
     dev = torch.device(device)
+    tp_f32_one(out_dir, dev)
     for i, (name, shape) in enumerate(TP_ARCHS):
         cfg = tp_cfg(name)
         t0 = time.perf_counter()
@@ -5757,18 +5836,18 @@ def tp_traffic(fn, weights: set, crossed: list):
 
 def weight_shapes(model, ctx) -> set:
     """The shape of each weight that the rules split over the model axis,
-    whole and as a rank's block (one layer's of a stacked leaf).  (The
-    gradients of the others, partial sums over the axis, are summed over
-    it in a train step.)"""
+    whole and as a rank's block (one layer's of a stacked leaf), less the
+    shapes of the weights they do not split: the gradients of those,
+    partial sums over the axis, are summed over it in a train step
+    (zamba2's ``ln_in`` is as wide as the mamba ``norm``)."""
     from repro_torch.models.base import leaves
-    out = set()
+    split, whole = set(), set()
     for path, p in leaves(model.decls()):
         block = ctx.sharding(p.shape, p.axes).shard_shape(p.shape)
-        if block == tuple(p.shape):
-            continue
         for shape in (p.shape, block):
-            out.add(tuple(shape[1:] if path[0] == "layers" else shape))
-    return out
+            (whole if block == tuple(p.shape) else split).add(
+                tuple(shape[1:] if path[0] == "layers" else shape))
+    return split - whole
 
 
 def tp_serve(rank: int, i: int, name: str, mesh, device, one: dict) -> dict:
@@ -5855,7 +5934,7 @@ def tp_serve(rank: int, i: int, name: str, mesh, device, one: dict) -> dict:
             _, aux = model.hidden(lay(tokens, pa["tokens"]),
                                   lay(positions, pa["positions"]))
         res["aux"] = float(aux)
-    if name == TP_ARCHS[0][0]:
+    if name in TP_HEADS:
         res["head"] = tp_head(rank, model, tokens, positions, lay, pa,
                               device)
     del model, cache, forced
@@ -5888,35 +5967,50 @@ def tp_head(rank: int, model, tokens, positions, lay, pa, device) -> dict:
     torch.cuda.synchronize()
     launches = kernels.launch_counts()["fused_cotm_i32"]
     return dict(launches=launches, err=err, shape=list(feats.shape),
+                K=head.cotm_cfg.n_literals,
                 nonzero=int((scores != 0).sum()), n=scores.numel())
 
 
-def tp_train(rank: int, mesh, device) -> dict:
-    """(a)'s training: TP_STEPS ZeRO + TP AdamW steps of phase 15 (a)'s
-    batch on llama3-8b x TP_LAYERS, the bytes each step sends, each
-    rank's share of the state and peak memory."""
+def tp_blocks(step, state, model) -> bool:
+    """Whether every parameter the ZeRO step computes on (``gathered``:
+    this rank's shards gathered over the data axes) is this rank's block
+    under its ``ShardCtx.model_spec``, and some are split: the step
+    computes tensor parallel.  Every rank calls it (it gathers)."""
+    from repro_torch.models.base import leaves
+    decls = [p for _, p in leaves(model.decls())]
+    want = [model.ctx.model_block(p.shape, p.axes) for p in decls]
+    got = [tuple(t.shape) for t in step.gathered(state.params)]
+    return got == want and any(w != p.shape for w, p in zip(want, decls))
+
+
+def tp_train(rank: int, name: str, mesh, steps: int, device) -> dict:
+    """ZeRO + TP AdamW steps of phase 15 (a)'s batch on ``name`` at
+    ``tp_cfg``'s depth: the losses, the bytes each step sends, each
+    rank's share of the state, replicated shards and peak memory."""
     from repro_torch.models import ShardCtx, build, torch_dtype
     from repro_torch.sharding.rules import merged_rules
     from repro_torch.train import (AdamWConfig, make_train_step,
                                    state_shardings, zero_shardings)
-    cfg = zero_cfg("a")
+    cfg = tp_cfg(name)
+    seed = SEED + 180 + 10 * [n for n, _, _ in TP_TRAIN].index(name)
     torch.cuda.reset_peak_memory_stats()
     model = build(cfg, ShardCtx(mesh, merged_rules(mesh)), device="meta")
     psh, gsh = zero_shardings(model, mesh)
     sh = state_shardings(psh, gsh)
     opt = AdamWConfig(lr=ZERO_LR, warmup_steps=1,
                       moment_dtype=torch_dtype(cfg.opt_moment_dtype))
-    state = zero_state(zero_draw(cfg, device, SEED + 180, psh), model, gsh,
+    state = zero_state(zero_draw(cfg, device, seed, psh), model, gsh,
                        opt.moment_dtype, device)
     mine, full = zero_shard_check(state, sh, model)
     step = make_train_step(model, opt, gsh, param_shardings=psh,
                            device=device)
-    if not step.tp:
-        fail("phase 16 (a): the train step does not compute tensor parallel")
-    batch = train_batch(cfg, ZERO_ACCUM, ZERO_BATCH, ZERO_SEQ, SEED + 181)
+    if not tp_blocks(step, state, model):
+        fail(f"phase 16 {name}: the train step does not compute on this "
+             f"rank's model-axis blocks")
+    batch = train_batch(cfg, ZERO_ACCUM, ZERO_BATCH, ZERO_SEQ, seed + 1)
     losses, wall_ms, sent, replicas = [], [], [], []
     weights, crossed = weight_shapes(model, model.ctx), []
-    for i in range(TP_STEPS):
+    for i in range(steps):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         (state, metrics), b = tp_traffic(lambda: step(state, batch, i),
@@ -5934,6 +6028,51 @@ def tp_train(rank: int, mesh, device) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def tp_f32(rank: int, mesh, device, out_dir: str) -> dict:
+    """(f)'s f32 check on one rank: the loss and the gradient of one
+    ZeRO + TP step of ``tp_f32_cfg`` on the weights and batch of
+    ``tp_f32_one``; each rank holds its own blocks of each gradient to
+    the same blocks of the one-device file (mmap), and the partial sums
+    of the ranks that own them add up to each leaf's gaps."""
+    from repro_torch.models import ShardCtx, build
+    from repro_torch.models.base import leaves
+    from repro_torch.sharding.rules import merged_rules
+    from repro_torch.train import AdamWConfig, make_train_step, zero_shardings
+    cfg = tp_f32_cfg()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build(cfg, ShardCtx(mesh, merged_rules(mesh)), device="meta")
+    psh, gsh = zero_shardings(model, mesh)
+    state = zero_state(zero_draw(cfg, device, SEED + 186, psh), model, gsh,
+                       torch.float32, device)
+    step = make_train_step(model, AdamWConfig(lr=TRAIN_CPU_LR), gsh,
+                           param_shardings=psh, device=device)
+    batch = train_batch(cfg, 1, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, SEED + 187)
+    loss, grads = step.grads(state, batch)
+    del state
+    one = torch.load(os.path.join(out_dir, "tp_f32.pt"), mmap=True)
+    paths, sums = [], []
+    for (path, g), (_, s) in zip(leaves(grads), leaves(gsh)):
+        k = "/".join(map(str, path))
+        paths.append(k)
+        if not owns(s):
+            sums.append([0.0] * 5)
+            continue
+        a = one["grads"][k]
+        want = a[tuple(slice(lo, hi) for lo, hi in s.bounds(a.shape))]
+        sums.append(zero_sums(g, want.to(device)))
+    total = world_rows(sums, torch.float64).sum(0)
+    worst = max((zero_gaps(total[i].tolist())[0], p)
+                for i, p in enumerate(paths))
+    res = dict(loss=float(loss), one_loss=one["loss"], worst=worst,
+               seconds=time.perf_counter() - t0,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del grads, one
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 def tp_context_parallel(mesh, device) -> list[dict]:
@@ -5973,7 +6112,7 @@ def tp_context_parallel(mesh, device) -> list[dict]:
 
 
 def tp_rank(rank: int, out_dir: str, device: str = "cuda") -> None:
-    """Phase 16 on one rank of the gloo world: (a)-(e); writes
+    """Phase 16 on one rank of the gloo world: (a)-(g); writes
     ``tp_rank<rank>.json``."""
     from repro_torch.launch.mesh import make_debug_mesh
     dev = torch.device(device)
@@ -5990,7 +6129,9 @@ def tp_rank(rank: int, out_dir: str, device: str = "cuda") -> None:
         res[name] = tp_serve(rank, i, name, meshes[shape], dev, one)
         del one
         gc.collect()
-    res["train"] = tp_train(rank, meshes[(2, 2)], dev)
+    res["train"] = {name: tp_train(rank, name, meshes[shape], steps, dev)
+                    for name, shape, steps in TP_TRAIN}
+    res["f32"] = tp_f32(rank, meshes[(2, 2)], dev, out_dir)
     res["cp"] = tp_context_parallel(meshes[(1, 4)], dev)
     with open(os.path.join(out_dir, f"tp_rank{rank}.json"), "w") as f:
         json.dump(res, f)
@@ -6022,7 +6163,7 @@ def tp_path(card: str) -> dict:
     r0 = ranks[0]
     for i, (name, shape) in enumerate(TP_ARCHS):
         cfg, one, a = tp_cfg(name), ones[i], r0[name]
-        tag = "abc"[i]
+        tag = TP_TAGS[i]
         print(f"phase 16 ({tag}) {name} x {cfg.n_layers} layers at full "
               f"width (d {cfg.d_model}, heads {cfg.n_heads}/"
               f"{cfg.n_kv_heads}, V {cfg.vocab}), {a['full']:,} "
@@ -6063,41 +6204,56 @@ def tp_path(card: str) -> dict:
             if len(set(auxes)) != 1 or not abs(
                     auxes[0] - one["aux"]) <= 1e-2 * abs(one["aux"]):
                 fail(f"phase 16 ({tag}): aux {auxes} vs {one['aux']}")
-    greedy = {json.dumps(r[n]["greedy"]) for r in ranks for n, _ in
-              TP_ARCHS[:1]}
-    if len(greedy) != 1:
-        fail("phase 16: ranks disagree on the greedy tokens")
+    for n, _ in TP_ARCHS:
+        if len({json.dumps(r[n]["greedy"]) for r in ranks}) != 1:
+            fail(f"phase 16 {n}: ranks disagree on the greedy tokens")
 
-    t = r0["train"]
-    print(f"phase 16 (a) training: {TRAIN_ARCH} x {ZERO_LAYERS} layers, "
-          f"{TP_STEPS} ZeRO + TP steps of {ZERO_ACCUM} x {ZERO_BATCH} x "
-          f"{ZERO_SEQ} on 2 x 2: losses "
-          + ", ".join(f"{x:.4f}" for x in t["losses"])
-          + "; (phase 15 (b) holds one f32 layer of this step to one "
-          f"device); {card}")
-    for r in ranks:
-        x = r["train"]
-        print(f"  rank {r['rank']}: holds {x['mine']:,} of {x['full']:,} "
-              f"state elements ({100 * x['mine'] / x['full']:.1f}%), peak "
-              f"{x['peak_gib']:.2f} GiB, steps "
-              + ", ".join(f"{w:.0f}" for w in x["wall_ms"])
-              + " ms host wall, sent " + "; ".join(gb(b) for b in
-                                                  x["bytes"])
-              + "; replicated shards: " + "; ".join(
-                  f"{s} leaves, {p} pairs, {d} differ"
-                  for s, p, d in x["replicas"]))
-    losses = [r["train"]["losses"] for r in ranks]
-    if any(x != losses[0] for x in losses) or not losses[0][-1] < \
-            losses[0][0]:
-        fail(f"phase 16 (a): losses {losses}")
-    if any(d for r in ranks for _, _, d in r["train"]["replicas"]):
-        fail("phase 16 (a): replicated shards differ across ranks")
-    crossed = [(r["rank"], k, r[k]["crossed"]) for r in ranks
-               for k in [n for n, _ in TP_ARCHS] + ["train"]
-               if r[k]["crossed"]]
+    for name, shape, steps in TP_TRAIN:
+        t, tag = r0["train"][name], TP_TAGS[[n for n, _ in
+                                             TP_ARCHS].index(name)]
+        print(f"phase 16 ({tag}) training: {name} x "
+              f"{tp_cfg(name).n_layers} layers, {steps} ZeRO + TP "
+              f"step(s) of {ZERO_ACCUM} x {ZERO_BATCH} x {ZERO_SEQ} on "
+              f"{shape[0]} x {shape[1]}: losses "
+              + ", ".join(f"{x:.4f}" for x in t["losses"]) + f"; {card}")
+        for r in ranks:
+            x = r["train"][name]
+            print(f"  rank {r['rank']}: holds {x['mine']:,} of "
+                  f"{x['full']:,} state elements "
+                  f"({100 * x['mine'] / x['full']:.1f}%), peak "
+                  f"{x['peak_gib']:.2f} GiB, steps "
+                  + ", ".join(f"{w:.0f}" for w in x["wall_ms"])
+                  + " ms host wall, sent " + "; ".join(gb(b) for b in
+                                                      x["bytes"])
+                  + "; replicated shards: " + "; ".join(
+                      f"{s} leaves, {p} pairs, {d} differ"
+                      for s, p, d in x["replicas"]))
+        losses = [r["train"][name]["losses"] for r in ranks]
+        if any(x != losses[0] for x in losses) or not all(
+                math.isfinite(x) for x in losses[0]) or (
+                steps > 1 and not losses[0][-1] < losses[0][0]):
+            fail(f"phase 16 ({tag}): losses {losses}")
+        if any(d for r in ranks for _, _, d in r["train"][name]["replicas"]):
+            fail(f"phase 16 ({tag}): replicated shards differ across ranks")
+    f = r0["f32"]
+    rel_loss = abs(f["loss"] - f["one_loss"]) / abs(f["one_loss"])
+    print(f"phase 16 (f) f32: {TP_F32_ARCH} x {ZERO_F32_LAYERS} layer, "
+          f"f32, ZeRO-3, one ZeRO + TP step of 1 x {TRAIN_CPU_BATCH} x "
+          f"{TRAIN_CPU_SEQ} on 2 x 2 vs one device: loss {f['loss']:.6f} "
+          f"vs {f['one_loss']:.6f} (rel {rel_loss:.2e}, bound "
+          f"{TRAIN_CPU_LOSS_RTOL}), worst gradient rel Frobenius "
+          f"{f['worst'][0]:.3e} at {f['worst'][1]} (bound "
+          f"{TRAIN_CPU_GRAD_FROB}); {f['seconds']:.1f} s, peak "
+          f"{f['peak_gib']:.2f} GiB a rank")
+    if not (rel_loss <= TRAIN_CPU_LOSS_RTOL
+            and f["worst"][0] <= TRAIN_CPU_GRAD_FROB):
+        fail(f"phase 16 (f) f32: {f}")
+    crossed = [(r["rank"], k, x["crossed"]) for r in ranks
+               for k, x in [(n, r[n]) for n, _ in TP_ARCHS]
+               + list(r["train"].items()) if x["crossed"]]
     print(f"phase 16: collectives over the model axis with a weight's "
           f"shape (whole or a block) in every prefill, decode step and "
-          f"train step of (a)-(c) on every rank: {len(crossed)}")
+          f"train step of (a)-(c), (f), (g) on every rank: {len(crossed)}")
     if crossed:
         fail(f"phase 16: a weight crossed the model axis: {crossed[:4]}")
 
@@ -6111,18 +6267,22 @@ def tp_path(card: str) -> dict:
               f"device, CUDA events; {TP_HEADS_NOTE}")
         if not c["max_err"] < TP_CP_BOUND or c["collectives"] != 1:
             fail(f"phase 16 (d): {c}")
-    h = r0[TP_ARCHS[0][0]]["head"]
-    print(f"phase 16 (e) TM head on the pooled TP prefill states "
-          f"{tuple(h['shape'])}: fused_cotm launched {h['launches']} "
-          f"time(s) in the window, scores bitwise equal to "
-          f"fused_cotm_ref ({h['nonzero']} nonzero of {h['n']})")
-    if h["launches"] == 0:
-        fail("phase 16 (e): fused_cotm was never launched on the TP path")
+    heads = {}                  # K -> (launches, max abs err)
+    for name in TP_HEADS:
+        h = r0[name]["head"]
+        print(f"phase 16 (e) TM head on {name}'s pooled TP prefill states "
+              f"{tuple(h['shape'])}, K = {h['K']}: fused_cotm launched "
+              f"{h['launches']} time(s) in the window, scores bitwise equal "
+              f"to fused_cotm_ref ({h['nonzero']} nonzero of {h['n']})")
+        if h["launches"] == 0:
+            fail(f"phase 16 (e): fused_cotm was never launched on {name}'s "
+                 f"TP path")
+        n, e = heads.get(h["K"], (0, 0.0))
+        heads[h["K"]] = (n + h["launches"], max(e, h["err"]))
     wall = time.perf_counter() - t0
     print(f"phase 16: tensor-parallel path done in {wall:.1f} s (the world "
           f"{world_s:.1f} s); {card}")
-    return dict(ranks=ranks, seconds=wall, launches=h["launches"],
-                err=h["err"])
+    return dict(ranks=ranks, seconds=wall, heads=heads)
 
 
 def kernel_resources(source: str) -> list[str]:
@@ -6218,8 +6378,12 @@ def main() -> int:
     del served, trained, compressed, coresident, _
     zero_path(card)
     tp = tp_path(card)
-    head_row["launches"] += tp["launches"]
-    head_row["max_abs_err"] = max(head_row["max_abs_err"], tp["err"])
+    for row, name in ((head_row, LM_ARCH), (ssm_row, SSM_ROW_ARCH)):
+        n, e = tp["heads"].pop(head_literals(name))
+        row["launches"] += n
+        row["max_abs_err"] = max(row["max_abs_err"], e)
+    if tp["heads"]:
+        fail(f"phase 16: head launches at no row's shape: {tp['heads']}")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -39,7 +39,7 @@ import math
 
 import torch
 
-from ..sharding.layout import Sharding, all_gather_axis, all_reduce_axis
+from ..sharding.layout import all_gather_axis, all_reduce_axis
 from .base import (NULL_CTX, P, ShardCtx, dense, dense_out, model_split,
                    rms_norm)
 from .config import ModelConfig
@@ -201,13 +201,16 @@ def _attn_context_parallel(qp, kp, vp, scale: float, q_chunk: int,
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, cache_len: torch.Tensor, *,
-                     scale: float, ctx: ShardCtx = NULL_CTX) -> torch.Tensor:
+                     v_cache: torch.Tensor, cache_len: torch.Tensor | None,
+                     *, scale: float, ctx: ShardCtx = NULL_CTX,
+                     valid: torch.Tensor | None = None) -> torch.Tensor:
     """One-token attention against a KV cache.
 
     q (B, 1, Hq, D); caches (B, Smax, Hkv, D); cache_len () or (B,) —
     number of valid cache entries INCLUDING the current token; entries at
-    and beyond it are masked to -inf.
+    and beyond it are masked to -inf.  A ring cache (zamba2's) passes
+    ``valid`` (B, Smax), its mask of valid slots, in place of
+    ``cache_len``.
 
     On a mesh whose model axis divides the head_dim but not Hkv (the
     reference's ``shard_map`` leg, ``attention.py:258-291``) each rank
@@ -234,8 +237,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     logits = torch.einsum("bhgd,bkhd->bhgk", qg, _bf16_f32(k_cache)) * scale
     if leg:
         logits = all_reduce_axis(logits, ctx.mesh, "model")
-    pos = torch.arange(Smax, device=q.device)[None, :]
-    valid = pos < cache_len.reshape(-1, 1)
+    if valid is None:
+        pos = torch.arange(Smax, device=q.device)[None, :]
+        valid = pos < cache_len.reshape(-1, 1)
     logits = torch.where(valid[:, None, None, :], logits,
                          torch.tensor(-math.inf, dtype=F32, device=q.device))
     p = torch.softmax(logits, dim=-1)
@@ -465,8 +469,7 @@ def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int,
     out = {}
     for k, shape in shapes.items():
         if ctx.mesh is not None:
-            shape = Sharding(ctx.mesh, ctx.model_spec(
-                shape, axes[k])).shard_shape(shape)
+            shape = ctx.model_block(shape, axes[k])
         out[k] = torch.zeros(shape, dtype=dtype, device=device)
     out["len"] = torch.zeros((batch,), dtype=torch.int32, device=device)
     return out

@@ -23,15 +23,16 @@ are the reference's.  ``ShardCtx`` resolves them to mesh layouts
 (``sharding.layout.Sharding``) through a rule table
 (``sharding.rules``): the ZeRO train step (``train.step``) lays out the
 parameters, moments and gradients by them.  A model keeps its ctx
-(``build(cfg, ctx)``).  A ``StackedLM`` whose class computes tensor
-parallel (``tensor_parallel``: the transformer family) built on a mesh
-holds each weight as this rank's block over the ``"model"`` axis and
-computes on the blocks: its layers move their activations at the
-reference's constraint points with the explicit collectives of
-``sharding.layout`` (``ShardCtx.gather_seq`` / ``scatter_seq`` and the
-legs in ``attention.py`` / ``ffn.py``).  Every method then takes and
-returns this rank's batch rows.  The other families compute on one
-device, or in a sharded step on each data group's gathered weights.
+(``build(cfg, ctx)``).  A ``StackedLM`` of any family (transformer,
+rwkv6, zamba2) built on a mesh is tensor parallel: it holds each weight
+as this rank's block over the ``"model"`` axis and computes on the
+blocks.  Its layers move their activations at the reference's
+constraint points with the explicit collectives of ``sharding.layout``
+(``ShardCtx.gather_seq`` / ``scatter_seq`` and the legs in
+``attention.py`` / ``ffn.py`` / ``mamba2.py``); the embedding is a
+vocab-parallel lookup, the logits stay vocab-sharded and the loss takes
+a vocab-parallel log-softmax (``StackedLM``).  Every method then takes
+and returns this rank's batch rows.
 """
 from __future__ import annotations
 
@@ -48,7 +49,8 @@ from torch import nn
 from ..device import resolve_device
 from ..launch.mesh import axis_sizes
 from ..sharding.layout import (Sharding, all_gather_axis, all_reduce_axis,
-                               entry_names, reduce_scatter_axis)
+                               all_reduce_max, entry_names,
+                               reduce_scatter_axis)
 from .config import torch_dtype
 
 Tree = Any
@@ -259,6 +261,14 @@ class ShardCtx:
         tensor-parallel model holds (whole over the data axes)."""
         return tuple("model" if "model" in entry_names(e) else None
                      for e in self.spec(tuple(shape), tuple(axes)))
+
+    def model_block(self, shape, axes) -> tuple[int, ...]:
+        """The shape of this rank's block (``model_spec``) of a ``shape``
+        tensor with logical ``axes``; ``shape`` without a mesh."""
+        if self.mesh is None:
+            return tuple(shape)
+        return Sharding(self.mesh, self.model_spec(shape, axes)).shard_shape(
+            shape)
 
     def local(self, x: torch.Tensor, *axes: str | None) -> torch.Tensor:
         """This rank's block (a view) of the full tensor ``x`` laid out by
@@ -476,7 +486,7 @@ def loss_terms(nll: torch.Tensor, lse: torch.Tensor,
     """(the mean of the next-token ``nll`` (B, S - 1[, C]) over ``mask``
     (B, S) (all positions without one), the z-loss of the softmax
     normalizers ``lse``): the tail of ``next_token_loss`` and of the
-    vocab-parallel loss (``TransformerLM._vocab_parallel_loss``)."""
+    vocab-parallel loss (``StackedLM.token_loss``)."""
     if mask is not None:
         mask = mask[:, 1:].to(torch.float32)
         if nll.ndim == 3:                            # audio codebooks
@@ -502,15 +512,15 @@ class StackedLM(nn.Module):
     ``"meta"`` allocates nothing.  Parameters start uninitialized: fill
     them with ``init`` or copy them in.
 
-    A class with ``tensor_parallel`` built with a ``ctx`` on a mesh is
-    tensor parallel: each parameter is this rank's block under
-    ``ctx.model_spec`` (the ``"model"`` entries of ``ctx.spec``: whole
-    over the data axes), ``init`` draws each full leaf as one device does
-    and keeps the block, ``load_tree`` / ``bound`` take a leaf at its
-    full shape (and keep its block) or at the block's, and ``tree`` gives
-    the blocks."""
-
-    tensor_parallel = False
+    Built with a ``ctx`` on a mesh it is tensor parallel: each parameter
+    is this rank's block under ``ctx.model_spec`` (the ``"model"``
+    entries of ``ctx.spec``: whole over the data axes), ``init`` draws
+    each full leaf as one device does and keeps the block, ``load_tree``
+    / ``bound`` take a leaf at its full shape (and keep its block) or at
+    the block's, and ``tree`` gives the blocks.  The vocab-parallel
+    pieces every family shares live here: the embedding lookup
+    (``lookup``), ``gather_vocab``, the next-token loss (``token_loss``)
+    and the prefill's last position (``last_position``)."""
 
     def __init__(self, cfg, ctx: ShardCtx = NULL_CTX, *,
                  device: str | torch.device | None = None):
@@ -519,7 +529,7 @@ class StackedLM(nn.Module):
         self.ctx = ctx
         dev = resolve_device(device)
         decls = self.decls()
-        self.tp = self.tensor_parallel and ctx.mesh is not None
+        self.tp = ctx.mesh is not None
         # leaf path -> Sharding of this rank's block (tensor parallel)
         self._blocks = ({path: Sharding(ctx.mesh, ctx.model_spec(
             p.shape, p.axes)) for path, p in leaves(decls)}
@@ -554,6 +564,74 @@ class StackedLM(nn.Module):
     @property
     def compute_dtype(self) -> torch.dtype:
         return torch_dtype(self.cfg.dtype)
+
+    # -- the vocab-parallel pieces ------------------------------------------
+    def _vocab(self) -> tuple[int, int] | None:
+        """(first vocab row, rows) of this rank's block of the embedding,
+        None where the vocab is whole."""
+        emb = self.params["embed"]
+        dim = emb.ndim - 2
+        if not model_split(self.params, "embed", dim):
+            return None
+        n = emb.shape[dim]
+        return self.ctx.model_rank * n, n
+
+    def lookup(self, tokens: torch.Tensor, table: torch.Tensor
+               ) -> torch.Tensor:
+        """``F.embedding(tokens, table)``; on a mesh whose rules split the
+        vocab, ``table`` is this rank's vocab rows and the tokens outside
+        them give zeros: a partial sum over the model axis with one
+        nonzero term a position (so its sum is exact)."""
+        vocab = self._vocab()
+        if vocab is None:
+            return F.embedding(tokens, table)
+        lo, n = vocab
+        i = tokens - lo
+        hit = (i >= 0) & (i < n)
+        return F.embedding(i.clamp(0, n - 1), table) * hit[..., None]
+
+    def gather_vocab(self, logits: torch.Tensor) -> torch.Tensor:
+        """Vocab-sharded logits -> whole over the vocab on every rank of
+        the model axis (as they are without a mesh)."""
+        if self._vocab() is None:
+            return logits
+        return all_gather_axis(logits, self.ctx.mesh, "model",
+                               logits.ndim - 1)
+
+    def last_position(self, x: torch.Tensor, S: int) -> torch.Tensor:
+        """The last position (B, 1, ...) of ``x`` at the layer boundary's
+        layout of a sequence of ``S``: where the sequence is split over
+        the model axis, the last rank's last row, on every rank."""
+        last = x[:, -1:]
+        if self.ctx.seq_split(S):
+            last = all_gather_axis(last, self.ctx.mesh, "model", 1)[:, -1:]
+        return last
+
+    def token_loss(self, logits: torch.Tensor, tokens: torch.Tensor,
+                   mask: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(CE, z-loss) of ``next_token_loss``; on a mesh whose rules
+        split the vocab, of this rank's vocab block of the logits (the
+        reference's ``transformer.py:192``): the max, the sum of
+        exponentials and the target's logit each reduced over the model
+        axis, so the (B, S, V) logits are never gathered.  The same
+        value on every rank of the model axis."""
+        vocab = self._vocab()
+        if vocab is None:
+            return next_token_loss(logits, tokens, mask)
+        mesh = self.ctx.mesh
+        targets = tokens[:, 1:].long()
+        lg = logits[:, :-1]
+        mx = all_reduce_max(lg.amax(dim=-1), mesh, "model")
+        i = targets - vocab[0]
+        hit = (i >= 0) & (i < lg.shape[-1])
+        tgt = torch.gather(lg, -1, i.clamp(0, lg.shape[-1] - 1)[..., None]
+                           )[..., 0] * hit
+        se, tgt = all_reduce_axis(torch.stack(
+            [torch.exp(lg - mx[..., None]).sum(dim=-1), tgt]), mesh,
+            "model").unbind(0)
+        lse = mx + torch.log(se)
+        return loss_terms(lse - tgt, lse, mask)
 
     def leaf(self, path: tuple):
         """The parameter at a path of the reference's tree; a

@@ -12,13 +12,31 @@ over the state channel axis) for prefill and ``la_step`` for decode.
 Precision, as the reference's: the projections, the conv, the D-skip and
 the gated norm run in the compute dtype; softplus of ``dt + dt_bias``, the
 decay and the recurrence in f32.
+
+On a mesh (``ctx``, a tensor-parallel model's ``ShardCtx``; the
+reference's constraint points ``mamba2.py:86,133,135``) the block takes
+its input whole over the sequence and returns its output at the layer
+boundary's layout.  ``in_proj``, ``conv_w`` / ``conv_b`` are split in
+even blocks of the fused ``z | x | B | C | dt`` width, which are not
+aligned with the heads (zamba2-7b's 14704-wide ``in_proj`` on 4 ranks is
+3676 columns a rank); the activations move instead of the weights:
+``in_proj`` runs column-parallel and its output is all-gathered, each
+rank convolves the columns of its own conv block (the conv is per
+channel) and the conv output is all-gathered, then each rank takes its
+heads' ``x`` and ``dt`` and its heads' groups' ``B`` / ``C`` and runs
+the recurrence on its heads.  The gated RMSNorm all-reduces its f32 sum
+of squares over the model axis, and ``out_proj`` runs row-parallel, its
+partial sums reduce-scattered (``ShardCtx.scatter_seq``).  A dim that
+does not divide the model axis is whole, and that part is computed
+whole on every rank.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from .base import P, dense, rms_norm, silu
+from ..sharding.layout import all_gather_axis, all_reduce_axis
+from .base import NULL_CTX, P, ShardCtx, dense, model_split, rms_norm, silu
 from .config import ModelConfig
 from .ssm_common import chunked_la, la_step
 
@@ -76,7 +94,37 @@ def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
     return z, xbc, dt, di, gN
 
 
+def _whole(t: torch.Tensor, split: bool, ctx: ShardCtx) -> torch.Tensor:
+    """``t`` whole over its last dim: all-gathered over the model axis
+    where ``split`` (``t`` is this rank's even block of it)."""
+    return all_gather_axis(t, ctx.mesh, "model", t.ndim - 1) if split else t
+
+
+def _mine(t: torch.Tensor, split: bool, ctx: ShardCtx,
+          dim: int = -1) -> torch.Tensor:
+    """This rank's even block of ``t`` along ``dim`` where ``split``
+    (a tensor every model rank holds whole), else ``t``."""
+    if not split:
+        return t
+    n = t.shape[dim] // ctx.model_size
+    return t.narrow(dim, ctx.model_rank * n, n)
+
+
+def _gated_norm(y: torch.Tensor, z: torch.Tensor, gamma: torch.Tensor,
+                ctx: ShardCtx, split: bool) -> torch.Tensor:
+    """``rms_norm(y, gamma) * silu(z)`` over d_inner; where ``split``,
+    ``y`` / ``z`` / ``gamma`` are this rank's block of it and the f32 sum
+    of squares is all-reduced over the model axis."""
+    if not split:
+        return rms_norm(y, gamma) * silu(z)
+    ss = all_reduce_axis(y.float().square().sum(dim=-1, keepdim=True),
+                         ctx.mesh, "model")
+    inv = torch.rsqrt(ss / (y.shape[-1] * ctx.model_size) + 1e-6)
+    return y * inv.to(y.dtype) * (1.0 + gamma.to(y.dtype)) * silu(z)
+
+
 def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig, *,
+                  ctx: ShardCtx = NULL_CTX,
                   state: dict | None = None) -> tuple[torch.Tensor, dict]:
     """x (B, S, d) -> (out (B, S, d), the state for decode).
 
@@ -84,14 +132,25 @@ def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig, *,
     (B, W-1, conv_ch), left-padded with zeros when S < W-1, "s": (B, H,
     N, P) f32}; decode (S == 1) reads such a state and returns the next
     one (fresh tensors: the caller writes them where it keeps them).
+
+    On a mesh (module docstring) ``x`` is whole over the sequence, the
+    weights are this rank's blocks (``p.specs``), the output is at
+    ``("batch", "seq", None)`` and the state is this rank's block under
+    ``cache_axes`` (``conv`` its conv block's channels, ``s`` its
+    heads).
     """
     s = cfg.ssm
     dims = mamba_dims(cfg)
     B, S, _ = x.shape
     H, Pd, N, G = dims["n_heads"], s.head_dim, s.state_dim, s.n_groups
+    conv = model_split(p, "conv_w", 1)
+    heads = model_split(p, "dt_bias", 0)
+    inner = model_split(p, "out_proj", 0)       # "mlp" over d_inner
 
-    zxbcdt = dense(x, p["in_proj"])
+    zxbcdt = _whole(dense(x, p["in_proj"]), model_split(p, "in_proj", 1),
+                    ctx)
     z, xbc, dt, di, gN = _split_proj(cfg, zxbcdt)
+    xbc = _mine(xbc, conv, ctx)
 
     new_state: dict = {}
     if state is None:
@@ -108,20 +167,26 @@ def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig, *,
         window = torch.cat([state["conv"].to(xbc.dtype), xbc], dim=1)
         # einsum("bwc,wc->bc") in xbc's dtype: exact products, an f32
         # sum, one rounding (the reference's dot).
-        conv = (window.float() * p["conv_w"].to(xbc.dtype).float()).sum(1)
-        xbc = (conv.to(xbc.dtype) + p["conv_b"].to(xbc.dtype))[:, None]
+        conv_out = (window.float()
+                    * p["conv_w"].to(xbc.dtype).float()).sum(1)
+        xbc = (conv_out.to(xbc.dtype) + p["conv_b"].to(xbc.dtype))[:, None]
         new_state["conv"] = window[:, 1:]
-    xbc = silu(xbc)
+    xbc = _whole(silu(xbc), conv, ctx)
 
-    xs = xbc[..., :di].reshape(B, S, H, Pd)
+    # this rank's h heads (all H where "heads" is whole)
+    xs = _mine(xbc[..., :di], heads, ctx)
+    h = xs.shape[-1] // Pd
+    xs = xs.reshape(B, S, h, Pd)
     rep = H // G                  # groups are contiguous blocks of heads
-    Bm = xbc[..., di:di + gN].reshape(B, S, G, N).repeat_interleave(rep, 2)
-    Cm = xbc[..., di + gN:].reshape(B, S, G, N).repeat_interleave(rep, 2)
+    Bm, Cm = (_mine(xbc[..., lo:lo + gN].reshape(B, S, G, N)
+                    .repeat_interleave(rep, 2), heads, ctx, 2)
+              for lo in (di, di + gN))
+    dt = _mine(dt, heads, ctx)
 
-    dt = F.softplus(dt.float() + p["dt_bias"].float())        # (B,S,H)
+    dt = F.softplus(dt.float() + p["dt_bias"].float())        # (B,S,h)
     log_a = -torch.exp(p["a_log"].float()) * dt               # <= 0
-    v = xs * dt[..., None].to(xs.dtype)                       # (B,S,H,P)
-    log_w = log_a[..., None].expand(B, S, H, N)
+    v = xs * dt[..., None].to(xs.dtype)                       # (B,S,h,P)
+    log_w = log_a[..., None].expand(B, S, h, N)
 
     if state is None:
         y, new_state["s"] = chunked_la(Cm, Bm, v, log_w, inclusive=True,
@@ -132,18 +197,8 @@ def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig, *,
         y = y1[:, None]
 
     y = y + xs * p["d_skip"].to(xs.dtype)[None, None, :, None]
-    y = y.reshape(B, S, di)
-    y = rms_norm(y, p["norm"]) * silu(z)
-    return dense(y, p["out_proj"]), new_state
-
-
-def init_mamba_state(cfg: ModelConfig, batch: int,
-                     dtype: torch.dtype = torch.bfloat16,
-                     device: torch.device | str | None = None) -> dict:
-    s = cfg.ssm
-    dims = mamba_dims(cfg)
-    return dict(
-        conv=torch.zeros((batch, s.conv_width - 1, dims["conv_ch"]),
-                         dtype=dtype, device=device),
-        s=torch.zeros((batch, dims["n_heads"], s.state_dim, s.head_dim),
-                      dtype=torch.float32, device=device))
+    y = y.reshape(B, S, h * Pd)
+    if not heads:                 # whole heads: this rank's d_inner block
+        y = _mine(y, inner, ctx)
+    y = _gated_norm(y, _mine(z, inner, ctx), p["norm"], ctx, inner)
+    return ctx.scatter_seq(dense(y, p["out_proj"]), inner), new_state

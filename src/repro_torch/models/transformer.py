@@ -38,12 +38,9 @@ import math
 from typing import Any
 
 import torch
-import torch.nn.functional as F
 
-from ..sharding.layout import all_gather_axis, all_reduce_axis, all_reduce_max
 from .attention import attn_decls, attn_forward, init_attn_cache
-from .base import (P, StackedLM, layer_norm, loss_terms, model_split,
-                   next_token_loss, rms_norm, tree_map)
+from .base import P, StackedLM, layer_norm, rms_norm, tree_map
 from .config import ModelConfig
 from .ffn import decls_mlp, decls_moe, mlp_forward, moe_forward
 
@@ -71,8 +68,6 @@ class TransformerLM(StackedLM):
     """The transformer LM of one config on one device, or tensor parallel
     on a mesh (``StackedLM``: built with ``device=None`` it lives on
     ``cuda``; ``"meta"`` allocates nothing)."""
-
-    tensor_parallel = True
 
     @property
     def n_front(self) -> int:
@@ -147,42 +142,24 @@ class TransformerLM(StackedLM):
         return x + h, aux, new_cache
 
     # -- embedding / head ----------------------------------------------------
-    def _vocab(self) -> tuple[int, int] | None:
-        """(first vocab row, rows) of this rank's block of the embedding,
-        None where the vocab is whole."""
-        emb = self.params["embed"]
-        dim = emb.ndim - 2
-        if not model_split(self.params, "embed", dim):
-            return None
-        n = emb.shape[dim]
-        return self.ctx.model_rank * n, n
-
     def embed(self, tokens: torch.Tensor,
               extra_embeds: torch.Tensor | None = None) -> torch.Tensor:
         """Token embeddings in the compute dtype: audio codebooks summed,
         tied embeddings scaled by sqrt(d), vlm patch embeddings
         (``extra_embeds`` (B, S_img, d)) prepended to the text.  On a mesh
         (the reference's ``transformer.py:132``) a vocab-sharded table is
-        looked up where the token is this rank's (zeros elsewhere) and the
-        partial sums reduce-scattered to ``("batch", "seq", None)`` (each
-        position has one nonzero term, so the sum is exact)."""
+        looked up where the token is this rank's (``StackedLM.lookup``)
+        and the partial sums reduce-scattered to ``("batch", "seq",
+        None)``."""
         cfg, ctx = self.cfg, self.ctx
         emb = self.params["embed"]
         tokens = tokens.long()
-        vocab = self._vocab() if ctx.mesh is not None else None
-
-        def look(t, table):
-            if vocab is None:
-                return F.embedding(t, table)
-            lo, n = vocab
-            i = t - lo
-            hit = (i >= 0) & (i < n)
-            return F.embedding(i.clamp(0, n - 1), table) * hit[..., None]
+        vocab = self._vocab()
         if cfg.modality == "audio" and cfg.n_codebooks > 1:
-            x = sum(look(tokens[..., c], emb[c])
+            x = sum(self.lookup(tokens[..., c], emb[c])
                     for c in range(cfg.n_codebooks))
         else:
-            x = look(tokens, emb)
+            x = self.lookup(tokens, emb)
         x = x.to(self.compute_dtype)
         if cfg.tie_embeddings:
             x = x * math.sqrt(cfg.d_model)
@@ -209,14 +186,6 @@ class TransformerLM(StackedLM):
         else:
             out = x @ self.params["lm_head"].to(x.dtype)
         return out.to(torch.float32)
-
-    def gather_vocab(self, logits: torch.Tensor) -> torch.Tensor:
-        """Vocab-sharded logits -> whole over the vocab on every rank of
-        the model axis (as they are without a mesh)."""
-        if self.ctx.mesh is None or self._vocab() is None:
-            return logits
-        return all_gather_axis(logits, self.ctx.mesh, "model",
-                               logits.ndim - 1)
 
     # -- full forward ---------------------------------------------------------
     def _stack(self, tokens: torch.Tensor, positions: torch.Tensor,
@@ -264,8 +233,8 @@ class TransformerLM(StackedLM):
         """Next-token CE + z-loss + MoE aux.  batch: tokens
         (B, S[, C]), optional loss_mask, positions, extra_embeds.  On a
         mesh the same value on every rank of the model axis; a
-        vocab-sharded head takes ``_vocab_parallel_loss`` (the reference's
-        ``transformer.py:192``)."""
+        vocab-sharded head takes the vocab-parallel loss
+        (``StackedLM.token_loss``)."""
         tokens = batch["tokens"]
         positions = batch.get("positions")
         if positions is None:
@@ -275,35 +244,8 @@ class TransformerLM(StackedLM):
                                    batch.get("extra_embeds"))
         if batch.get("extra_embeds") is not None:
             logits = logits[:, -tokens.shape[1]:]    # text positions only
-        vocab = self._vocab() if self.ctx.mesh is not None else None
-        if vocab is None:
-            ce, zl = next_token_loss(logits, tokens, batch.get("loss_mask"))
-        else:
-            ce, zl = self._vocab_parallel_loss(logits, tokens, vocab[0],
-                                               batch.get("loss_mask"))
+        ce, zl = self.token_loss(logits, tokens, batch.get("loss_mask"))
         return ce + zl + aux, {"ce": ce, "aux": aux, "zloss": zl}
-
-    def _vocab_parallel_loss(self, logits: torch.Tensor,
-                             tokens: torch.Tensor, lo: int,
-                             mask: torch.Tensor | None = None
-                             ) -> tuple[torch.Tensor, torch.Tensor]:
-        """``next_token_loss`` on this rank's vocab block (rows lo..) of
-        the logits: the max, the sum of exponentials and the target's
-        logit each reduced over the model axis, so the (B, S, V) logits
-        are never gathered."""
-        mesh = self.ctx.mesh
-        targets = tokens[:, 1:].long()
-        lg = logits[:, :-1]
-        mx = all_reduce_max(lg.amax(dim=-1), mesh, "model")
-        i = targets - lo
-        hit = (i >= 0) & (i < lg.shape[-1])
-        tgt = torch.gather(lg, -1, i.clamp(0, lg.shape[-1] - 1)[..., None]
-                           )[..., 0] * hit
-        se, tgt = all_reduce_axis(torch.stack(
-            [torch.exp(lg - mx[..., None]).sum(dim=-1), tgt]), mesh,
-            "model").unbind(0)
-        lse = mx + torch.log(se)
-        return loss_terms(lse - tgt, lse, mask)
 
     # -- serving -------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int,
@@ -361,11 +303,7 @@ class TransformerLM(StackedLM):
                             for k in layer_caches[0]}}
         if new_front:
             cache["front"] = new_front
-        last = x[:, -1:]
-        if self.ctx.seq_split(positions.shape[-1]):
-            # the last rank's last row: each rank's last rows, gathered
-            last = all_gather_axis(last, self.ctx.mesh, "model", 1)[:, -1:]
-        return self.logits(last), cache
+        return self.logits(self.last_position(x, positions.shape[-1])), cache
 
     @torch.no_grad()
     def decode_step(self, cache: dict, tokens: torch.Tensor,

@@ -31,25 +31,21 @@ rank's shards, the parameters laid out by ``param_shardings``
 * it takes its data slice of the global batch (``launch.specs
   .train_batch_axes``: the batch dim over the data axes, whole where it
   does not divide them);
-* for the transformer family (``StackedLM.tensor_parallel``) it computes
-  tensor parallel: it casts its master shards to the compute dtype once
-  a step and gathers them over the data axes only (where ``zero3``
-  splits "embed"), so each rank holds its block over the model axis and
-  never a full copy of a leaf that the rules split over it; the model
-  (built with a ``ShardCtx`` on the step's mesh) computes on the
-  blocks, and its loss, the same on every rank of the model axis, seeds
-  the backward with 1 / model (``sharding.layout``: a tensor every model
-  rank holds stands for the sum over them);
-* for ``RWKV6LM`` / ``Zamba2LM`` (whose constraint points are not
-  ported) it casts its master shards once a step and gathers them to the
-  full tree, so each data group computes its microbatch on the gathered
-  weights, the model axis holding storage only;
+* it computes tensor parallel, for every family of the LM stack: it
+  casts its master shards to the compute dtype once a step and gathers
+  them over the data axes only (where ``zero3`` splits "embed"), so each
+  rank holds its block over the model axis and never a full copy of a
+  leaf that the rules split over it; the model (built with a
+  ``ShardCtx`` on the step's mesh) computes on the blocks, and its loss,
+  the same on every rank of the model axis, seeds the backward with
+  1 / model (``sharding.layout``: a tensor every model rank holds stands
+  for the sum over them);
 * as the backward finishes each leaf's gradient, it reduces it, in
   f32, into this rank's shard of ``grad_shardings`` (a reduce-scatter
-  over the data axes, as GSPMD does for the reference's constraint; and,
-  tensor parallel, an all-reduce over the model axis of the leaves that
-  the model axis does not split, whose gradients are partial sums over
-  it) and frees the full one; the accumulators hold the shards only;
+  over the data axes, as GSPMD does for the reference's constraint, and
+  an all-reduce over the model axis of the leaves that the model axis
+  does not split, whose gradients are partial sums over it) and frees
+  the full one; the accumulators hold the shards only;
 * gradients and loss are averaged over the data ranks, so they are those
   of the global batch's mean; ``apply_updates`` then updates the
   moments' block of each parameter and gathers it over the data axes.
@@ -175,9 +171,8 @@ class ShardedStep:
     """The ZeRO train step on a mesh (module docstring): ``step(state,
     batch, seed) -> (state, metrics)`` on every rank, the state's tensors
     this rank's shards; ``step.grads(state, batch)`` gives the loss and
-    the gradient shards alone.  ``tp``: whether it computes tensor
-    parallel (the transformer family) or on gathered weights (the ssm and
-    hybrid families)."""
+    the gradient shards alone.  The model computes tensor parallel on
+    the step's mesh."""
 
     def __init__(self, model, opt_cfg: AdamWConfig, param_shardings,
                  grad_shardings, *,
@@ -189,18 +184,16 @@ class ShardedStep:
         self._p = [s for _, s in leaves(param_shardings)]
         self._g = [s for _, s in leaves(grad_shardings)]
         self.mesh = self._g[0].mesh
-        self.tp = bool(model.tensor_parallel)
-        if self.tp and model.ctx.mesh is not self.mesh:
+        if model.ctx.mesh is not self.mesh:
             raise ValueError(
                 f"{model.cfg.name} computes tensor parallel on the step's "
                 f"mesh: build it with ShardCtx(mesh, merged_rules(mesh))")
         self.model = model
-        self.n_model = (axis_sizes(self.mesh).get("model", 1) if self.tp
-                        else 1)
+        self.n_model = axis_sizes(self.mesh).get("model", 1)
         strip = lambda s: Sharding(self.mesh, tuple(
             None if "model" in entry_names(e) else e for e in s.spec))
-        # tensor parallel: the data-axis part of each layout, and the
-        # leaves whose gradients are partial sums over the model axis
+        # the data-axis part of each layout, and the leaves whose
+        # gradients are partial sums over the model axis
         self._data_p = [strip(s) for s in self._p]
         self._data_g = [strip(s) for s in self._g]
         self._partial = [self.n_model > 1 and not any(
@@ -225,12 +218,11 @@ class ShardedStep:
 
     def gathered(self, params) -> list[torch.Tensor]:
         """Each master shard cast to the compute dtype once and gathered
-        to its full leaf (tensor parallel: over the data axes only, to
-        this rank's block over the model axis), a new autograd leaf, in
-        tree order."""
-        shs = self._data_p if self.tp else self._p
+        over the data axes only, to this rank's block over the model axis,
+        a new autograd leaf, in tree order."""
         return [gather(p.detach().to(self.compute_dtype), s).detach()
-                .requires_grad_() for (_, p), s in zip(leaves(params), shs)]
+                .requires_grad_() for (_, p), s in zip(leaves(params),
+                                                       self._data_p)]
 
     def _mean(self, x: torch.Tensor, over: tuple[str, ...]) -> torch.Tensor:
         """The mean of the ranks' scalar ``x`` over the axes ``over`` (one
@@ -258,11 +250,8 @@ class ShardedStep:
         todo: set = set()
 
         def fold(j: int, g: torch.Tensor) -> None:
-            if self.tp:
-                g = reduce_shard(g, self._data_g[j], over + (
-                    ("model",) if self._partial[j] else ()), torch.float32)
-            else:
-                g = reduce_shard(g, self._g[j], over, torch.float32)
+            g = reduce_shard(g, self._data_g[j], over + (
+                ("model",) if self._partial[j] else ()), torch.float32)
             if n_over > 1:
                 g = g / n_over
             g = g.to(self.accum_dtype)
@@ -283,7 +272,7 @@ class ShardedStep:
                 with self.model.bound(tree):
                     loss, _ = self.model.loss({k: v[i] for k, v in
                                                local.items()})
-                    (loss / self.n_model if self.tp else loss).backward()
+                    (loss / self.n_model).backward()
                 loss_sum = loss_sum + loss.detach()
                 for j in sorted(todo):     # leaves the loss does not reach
                     fold(j, torch.zeros_like(full[j]))

@@ -135,16 +135,18 @@ class Legs:
             setattr(mod, name, fn)
 
 
-def greedy(model, batch: dict, lay=lambda t, axes: t, gather=None):
-    """Prefill, then DECODE greedy steps -> (prefill logits, [fed tokens],
-    [each step's logits], cache after prefill's shapes); ``lay`` takes
-    this rank's block of a full input, ``gather`` assembles the logits
-    whole (vocab and rows)."""
+def greedy(model, batch: dict, lay=lambda t, axes: t, gather=None,
+           max_len: int = MAX_LEN, steps: int = DECODE, caches=None):
+    """Prefill, then ``steps`` greedy steps -> (prefill logits, [fed
+    tokens], [each step's logits], cache after prefill's shapes); ``lay``
+    takes this rank's block of a full input, ``gather`` assembles the
+    logits whole (vocab and rows); ``caches``, a list, receives the cache
+    after each step (a copy)."""
     cfg = model.cfg
     pa, da = prefill_axes(cfg), decode_axes(cfg)
     gather = gather or (lambda t: t)
     args = [lay(batch["tokens"], pa["tokens"]),
-            lay(batch["positions"], pa["positions"]), MAX_LEN,
+            lay(batch["positions"], pa["positions"]), max_len,
             lay(batch["extra_embeds"], pa["extra_embeds"])
             if "extra_embeds" in batch else None]
     logits, cache = model.prefill(*args)
@@ -152,11 +154,13 @@ def greedy(model, batch: dict, lay=lambda t, axes: t, gather=None):
     first = gather(logits)
     nxt, last = first.argmax(-1), batch["positions"][..., -1:]
     fed, outs = [], []
-    for t in range(DECODE):
+    for t in range(steps):
         fed.append(nxt)
         logits, cache = model.decode_step(
             cache, lay(nxt, da["tokens"]),
             lay(last + 1 + t, da["positions"]))
+        if caches is not None:
+            caches.append(tree_map(torch.clone, cache))
         logits = gather(logits)
         outs.append(logits)
         nxt = logits.argmax(-1)
@@ -213,6 +217,17 @@ def _weight_ok(ctx, model) -> list[str]:
     return bad
 
 
+def step_blocks(step, state, model) -> bool:
+    """Whether every parameter the ZeRO step computes on (``gathered``:
+    this rank's shards gathered over the data axes) is this rank's block
+    under its ``ShardCtx.model_spec``: the step computes tensor
+    parallel.  A collective: every rank calls it."""
+    decls = [p for _, p in leaves(model.decls())]
+    want = [model.ctx.model_block(p.shape, p.axes) for p in decls]
+    got = [tuple(t.shape) for t in step.gathered(state.params)]
+    return got == want and any(w != p.shape for w, p in zip(want, decls))
+
+
 def _mesh_case(rank, case, cfg, tree, z, mesh, tag, out) -> None:
     ctx = ShardCtx(mesh, merged_rules(mesh))
     model = build(cfg, ctx, device="cpu").load_tree(tree)
@@ -252,7 +267,7 @@ def _mesh_case(rank, case, cfg, tree, z, mesh, tag, out) -> None:
     state = shard_state(tree, opt, psh, gsh)
     step = make_train_step(build(cfg, ctx, device="meta"), opt, gsh,
                            param_shardings=psh, device="cpu")
-    out[f"{tag}/tp"] = bool(step.tp)
+    out[f"{tag}/blocks"] = step_blocks(step, state, model)
     train = {k: v.numpy() for k, v in _tensors(z, f"{case}/train").items()}
     loss, grads = step.grads(state, train)
     out[f"{tag}/grads_loss"] = float(loss)

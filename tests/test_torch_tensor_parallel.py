@@ -292,7 +292,7 @@ def test_train_step_matches_one_device(world, case, shape):
     _, outs, _ = world
     out, tag = outs[0], _tag(case, shape)
     one = f"one/{case}/split{ranks.split_rows(case, shape)}"
-    assert bool(out[f"{tag}/tp"])
+    assert bool(out[f"{tag}/blocks"])
     want = out[f"{one}/loss"]
     for loss in (out[f"{tag}/grads_loss"], out[f"{tag}/loss"]):
         assert abs(loss - want) <= LOSS_RTOL * abs(want), (loss, want)
