@@ -149,7 +149,7 @@ Phases, each of which must pass or the script exits non-zero:
    f32 moments, 6 AdamW steps of 2 microbatches of 4 x 512
    ``synth_tokens`` on the repeated batch through ``make_train_step``:
    loss and grad norm finite every step, the last loss below the first,
-   every leaf updated; (b) its first 2 layers in f32, one step at B = 2,
+   every leaf updated; (b) its first layer in f32, one step at B = 2,
    S = 64 on the card against the CPU (loss, each leaf's gradient, the
    updated parameters); (c) every other config at full width one layer
    deep (deepseek: its dense front layer and one MoE layer; zamba2: 6
@@ -218,7 +218,21 @@ Phases, each of which must pass or the script exits non-zero:
    the CoTM head on the pooled prefill states of (a), (f) and (g)
    (gathered whole), one ``fused_cotm`` launch each in rank 0's own
    count window, bit for bit against ``fused_cotm_ref``, added to the
-   head's row of the kernel table at its K (8192 or 7168).
+   head's row of the kernel table at its K (8192 or 7168);
+17. the dry run against the card (``repro_torch.launch.dryrun.measure``:
+   the step on ``meta`` in a fake process group of the mesh's shape; it
+   launches no kernel): started at the script's start in a process of
+   its own that does not see the card, it runs the cells the card ran,
+   at their configs, depths and batches: phase 14 (f)'s llama3-8b x 8
+   step on one device, phase 16 (a)'s llama3-8b x 2 prefill of 4 x 512
+   and ZeRO + TP step on 2 x 2, and (g)'s zamba2-7b x 7 prefill and
+   step on 1 x 4.  Gates: each cell's per-rank state bytes (parameters
+   and moments) equal what every real rank held, and its bytes by mesh
+   axis equal, exactly, what the same run's ``record_traffic`` counted
+   on every rank (nothing, on one device); printed beside them, not
+   gated: the predicted peak (arguments + temp) against
+   ``torch.cuda.max_memory_allocated`` over the same step, and the
+   card's ``total_memory`` against ``dryrun.HBM_BYTES``.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -226,6 +240,7 @@ reference package.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -4517,7 +4532,9 @@ def ssm_path(device, card: str) -> tuple[dict, dict]:
 TRAIN_ARCH, TRAIN_LAYERS = "llama3-8b", 8
 TRAIN_ACCUM, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 4, 512, 6
 TRAIN_LR = 1e-3
-TRAIN_CPU_LAYERS, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, TRAIN_CPU_LR = 2, 2, 64, 1e-4
+# (b) runs one layer: its full-width CPU legs are most of the phase's
+# time
+TRAIN_CPU_LAYERS, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, TRAIN_CPU_LR = 1, 2, 64, 1e-4
 TRAIN_OTHER_BATCH, TRAIN_OTHER_SEQ, TRAIN_OTHER_STEPS = 2, 128, 2
 TRAIN_LM_STEPS, TRAIN_LM_FAIL, TRAIN_LM_SAVE = 60, 30, 15
 TRAIN_LM_BATCH, TRAIN_LM_SEQ = 8, 256       # examples/train_lm.py's defaults
@@ -4616,6 +4633,7 @@ def train_llama(device, card: str) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.models import build, torch_dtype
     from repro_torch.models.base import leaves
+    from repro_torch.sharding.layout import record_traffic
     from repro_torch.train import AdamWConfig, init_state, make_train_step
     cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
     t0 = time.perf_counter()
@@ -4645,15 +4663,19 @@ def train_llama(device, card: str) -> dict:
     step = make_train_step(model, opt, device=device)
     batch = train_batch(cfg, TRAIN_ACCUM, TRAIN_BATCH, TRAIN_SEQ, SEED + 141)
     before = leaf_samples(state.params)
-    losses, norms, step_ms, micro_ms, opt_ms = [], [], [], [], []
+    losses, norms, step_ms, micro_ms, opt_ms, sent = [], [], [], [], [], []
+    # the steps' own peak (phase 17), after the draw's
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     for i in range(TRAIN_STEPS):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
-        with step_events() as marks:
+        with step_events() as marks, record_traffic() as moved:
             s.record()
             state, metrics = step(state, batch, i)
             e.record()
         torch.cuda.synchronize()
+        sent.append(moved.bytes)
         step_ms.append(s.elapsed_time(e))
         micro_ms.append([a.elapsed_time(b) for a, b in marks["micro"]])
         opt_ms.append(marks["opt"][0][0].elapsed_time(marks["opt"][0][1]))
@@ -4662,7 +4684,8 @@ def train_llama(device, card: str) -> dict:
         if not (np.isfinite(losses[-1]) and np.isfinite(norms[-1])):
             fail(f"phase 14 (a) step {i}: loss {losses[-1]} grad_norm "
                  f"{norms[-1]}")
-    peak = torch.cuda.max_memory_allocated() - base
+    steps_peak = torch.cuda.max_memory_allocated()
+    peak = max(init_peak, steps_peak) - base
     if not losses[-1] < losses[0]:
         fail(f"phase 14 (a): loss did not fall: {losses}")
     after = leaf_samples(state.params)
@@ -4691,7 +4714,8 @@ def train_llama(device, card: str) -> dict:
                flop_share=flops / (med / 1e3) / 989e12,
                peak_gib=peak / 2**30, state_gib=state_gib,
                busy_share=busy / wall, wall_ms=wall * 1e3,
-               kernels=sum(calls.values()))
+               kernels=sum(calls.values()), steps_peak=steps_peak,
+               state_bytes=state_bytes(state), sent=sent)
     print(f"phase 14 (f) {TRAIN_ARCH} x {TRAIN_LAYERS}, {TRAIN_ACCUM} x "
           f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens a step: step "
           f"{med:.1f} ms (median of steps 2-{TRAIN_STEPS}; all "
@@ -4774,6 +4798,14 @@ def cpu_gaps(model, host, batch, device, lr: float | None) -> dict:
             (w - init[p]).double().reshape(1, -1))), p)
             for p, w in cpu["params"].items())
     return res
+
+
+def state_bytes(state) -> int:
+    """The bytes of a train state's parameters and moments on this
+    rank."""
+    from repro_torch.models.base import leaves
+    return sum(t.numel() * t.element_size() for part in (
+        state.params, state.m, state.v) for _, t in leaves(part))
 
 
 def train_cpu_parity(device) -> dict:
@@ -5864,6 +5896,7 @@ def tp_serve(rank: int, i: int, name: str, mesh, device, one: dict) -> dict:
     model = build(cfg, ctx, device=device).init(
         torch.Generator(device).manual_seed(SEED + 195 + i))
     mine = sum(p.numel() for p in model.parameters())
+    mine_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     init_s = time.perf_counter() - t0
     tokens, positions, extra = tp_inputs(cfg, i, device)
     max_len = positions.shape[-1] + LM_DECODE
@@ -5882,6 +5915,8 @@ def tp_serve(rank: int, i: int, name: str, mesh, device, one: dict) -> dict:
     # then the decode steps fed the one-device run's tokens
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     torch.cuda.synchronize()
+    before_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()      # the prefill's own (phase 17)
     w0 = time.perf_counter()
     ev[0].record()
     with torch.no_grad():
@@ -5890,6 +5925,7 @@ def tp_serve(rank: int, i: int, name: str, mesh, device, one: dict) -> dict:
     ev[1].record()
     torch.cuda.synchronize()
     pre_wall = (time.perf_counter() - w0) * 1e3
+    pre_peak = torch.cuda.max_memory_allocated()
     got = [whole(logits)]
     step_ms, step_wall, step_bytes = [], [], []
     last = positions[..., -1:]
@@ -5910,6 +5946,7 @@ def tp_serve(rank: int, i: int, name: str, mesh, device, one: dict) -> dict:
         got.append(whole(logits))
     got = torch.cat(got, 1)
     res = dict(name=name, mine=mine, full=model.n_params(), init_s=init_s,
+               mine_bytes=mine_bytes, prefill_peak=pre_peak,
                prefill_ms=ev[0].elapsed_time(ev[1]), prefill_wall_ms=pre_wall,
                step_ms=step_ms, step_wall_ms=step_wall,
                prefill_bytes=pre_bytes, step_bytes=step_bytes,
@@ -5940,7 +5977,8 @@ def tp_serve(rank: int, i: int, name: str, mesh, device, one: dict) -> dict:
     del model, cache, forced
     gc.collect()
     torch.cuda.empty_cache()
-    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["peak_gib"] = max(before_peak, torch.cuda.max_memory_allocated()
+                          ) / 2**30
     return res
 
 
@@ -6010,6 +6048,8 @@ def tp_train(rank: int, name: str, mesh, steps: int, device) -> dict:
     batch = train_batch(cfg, ZERO_ACCUM, ZERO_BATCH, ZERO_SEQ, seed + 1)
     losses, wall_ms, sent, replicas = [], [], [], []
     weights, crossed = weight_shapes(model, model.ctx), []
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()      # the steps' own (phase 17)
     for i in range(steps):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -6020,10 +6060,12 @@ def tp_train(rank: int, name: str, mesh, steps: int, device) -> dict:
         losses.append(float(metrics["loss"]))
         sent.append(b)
         replicas.append(zero_replicas(state, sh, mesh))
+    steps_peak = torch.cuda.max_memory_allocated()
     out = dict(losses=losses, wall_ms=wall_ms, bytes=sent,
                replicas=replicas, mine=mine, full=full,
                crossed=[list(map(str, r)) for r in crossed],
-               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+               state_bytes=state_bytes(state), steps_peak=steps_peak,
+               peak_gib=max(init_peak, steps_peak) / 2**30)
     del state, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -6285,6 +6327,124 @@ def tp_path(card: str) -> dict:
     return dict(ranks=ranks, seconds=wall, heads=heads)
 
 
+# -- phase 17 --------------------------------------------------------------
+
+# The dry run (repro_torch.launch.dryrun.measure) of the cells the card
+# runs, at their configs, depths and batches, in a process of its own
+# started at the script's start (the fake process group is
+# process-global; CUDA_VISIBLE_DEVICES is empty there, so it cannot touch
+# the card): (key, phase, architecture, mesh, kind).
+DRY_CELLS = (("14f", "14 (f)", TRAIN_ARCH, None, "train"),
+             ("16a/prefill", "16 (a)", "llama3-8b", (2, 2), "prefill"),
+             ("16a/train", "16 (a)", "llama3-8b", (2, 2), "train"),
+             ("16g/prefill", "16 (g)", "zamba2-7b", (1, 4), "prefill"),
+             ("16g/train", "16 (g)", "zamba2-7b", (1, 4), "train"))
+
+
+def dry_cells(out_path: str) -> None:
+    """Phase 17's dry runs: each of DRY_CELLS' records -> ``out_path``
+    (JSON).  Run by ``dry_start``, in a process of its own."""
+    import warnings
+    warnings.filterwarnings("ignore", category=FutureWarning)
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import measure
+    from repro_torch.models.config import ShapeSpec
+    recs = {}
+    for key, _, name, mesh, kind in DRY_CELLS:
+        if key == "14f":
+            cfg = dataclasses.replace(get_config(name), n_layers=TRAIN_LAYERS)
+            shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_ACCUM * TRAIN_BATCH,
+                              "train", accum=TRAIN_ACCUM)
+        elif kind == "train":
+            cfg = tp_cfg(name)
+            shape = ShapeSpec("train", ZERO_SEQ, ZERO_ACCUM * ZERO_BATCH,
+                              "train", accum=ZERO_ACCUM)
+        else:
+            cfg = tp_cfg(name)
+            shape = ShapeSpec("prefill", LM_PROMPT, LM_BATCH, "prefill")
+        recs[key] = measure(cfg, shape, mesh, max_len=LM_PROMPT + LM_DECODE)
+    with open(out_path, "w") as f:
+        json.dump(recs, f)
+
+
+def dry_start(out_dir: str) -> subprocess.Popen:
+    """``dry_cells`` in a process of its own that cannot see the card,
+    started now; stopped at exit if it is still running."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src"), ROOT]))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.dry_cells("
+         f"{os.path.join(out_dir, 'dry.json')!r})"], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def dry_path(proc: subprocess.Popen, out_dir: str, llama: dict,
+             tp: dict, card: str) -> dict:
+    """Phase 17: the dry run's records against what the card's ranks held
+    and sent (module docstring): ``llama`` is phase 14 (a)'s result,
+    ``tp`` phase 16's."""
+    from repro_torch.launch.dryrun import HBM_BYTES, HBM_NAME
+    t0 = time.perf_counter()
+    log, _ = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        fail(f"phase 17: the dry run failed:\n{log[-3000:]}")
+    with open(os.path.join(out_dir, "dry.json")) as f:
+        recs = json.load(f)
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"phase 17: the dry run of {len(DRY_CELLS)} cells on meta in "
+          f"fake worlds (a process of its own, started at the script's "
+          f"start: {sum(r['lower_s'] for r in recs.values()):.1f} s of "
+          f"runs); {torch.cuda.get_device_name(0)} total_memory {total} B "
+          f"(dryrun.HBM_BYTES {HBM_BYTES} B for {HBM_NAME}); {card}")
+    ranks = tp["ranks"]
+    for key, phase, name, mesh, kind in DRY_CELLS:
+        rec = recs[key]
+        if key == "14f":
+            held = [(0, llama["state_bytes"], llama["sent"],
+                     llama["steps_peak"])]
+        elif kind == "prefill":
+            held = [(r["rank"], r[name]["mine_bytes"],
+                     [r[name]["prefill_bytes"]], r[name]["prefill_peak"])
+                    for r in ranks]
+        else:
+            x = [(r["rank"], r["train"][name]) for r in ranks]
+            held = [(i, t["state_bytes"], t["bytes"], t["steps_peak"])
+                    for i, t in x]
+        m = rec["memory"]
+        want = m["argument_size_in_bytes"] + m["temp_size_in_bytes"]
+        depth = TRAIN_LAYERS if key == "14f" else tp_cfg(name).n_layers
+        print(f"  {phase} {name} x {depth} {kind} (run at depths "
+              f"{', '.join(map(str, rec['depth_run']))}) on "
+              f"{'one device' if mesh is None else f'{mesh[0]} x {mesh[1]}'}"
+              f": state {m['state_size_in_bytes']:,} B a rank (the ranks "
+              f"held " + ", ".join(f"{b:,}" for _, b, _, _ in held)
+              + f"); sent by axis {gb(rec['collectives']['by_axis']) or '-'}"
+              f" a {'step' if kind == 'train' else 'prefill'} (the ranks' "
+              f"record_traffic: " + "; ".join(
+                  gb(s[0]) or "-" for _, _, s, _ in held) + ")")
+        print(f"    predicted peak {want / 2**30:.3f} GiB (arguments "
+              f"{m['argument_size_in_bytes'] / 2**30:.3f} + temp "
+              f"{m['temp_size_in_bytes'] / 2**30:.3f}) vs "
+              f"max_memory_allocated " + ", ".join(
+                  f"{p / 2**30:.3f}" for _, _, _, p in held)
+              + " GiB: ratio " + ", ".join(
+                  f"{p / want:.3f}" for _, _, _, p in held)
+              + f"; {rec['cost']['flops']:.4e} FLOPs, "
+              f"{rec['cost']['bytes accessed']:.4e} op bytes a rank")
+        for r, b, sent, _ in held:
+            if b != m["state_size_in_bytes"]:
+                fail(f"phase 17 {key}: rank {r} held {b} B of state, the "
+                     f"dry run {m['state_size_in_bytes']}")
+            if any(s != rec["collectives"]["by_axis"] for s in sent):
+                fail(f"phase 17 {key}: rank {r} sent {sent}, the dry run "
+                     f"{rec['collectives']['by_axis']}")
+    wall = time.perf_counter() - t0
+    print(f"phase 17: dry run held to the card in {wall:.1f} s; {card}")
+    return dict(records=recs, seconds=wall)
+
+
 def kernel_resources(source: str) -> list[str]:
     """Each kernel of ``source`` with its registers, shared memory and
     spills, from the build's ``nvcc --resource-usage`` report."""
@@ -6303,6 +6463,9 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import repro_torch
     from repro_torch import kernels
+    import tempfile
+    dry_dir = tempfile.mkdtemp(prefix="chip_smoke_dry")
+    dry = dry_start(dry_dir)
 
     device = torch.device("cuda")
     card = subprocess.run(
@@ -6372,7 +6535,7 @@ def main() -> int:
     rows.append(head_row)
     _, ssm_row = ssm_path(device, card)
     rows.append(ssm_row)
-    train_lm_path(device, card)
+    llama_train = train_lm_path(device, card)["llama"]
     # Phase 15's world needs the card to itself: drop what the earlier
     # phases hold.
     del served, trained, compressed, coresident, _
@@ -6384,6 +6547,7 @@ def main() -> int:
         row["max_abs_err"] = max(row["max_abs_err"], e)
     if tp["heads"]:
         fail(f"phase 16: head launches at no row's shape: {tp['heads']}")
+    dry_path(dry, dry_dir, llama_train, tp, card)
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

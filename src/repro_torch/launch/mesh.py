@@ -19,10 +19,17 @@ rank in a ``gloo`` process group: the way the tests, ``chip_smoke.py``
 and ``repro_torch.crossbar_scaling`` start a world.  ``gloo`` reduces
 CPU and CUDA tensors alike, so every rank of a world may share one card.
 
-``make_production_mesh`` (the LM stack's 16 x 16 pods) is not ported.
+``make_production_mesh`` builds the LM stack's production mesh, 16 x 16
+(one pod of 256 ranks) or 2 x 16 x 16 (two pods, 512).  ``fake_world``
+gives one process such a world without the ranks: ``torch.distributed``'s
+``"fake"`` process group, whose collectives do nothing, so that a step on
+``meta`` tensors runs as rank ``rank`` of the world would run it (the
+counterpart of the reference's ``--xla_force_host_platform_device_count
+=512``; ``launch.dryrun`` runs in it).
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import gc
 from typing import Any, Callable
@@ -74,6 +81,34 @@ def make_debug_mesh(n_data: int = 2, n_model: int = 2, *,
         raise ValueError(f"a {shape} mesh needs {n} ranks, the world has "
                          f"{world}")
     return _mesh(device_type, shape, names)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = DEFAULT_DEVICE):
+    """16 x 16 ``("data", "model")`` over a world of 256 ranks (one pod);
+    2 x 16 x 16 ``("pod", "data", "model")`` over 512 with
+    ``multi_pod`` (two pods)."""
+    return make_debug_mesh(16, 16, multi_pod=multi_pod,
+                           device_type=device_type)
+
+
+@contextlib.contextmanager
+def fake_world(world_size: int, rank: int = 0):
+    """Within the block this process is rank ``rank`` of a world of
+    ``world_size`` in the ``"fake"`` process group (its collectives
+    accept any tensor, ``meta`` ones too, and do nothing); the group is
+    destroyed on exit, on an error too.  The group is process-global:
+    raises if one is initialised already."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a process group is initialised already")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        gc.collect()
+        dist.destroy_process_group()
 
 
 def make_crossbar_mesh(n_model: int | None = None, *,

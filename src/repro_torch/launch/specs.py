@@ -1,15 +1,21 @@
-"""Training batch shapes and the synthetic token stream (the port of the
-one-device part of ``repro.launch.specs``).
+"""Input specifications of every model input, and the synthetic token
+stream (the port of ``repro.launch.specs``).
+
+The dry run's contract (``launch.dryrun``): for each (arch, shape) cell
+the exact tree that the step consumes, as ``meta`` tensors by default
+(shapes and dtypes, nothing allocated); on a real device (``"cpu"``) the
+same functions give the reference's ``concrete=True`` values (zeros).
+
+* ``train_batch_specs`` — a training cell's batch with its leading
+  accumulation axis; ``train_batch_axes`` its logical axes, by which the
+  ZeRO train step splits the batch over the data axes;
+* ``prefill_specs`` / ``decode_specs`` — a prefill's inputs, and a
+  decode step's one new token with the cache at the cell's capacity
+  (``model.init_cache``); ``prefill_axes`` / ``decode_axes`` lay them
+  out on a mesh (each rank passes its block, ``ShardCtx.local``).
 
 ``synth_tokens`` is the reference's numpy Markov chain: the same tokens
-for the same seed, bit for bit.  ``train_batch_specs`` gives the batch
-tree of a training cell with its leading accumulation axis, as ``meta``
-tensors by default (shapes and dtypes, nothing allocated), and
-``train_batch_axes`` its logical axes, by which the ZeRO train step
-splits the batch over the data axes; ``prefill_axes`` / ``decode_axes``
-lay out the inputs of a tensor-parallel prefill and decode step (each
-rank passes its block, ``ShardCtx.local``).  The reference's prefill /
-decode specs, the dry run and the HLO checks stay in ROADMAP.
+for the same seed, bit for bit.
 """
 from __future__ import annotations
 
@@ -40,6 +46,46 @@ def train_batch_specs(cfg: ModelConfig, shape: ShapeSpec, *,
                                   torch.bfloat16),
                 "positions": z((A, 3, B, S), torch.int32)}
     return {"tokens": z((A, B, S), torch.int32)}
+
+
+def prefill_specs(cfg: ModelConfig, shape: ShapeSpec, *,
+                  device: str | torch.device = "meta") -> dict:
+    """A prefill's inputs for ``shape.global_batch`` prompts of
+    ``shape.seq_len`` positions: tokens (B, S) (audio: (B, S, C)) and
+    positions (B, S); for the VLM, tokens of the S - VLM_PATCH_TOKENS
+    text positions, the patch embeddings and M-RoPE positions (3, B,
+    S)."""
+    B, S = shape.global_batch, shape.seq_len
+    z = lambda s, dt: torch.zeros(s, dtype=dt, device=device)
+    if cfg.modality == "audio":
+        return {"tokens": z((B, S, cfg.n_codebooks), torch.int32),
+                "positions": z((B, S), torch.int32)}
+    if cfg.modality == "vlm":
+        return {"tokens": z((B, S - VLM_PATCH_TOKENS), torch.int32),
+                "extra_embeds": z((B, VLM_PATCH_TOKENS, cfg.d_model),
+                                  torch.bfloat16),
+                "positions": z((3, B, S), torch.int32)}
+    return {"tokens": z((B, S), torch.int32),
+            "positions": z((B, S), torch.int32)}
+
+
+def decode_specs(cfg: ModelConfig, shape: ShapeSpec, model, *,
+                 device: str | torch.device = "meta") -> dict:
+    """A decode step's inputs: one new token a row (B, 1) (audio: (B, 1,
+    C)), its positions (B, 1) (M-RoPE: (3, B, 1)) and the cache at
+    ``shape.seq_len`` capacity, ``model.init_cache(B, S)`` on
+    ``device`` (a model on another device is rebuilt there, its
+    parameters not drawn: on ``"meta"`` nothing is allocated)."""
+    B, S = shape.global_batch, shape.seq_len
+    z = lambda s: torch.zeros(s, dtype=torch.int32, device=device)
+    tokens = z((B, 1, cfg.n_codebooks) if cfg.modality == "audio"
+               else (B, 1))
+    positions = z((3, B, 1) if cfg.rope_style == "mrope" else (B, 1))
+    dev = torch.device(device)
+    if model.device != dev:
+        model = type(model)(model.cfg, model.ctx, device=dev)
+    return {"tokens": tokens, "positions": positions,
+            "cache": model.init_cache(B, S)}
 
 
 def train_batch_axes(cfg: ModelConfig) -> dict:

@@ -44,7 +44,8 @@ def mrope_angles(positions: torch.Tensor, head_dim: int, theta: float,
     inv = rope_freqs(head_dim, theta, dev)                     # (half,)
     ang = positions.to(torch.float32)[..., None] * inv         # (3,B,S,half)
     section_id = torch.repeat_interleave(
-        torch.arange(3, device=dev), torch.tensor(sections, device=dev))
+        torch.arange(3, device=dev), torch.tensor(sections, device=dev),
+        output_size=half)        # known: a meta tensor cannot count it
     pick = torch.nn.functional.one_hot(section_id, 3).to(torch.float32)
     return torch.einsum("tbsh,ht->bsh", ang, pick)
 

@@ -50,7 +50,9 @@ backward is seeded with ``1 / model`` on each (``train.step``).
 Within a ``record_traffic()`` block, every collective of this module
 adds the bytes a rank sends over each mesh axis to the yielded
 ``Traffic`` (``bytes`` by axis; ``calls`` lists each call's operation,
-axis and tensor shape); outside one it counts nothing.  A ring
+axis and tensor shape, and ``ops`` each call as a
+``launch.census.CollectiveOp``: its kind, output and input bytes and
+group size); outside one it counts nothing.  A ring
 collective over n ranks of a tensor of b bytes (the all-gather's local
 input, the reduce-scatter's and the all-reduce's full input) counts (n -
 1) b, (n - 1) b / n and 2 (n - 1) b / n; a collective over the whole
@@ -71,6 +73,7 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
+from ..launch.census import CollectiveOp
 from ..launch.mesh import axis_sizes
 
 
@@ -175,10 +178,12 @@ class Traffic:
     """What this rank's collectives sent within one ``record_traffic``
     block: bytes by mesh axis (``"world"`` for the whole-world
     collectives), and (operation, axis, shape of the tensor counted) of
-    each call in call order."""
+    each call in call order, with the same calls as ``CollectiveOp`` s
+    in ``ops``."""
     bytes: dict[str, float] = dataclasses.field(default_factory=dict)
     calls: list[tuple[str, str, tuple[int, ...]]] = dataclasses.field(
         default_factory=list)
+    ops: list = dataclasses.field(default_factory=list)
 
 
 _OPEN: list[Traffic] = []
@@ -196,15 +201,30 @@ def record_traffic():
         _OPEN.remove(record)
 
 
-def _count(op: str, axis: str, t: torch.Tensor, factor: float) -> None:
+# operation -> (the reference's collective kind, its output bytes from
+# the bytes b of the tensor counted and the group size n)
+_KINDS = {"all_gather": ("all-gather", lambda b, n: b * n),
+          "reduce_scatter": ("reduce-scatter", lambda b, n: b // n),
+          "all_reduce": ("all-reduce", lambda b, n: b),
+          # one rank's shard sent to another: a point-to-point transfer
+          "gather": ("collective-permute", lambda b, n: b)}
+
+
+def _count(op: str, axis: str, t: torch.Tensor, factor: float,
+           group: int = 0) -> None:
     """Add ``factor`` x ``t``'s bytes to ``axis``'s count of each open
-    record, and the call to its list."""
+    record, and the call (over a group of ``group`` ranks) to its
+    lists."""
     if not _OPEN:
         return
-    b = factor * t.numel() * t.element_size()
+    n = t.numel() * t.element_size()
+    b = factor * n
+    kind, out = _KINDS[op]
+    coll = CollectiveOp(kind, out(n, max(group, 1)), n, group, axis)
     for record in _OPEN:
         record.bytes[axis] = record.bytes.get(axis, 0.0) + b
         record.calls.append((op, axis, tuple(t.shape)))
+        record.ops.append(coll)
 
 
 def all_gather_dim(t: torch.Tensor, mesh, axis: str, n: int,
@@ -214,7 +234,7 @@ def all_gather_dim(t: torch.Tensor, mesh, axis: str, n: int,
     x = t.movedim(dim, 0).contiguous()
     out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]),
                       dtype=x.dtype, device=x.device)
-    _count("all_gather", axis, t, n - 1)
+    _count("all_gather", axis, t, n - 1, n)
     dist.all_gather_into_tensor(out, x, group=_group(mesh, axis))
     return out.movedim(0, dim)
 
@@ -226,7 +246,7 @@ def _reduce_scatter_dim(t: torch.Tensor, mesh, axis: str, n: int,
     x = t.movedim(dim, 0).contiguous()
     out = torch.empty((x.shape[0] // n,) + tuple(x.shape[1:]),
                       dtype=x.dtype, device=x.device)
-    _count("reduce_scatter", axis, t, (n - 1) / n)
+    _count("reduce_scatter", axis, t, (n - 1) / n, n)
     dist.reduce_scatter_tensor(out, x, group=_group(mesh, axis))
     return out.movedim(0, dim)
 
@@ -234,7 +254,7 @@ def _reduce_scatter_dim(t: torch.Tensor, mesh, axis: str, n: int,
 def _all_reduce(t: torch.Tensor, mesh, axis: str, n: int,
                 op=dist.ReduceOp.SUM) -> torch.Tensor:
     """``t`` reduced in place over ``axis``'s group (contiguous)."""
-    _count("all_reduce", axis, t, 2 * (n - 1) / n)
+    _count("all_reduce", axis, t, 2 * (n - 1) / n, n)
     dist.all_reduce(t, op=op, group=_group(mesh, axis))
     return t
 
@@ -372,7 +392,7 @@ def gather_to_host(t: torch.Tensor, sharding: Sharding,
     blocks = ([torch.empty_like(mine) for _ in range(dist.get_world_size())]
               if rank == dst else None)
     if rank != dst:
-        _count("gather", "world", mine, 1)
+        _count("gather", "world", mine, 1, 2)
     dist.gather(mine, blocks, dst=dst)
     if rank != dst:
         return None
@@ -391,6 +411,6 @@ def gather_scalar(x: torch.Tensor, mesh) -> torch.Tensor:
     the whole world (the mesh must span it)."""
     world = dist.get_world_size()
     out = torch.empty(world, dtype=x.dtype, device=x.device)
-    _count("all_gather", "world", x.reshape(1), world - 1)
+    _count("all_gather", "world", x.reshape(1), world - 1, world)
     dist.all_gather_into_tensor(out, x.reshape(1).contiguous())
     return out[mesh.mesh.to(x.device).long()]

@@ -154,6 +154,7 @@ def make_train_step(model, opt_cfg: AdamWConfig, grad_shardings=None, *,
                 # in, in the reference's order
                 g = [_grad(m).to(accum_dtype) for m in masters]
                 acc = g if acc is None else [a + b for a, b in zip(acc, g)]
+                del g    # not held through the next microbatch's backward
                 for m in masters:
                     m.grad = None
         grads = [_grad(m) for m in masters] if in_grad else acc

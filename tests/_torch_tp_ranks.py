@@ -17,19 +17,30 @@ train batches, and the attention legs' operands) from ``tmp``, builds the
 
 It counts the legs each case takes (``_attn_context_parallel``,
 ``_routed_ep`` and ``_routed`` with a split expert hidden dim) and
-records each forward's collectives (``sharding.layout.record_traffic``).
-Each rank writes what it computed to ``rank<rank>.npz``: its local
-blocks, and on rank 0 the gathered tensors and the one-device results.
-This module imports neither JAX nor the reference package, so a rank
-starts with the port alone.
+records each forward's collectives (``sharding.layout.record_traffic``),
+and the bytes a prefill, one decode step and the train step send over
+each mesh axis (``serve_bytes``).  Each rank writes what it computed to
+``rank<rank>.npz``: its local blocks, and on rank 0 the gathered tensors
+and the one-device results.
+
+``dry_main(tmp)`` runs the dry run (``launch.dryrun.measure``, in a fake
+world of each mesh's shape) of the same steps on the inputs' shapes and
+writes their bytes by axis to ``dry.json``: run it in a process of its
+own (the fake process group is process-global).  This module imports
+neither JAX nor the reference package, so a rank starts with the port
+alone.
 """
 import dataclasses
+import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.models.config import ShapeSpec
 from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.launch.specs import decode_axes, prefill_axes
 from repro_torch.models import ShardCtx, attention, build, ffn
@@ -167,6 +178,77 @@ def greedy(model, batch: dict, lay=lambda t, axes: t, gather=None,
     return first, torch.cat(fed, 1), torch.stack(outs), shapes
 
 
+def serve_bytes(out: dict, tag: str, model, batch: dict, lay,
+                max_len: int) -> None:
+    """The bytes a prefill of ``batch`` (cache ``max_len``) and one decode
+    step from its cache send over each mesh axis:
+    ``{tag}/bytes/prefill/<axis>`` and ``{tag}/bytes/decode/<axis>``."""
+    cfg = model.cfg
+    pa, da = prefill_axes(cfg), decode_axes(cfg)
+    tokens, positions = batch["tokens"], batch["positions"]
+    with torch.no_grad():
+        with layout.record_traffic() as pre:
+            _, cache = model.prefill(
+                lay(tokens, pa["tokens"]), lay(positions, pa["positions"]),
+                max_len, lay(batch["extra_embeds"], pa["extra_embeds"])
+                if "extra_embeds" in batch else None)
+        with layout.record_traffic() as dec:
+            model.decode_step(cache, lay(tokens[:, -1:], da["tokens"]),
+                              lay(positions[..., -1:] + 1,
+                                  da["positions"]))
+    put_bytes(out, f"{tag}/bytes/prefill", pre)
+    put_bytes(out, f"{tag}/bytes/decode", dec)
+
+
+def put_bytes(out: dict, prefix: str, traffic) -> None:
+    for axis, b in traffic.bytes.items():
+        out[f"{prefix}/{axis}"] = b
+
+
+def _meta(z, prefix: str) -> dict:
+    """The arrays under ``prefix`` as ``meta`` tensors of their shapes and
+    dtypes."""
+    return {k[len(prefix) + 1:]: torch.empty(
+        z[k].shape, dtype=torch.from_numpy(z[k][:0]).dtype, device="meta")
+        for k in z.files if k.startswith(prefix + "/")}
+
+
+def dry_main(tmp: str, cases=CASES, config=config, meshes=MESHES,
+             max_len: int = MAX_LEN) -> None:
+    """The dry run of each case's prefill, decode step and train step on
+    each mesh (rank 0; the smoke depths run whole) at the inputs' shapes
+    -> ``dry.json``:
+    ``{case/mesh: {kind: bytes by axis}}``."""
+    from repro_torch.launch.dryrun import measure
+    z = np.load(os.path.join(tmp, "inputs.npz"))
+    res = {}
+    for case in cases:
+        cfg = config(case)
+        batch, train = _meta(z, f"{case}/batch"), _meta(z, f"{case}/train")
+        B, S = batch["tokens"].shape[:2]
+        runs = {"prefill": (ShapeSpec("prefill", S, B, "prefill"), batch),
+                "decode": (ShapeSpec("decode", max_len, B, "decode"), None),
+                "train": (ShapeSpec("train", S, B, "train"), train)}
+        for shape in meshes:
+            res[f"{case}/{mesh_tag(shape)}"] = {
+                kind: measure(cfg, spec, shape, inputs=inputs,
+                              max_len=max_len)["collectives"]["by_axis"]
+                for kind, (spec, inputs) in runs.items()}
+    with open(os.path.join(tmp, "dry.json"), "w") as f:
+        json.dump(res, f)
+
+
+def start_dry(tmp, module: str) -> subprocess.Popen:
+    """``module.dry_main(tmp)`` in a process of its own, started now."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = [os.path.join(os.path.dirname(here), "src"), here]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        path + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    return subprocess.Popen(
+        [sys.executable, "-c", f"import {module} as m; m.dry_main({str(tmp)!r})"],
+        env=env, cwd=here)
+
+
 def _one_device(case, cfg, tree, z, out) -> None:
     """The port's one-device forward, prefill + greedy decode, and the
     gradient and one step at each row split a mesh needs."""
@@ -255,6 +337,7 @@ def _mesh_case(rank, case, cfg, tree, z, mesh, tag, out) -> None:
          for op, axis, s in dec.calls], dtype=str)
     for k, s in shapes.items():
         out[f"{tag}/cache/{key(k)}"] = np.array(s)
+    serve_bytes(out, tag, model, batch, lay, MAX_LEN)
     if rank == 0:
         out[f"{tag}/logits"] = logits.numpy()
         out[f"{tag}/prefill"] = first.numpy()
@@ -276,7 +359,9 @@ def _mesh_case(rank, case, cfg, tree, z, mesh, tag, out) -> None:
     if rank == 0:
         for (path, _), g in zip(leaves(grads), full):
             out[f"{tag}/grads/{key(path)}"] = g.numpy()
-    state, metrics = step(state, train, 0)
+    with layout.record_traffic() as trained:
+        state, metrics = step(state, train, 0)
+    put_bytes(out, f"{tag}/bytes/train", trained)
     out[f"{tag}/loss"] = float(metrics["loss"])
     for part, sh in (("params", psh), ("m", gsh), ("v", gsh)):
         tree_ = getattr(state, part)

@@ -45,8 +45,10 @@ from repro_torch.train import (AdamWConfig, apply_updates, init_state,
                                make_train_step, shard_state, zero_shardings)
 from repro_torch.train.step import backward_into
 
+import _torch_tp_ranks
 from _torch_tp_ranks import (Legs, _put, _tensors, _tree, _weight_ok,
-                             greedy, key, mesh_tag, step_blocks)
+                             greedy, key, mesh_tag, put_bytes, serve_bytes,
+                             start_dry, step_blocks)
 
 # case -> (architecture, changes to its smoke config)
 CASES = {
@@ -263,6 +265,7 @@ def _mesh_case(rank, case, cfg, tree, z, mesh, tag, out, one) -> None:
     for t, c in enumerate(caches):
         for k, v in leaves(c):
             out[f"{tag}/cache/step{t}/{key(k)}"] = np.array(v.shape)
+    serve_bytes(out, tag, model, batch, lay, MAX_LEN)
     if cfg.hybrid_attn_every:
         got = _unrounded(model, batch, lay, whole)
         if rank == 0:
@@ -301,7 +304,9 @@ def _mesh_case(rank, case, cfg, tree, z, mesh, tag, out, one) -> None:
     if rank == 0:
         for (path, _), g in zip(leaves(grads), full):
             out[f"{tag}/grads/{key(path)}"] = g.numpy()
-    state, metrics = step(state, train, 0)
+    with layout.record_traffic() as trained_step:
+        state, metrics = step(state, train, 0)
+    put_bytes(out, f"{tag}/bytes/train", trained_step)
     out[f"{tag}/loss"] = float(metrics["loss"])
     for part, sh in (("params", psh), ("m", gsh), ("v", gsh)):
         tree_ = getattr(state, part)
@@ -365,3 +370,8 @@ def tp_ssm_main(rank: int, tmp: str) -> None:
     out["coordinate"] = np.array([meshes[s].get_coordinate()
                                   for s in MESHES])
     np.savez(os.path.join(tmp, f"rank{rank}.npz"), **out)
+
+
+def dry_main(tmp: str) -> None:
+    """``_torch_tp_ranks.dry_main`` on this module's cases."""
+    _torch_tp_ranks.dry_main(tmp, CASES, config, MESHES, MAX_LEN)

@@ -48,7 +48,8 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
         "repro_torch.sharding.crossbar, repro_torch.crossbar_scaling, "
         "repro_torch.models, repro_torch.configs, repro_torch.serve_lm, "
         "repro_torch.train_lm, repro_torch.launch.specs, "
-        "repro_torch.sharding.layout, repro_torch.train.step\n"
+        "repro_torch.sharding.layout, repro_torch.train.step, "
+        "repro_torch.launch.census, repro_torch.launch.dryrun\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"

@@ -46,6 +46,7 @@ relative (head_dim decode) of the port's one device.  Shards that the
 mesh replicates are equal bit for bit.
 """
 import dataclasses
+import json
 import threading
 
 import jax
@@ -170,6 +171,7 @@ def world(tmp_path_factory):
         arrays[f"dec/{n}"] = a.astype(np.float32)
     arrays["dec/len"] = np.full((Bd,), ranks.DEC_LEN, np.int32)
     np.savez(tmp / "inputs.npz", **arrays)
+    dry = ranks.start_dry(tmp, "_torch_tp_ranks")
 
     failed = []
 
@@ -195,8 +197,11 @@ def world(tmp_path_factory):
             scale=ranks.SCALE, ctx=None))
     finally:
         thread.join()
+        dry.wait(timeout=600)
     if failed:
         raise failed[0]
+    assert dry.returncode == 0, "the dry run failed"
+    ref["dry"] = json.loads((tmp / "dry.json").read_text())
     return (ref, [dict(np.load(tmp / f"rank{r}.npz")) for r in range(WORLD)],
             tmp)
 
@@ -428,6 +433,22 @@ def test_each_case_takes_the_references_legs(world, case, shape):
               f"{B_loc},{cfg.n_kv_heads},{G},{ranks.MAX_LEN}")
     n = sum(tuple(r) == logits for r in outs[0][f"{tag}/decode_records"])
     assert n == (cfg.n_layers * ranks.DECODE if _kv_leg(cfg, m) else 0)
+
+
+@pytest.mark.parametrize("case,shape", CASES, ids=IDS)
+def test_dry_run_bytes_equal_the_worlds(world, case, shape):
+    """The dry run of the case on its mesh (``launch.dryrun.measure`` in a
+    fake world of that shape, rank 0, on ``meta``): the bytes its
+    prefill, one decode step and the train step send over each mesh axis
+    equal, exactly, what every rank of this gloo world counted."""
+    ref, outs, _ = world
+    tag = _tag(case, shape)
+    for kind in ("prefill", "decode", "train"):
+        prefix = f"{tag}/bytes/{kind}/"
+        for out in outs:
+            got = {k[len(prefix):]: float(v) for k, v in out.items()
+                   if k.startswith(prefix)}
+            assert got and got == ref["dry"][tag][kind], (kind, got)
 
 
 @pytest.mark.parametrize("name", jconfigs.ARCH_IDS)

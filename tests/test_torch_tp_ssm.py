@@ -49,6 +49,7 @@ and prefill end to end are held to one device at the bounds.  Teacher
 forced, a layer's input is the same bits on one device and on the mesh,
 so its roundings are the same.
 """
+import json
 import threading
 
 import jax
@@ -134,6 +135,7 @@ def world(tmp_path_factory):
         arrays[f"mamba/{n}"] = rng.standard_normal(
             (ranks.B, s, d)).astype(np.float32)
     np.savez(tmp / "inputs.npz", **arrays)
+    dry = ranks.start_dry(tmp, "_torch_tp_ssm_ranks")
 
     failed = []
 
@@ -157,8 +159,11 @@ def world(tmp_path_factory):
         ref["mamba"] = np.asarray(y)
     finally:
         thread.join()
+        dry.wait(timeout=600)
     if failed:
         raise failed[0]
+    assert dry.returncode == 0, "the dry run failed"
+    ref["dry"] = json.loads((tmp / "dry.json").read_text())
     return ref, [dict(np.load(tmp / f"rank{r}.npz")) for r in range(WORLD)]
 
 
@@ -456,3 +461,19 @@ def test_mamba_forward_on_blocks_that_straddle_z_and_x(world):
             _one_device_close(f"mamba state {k}", got, want)
         assert {"all_gather", "all_reduce", "reduce_scatter"} >= {
             r[0] for r in out["mamba/records"]}
+
+
+@pytest.mark.parametrize("case,shape", CASES, ids=IDS)
+def test_dry_run_bytes_equal_the_worlds(world, case, shape):
+    """The dry run of the case on its mesh (``launch.dryrun.measure`` in a
+    fake world of that shape, rank 0, on ``meta``): the bytes its
+    prefill, one decode step and the train step send over each mesh axis
+    equal, exactly, what every rank of this gloo world counted."""
+    ref, outs = world
+    tag = _tag(case, shape)
+    for kind in ("prefill", "decode", "train"):
+        prefix = f"{tag}/bytes/{kind}/"
+        for out in outs:
+            got = {k[len(prefix):]: float(v) for k, v in out.items()
+                   if k.startswith(prefix)}
+            assert got and got == ref["dry"][tag][kind], (kind, got)
