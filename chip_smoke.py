@@ -376,6 +376,29 @@ def exact(name: str, got: torch.Tensor, want: torch.Tensor) -> None:
         fail(f"{name}: {n} of {got.numel()} entries differ")
 
 
+NUMERICS_DRAWS = 1_000_000     # f32 draws for sqrt_rn / rsqrt_rn
+
+
+def check_numerics(device) -> dict:
+    """``numerics.sqrt_rn`` / ``rsqrt_rn`` on the card against their f64
+    route (each f32 rounded once from the f64 result, on the host) on
+    NUMERICS_DRAWS f32 draws spread log-uniformly over 2^-60 .. 2^60:
+    exact.  Also counts how many of ``torch.sqrt`` / ``torch.rsqrt``'s own
+    f32 results on the card differ from that route (not gated)."""
+    from repro_torch.numerics import rsqrt_rn, sqrt_rn
+    gen = torch.Generator().manual_seed(SEED)
+    x = torch.exp2(torch.empty(NUMERICS_DRAWS, dtype=torch.float64)
+                   .uniform_(-60.0, 60.0, generator=gen)).float()
+    x64 = x.double()
+    want = dict(sqrt=torch.sqrt(x64).float(),
+                rsqrt=torch.sqrt(x64).reciprocal().float())
+    xc = x.to(device)
+    exact("sqrt_rn on the card", sqrt_rn(xc).cpu(), want["sqrt"])
+    exact("rsqrt_rn on the card", rsqrt_rn(xc).cpu(), want["rsqrt"])
+    return {f"torch.{k}": int((getattr(torch, k)(xc).cpu() != w).sum())
+            for k, w in want.items()}
+
+
 def synthetic_system(shape, device, seed=0):
     """Programmed-system tensors in the physical current regime (HCS reads
     ~5 uA, LCS ~3 nA), as in the reference's fused-kernel tests; the
@@ -3199,21 +3222,10 @@ SHARD_PLACEMENTS = {
     "s-only": ((128, 64, 64), (13, 8, 8), (False, True)),
 }
 SHARD_INVALID_EVERY = 16        # every 16th lane of a sweep is free
-SHARD_REQUESTS = 256            # the engine's burst on each rank
+SHARD_REQUESTS = 256            # the engine's trace on each rank
+SHARD_REPLAY_RATE = 2000.0      # its Poisson arrivals a second
 SHARD_WALL_SWEEPS = 30          # host-wall samples a (session, batch)
 RTOL_SHARD_METER = 1e-5         # lane meters, sharded vs one device
-
-
-class SameClock:
-    """A clock that reads the same on every rank (each reading advances
-    0.5 ms), so every rank's engine takes the same admission decisions."""
-
-    def __init__(self):
-        self.t = 0.0
-
-    def __call__(self) -> float:
-        self.t += 5e-4
-        return self.t
 
 
 def identity_class(S: int, sr: int, n: int, device) -> torch.Tensor:
@@ -3293,6 +3305,30 @@ def shard_gates(tag: str, sharded, single, lits, buf, valid) -> dict:
                 priced=sum(priced), ties=ties)
 
 
+def shard_graphs(tag: str, sharded, lits, buf, valid) -> int:
+    """Every prepared serving entry of a sharded session is a
+    ``StagedEntry`` of three captured stages, and one more call of each
+    returns its eager body's outputs bit for bit (the same stages run
+    eagerly, the all-reduces between them).  Returns the entries held."""
+    from repro_torch.impact import graphs
+    held = 0
+    for entry, B in sharded.compiled_shapes():
+        g = sharded.graph(entry, B)
+        if not isinstance(g, graphs.StagedEntry) or len(g.stages) != 3:
+            fail(f"{tag} {entry}@{B}: not three captured stages ({g!r})")
+        if sharded.eager_reason(entry, B) is not None:
+            fail(f"{tag} {entry}@{B}: {sharded.eager_reason(entry, B)}")
+        args = [lits] if entry == "predict" else [buf, valid]
+        args = [a.to(d) for a, (_, d) in zip(args,
+                                             sharded.input_specs(entry, B))]
+        got = g(*args)
+        want = sharded.entry_fn(entry)(*args)
+        for i, (a, b) in enumerate(zip(got, want)):
+            exact(f"{tag} {entry}@{B} output {i}, graphed vs eager", a, b)
+        held += 1
+    return held
+
+
 def shard_device_launches(sessions, buf, valid) -> tuple[int, int]:
     """One ``infer_step`` of each session under ``torch.profiler``: the
     device kernels of ``crossbar_mvm.cu`` it ran, against the launches
@@ -3313,10 +3349,13 @@ def shard_device_launches(sessions, buf, valid) -> tuple[int, int]:
 def shard_walls(system, mesh) -> dict:
     """Host walls (median of SHARD_WALL_SWEEPS, synchronized) of
     ``predict`` and ``infer_step`` (fused metering) at COST_BATCHES,
-    sharded against the single-device session on the card, numpy
-    literals in.  The ranks start each sharded measurement together;
-    the single-device one runs on the first rank alone while the others
-    wait, so that it shares the card and the host with nothing."""
+    numpy literals in: the sharded session (its staged graphs), its
+    entries' eager body (the same stages and all-reduces run eagerly,
+    the operands moved to the card as an eager entry moves them) and the
+    single-device session on the card.  The ranks start each sharded
+    measurement together; the single-device one runs on the first rank
+    alone while the others wait, so that it shares the card and the host
+    with nothing."""
     import torch.distributed as dist
     from repro_torch.impact import RuntimeSpec, Topology
     lits = digit_literals(max(COST_BATCHES), seed=SEED + 13)
@@ -3339,6 +3378,17 @@ def shard_walls(system, mesh) -> dict:
                         lambda: fn(*args), SHARD_WALL_SWEEPS)
                 if alone:
                     dist.barrier()
+                    continue
+                body = sess.entry_fn(entry)
+                dtypes = [d for _, d in sess.input_specs(entry, B)]
+
+                def eager():
+                    return body(*(torch.as_tensor(x, device=system.device)
+                                  .to(d) for x, d in zip(args, dtypes)))
+
+                dist.barrier()
+                walls[f"{entry}/eager/{B}"] = host_sweep_s(
+                    eager, SHARD_WALL_SWEEPS)
     return walls
 
 
@@ -3351,6 +3401,7 @@ def shard_world(rank: int, out_dir: str, device: str) -> None:
                                     build_system)
     from repro_torch.launch.mesh import make_crossbar_mesh
     from repro_torch.serve import IMPACTEngine
+    from repro_torch.serve.impact_engine import poisson_arrivals, replay_trace
     dev = torch.device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(0)
@@ -3365,7 +3416,7 @@ def shard_world(rank: int, out_dir: str, device: str) -> None:
     valid[::SHARD_INVALID_EVERY] = False
     buf = torch.where(valid[:, None], lits, torch.ones_like(lits))
     out = dict(rank=rank, world=world, placements={})
-    tally = dict(launches=0, priced=0, ties=0)
+    tally = dict(launches=0, priced=0, ties=0, graphed=0)
     sessions = []
     clock["setup"] = time.perf_counter()
     for name, (tiles, grid, plan) in SHARD_PLACEMENTS.items():
@@ -3390,10 +3441,10 @@ def shard_world(rank: int, out_dir: str, device: str) -> None:
                 if sharded.plan != plan:
                     fail(f"placement {name}: plan {sharded.plan}, "
                          f"expected {plan}")
-                if sharded.graph("infer_step", CAPACITY) is not None:
-                    fail(f"placement {name}: a sharded entry was captured")
                 g = shard_gates(f"{name} {pk} {m}", sharded, single, lits,
                                 buf, valid)
+                g["graphed"] = shard_graphs(f"{name} {pk} {m}", sharded,
+                                            lits, buf, valid)
                 for k in tally:
                     tally[k] += g[k]
                 sessions.append(sharded)
@@ -3416,26 +3467,44 @@ def shard_world(rank: int, out_dir: str, device: str) -> None:
             session = system.compile(RuntimeSpec(
                 backend="cuda", capacity=CAPACITY, device=str(dev),
                 topology=Topology(mesh=mesh)))
-            eng = IMPACTEngine(session, clock=SameClock())
+            # replay_trace on the wall clock: every reading is rank 0's
+            # time.monotonic(), so every rank admits the same sweeps.
+            eng = IMPACTEngine(session, clock=time.monotonic)
             reqs = digit_literals(SHARD_REQUESTS, seed=SEED + 14)
+            arrivals = poisson_arrivals(SHARD_REQUESTS, SHARD_REPLAY_RATE,
+                                        seed=SEED + 15)
+            traces = session.trace_count
             with path_launches({}) as got:
-                preds, stats = eng.run(reqs)
+                res = replay_trace(eng, reqs, arrivals)
+            if session.trace_count != traces:
+                fail(f"replay_trace prepared {session.trace_count - traces}"
+                     f" entries")
             tally["launches"] += got["crossbar_mvm_f32"]
             tally["priced"] += sum(
                 sum(i.kernel == "crossbar_mvm_f32"
                     for i in session.work_items("infer_step", CAPACITY))
                 for _ in eng.batch_stats)
+            recs = sorted(eng.request_records, key=lambda r: r.rid)
+            if (res["completed"], res["shed"], len(recs)) != (
+                    SHARD_REQUESTS, 0, SHARD_REQUESTS):
+                fail(f"replay_trace completed {res['completed']}, shed "
+                     f"{res['shed']}, {len(recs)} records")
+            preds = [r.pred for r in recs]
             direct = system.compile(RuntimeSpec(
                 backend="cuda", metering="off", device=str(dev),
                 topology=Topology(shard="none"))).predict(reqs)
             gate_predictions("engine", torch.as_tensor(preds),
                              direct.predictions, direct.scores)
-            bills = sum(r.e_read_j for r in eng.request_records)
-            meter = stats["energy"].read_energy_j
-            if not abs(bills - meter) <= RTOL_BILLS * abs(meter):
-                fail(f"engine bills {bills} against the batch meter {meter}")
-            out["engine"] = dict(sweeps=len(eng.batch_stats), bills=bills,
-                                 meter=meter)
+            bills = [r.e_read_j for r in recs]
+            meter = sum(r.read_energy_j for r in eng.reports)
+            if not abs(sum(bills) - meter) <= RTOL_BILLS * abs(meter):
+                fail(f"engine bills {sum(bills)} against the batch meter "
+                     f"{meter}")
+            out["engine"] = dict(
+                sweeps=len(eng.batch_stats), bills=sum(bills), meter=meter,
+                same=dict(preds=preds, bills=bills, completed=res[
+                    "completed"], shed=res["shed"], wall_s=res["wall_s"],
+                    p50_s=res["p50_s"], p99_s=res["p99_s"]))
             clock["engine"] = time.perf_counter()
             out["walls"] = shard_walls(system, mesh)
             clock["walls"] = time.perf_counter()
@@ -3495,14 +3564,29 @@ def sharded_path(card: str) -> dict:
             for r in range(world):
                 with open(os.path.join(tmp, f"w{world}_rank{r}.json")) as f:
                     results[world].append(json.load(f))
+    launches = 0
     for world, ranks in results.items():
+        for r in ranks[1:]:
+            if r["engine"]["same"] != ranks[0]["engine"]["same"]:
+                fail(f"phase 11 world {world}: rank {r['rank']}'s replay "
+                     f"differs from rank 0's")
+        same = ranks[0]["engine"]["same"]
+        print(f"phase 11 world {world}: replay_trace of {SHARD_REQUESTS} "
+              f"Poisson arrivals at {SHARD_REPLAY_RATE:.0f}/s on rank 0's "
+              f"clock, every rank the same: {same['completed']} completed, "
+              f"{same['shed']} shed, wall {same['wall_s']:.4f} s, latency "
+              f"p50 {same['p50_s'] * 1e3:.4f} ms p99 "
+              f"{same['p99_s'] * 1e3:.4f} ms")
         for r in ranks:
             t = r["tally"]
+            launches += t["launches"]
             print(f"phase 11 world {world} rank {r['rank']}: "
                   f"{t['launches']} crossbar_mvm calls on the sharded path "
                   f"(cost_analysis prices {t['priced']}), "
                   f"{r['device_launches']} device kernels of crossbar_mvm.cu "
-                  f"in one infer_step a session, as priced; {t['ties']} "
+                  f"in one infer_step a session, as priced; "
+                  f"{t['graphed']} staged graph entries equal to their eager "
+                  f"bodies bit for bit; {t['ties']} "
                   f"tied predictions; engine {r['engine']['sweeps']} "
                   f"sweeps, bills {r['engine']['bills']:.6e} J against "
                   f"{r['engine']['meter']:.6e} J; "
@@ -3517,13 +3601,18 @@ def sharded_path(card: str) -> dict:
         for entry in ("predict", "infer_step"):
             for B in COST_BATCHES:
                 sh = max(r["walls"][f"{entry}/sharded/{B}"] for r in ranks)
+                ea = max(r["walls"][f"{entry}/eager/{B}"] for r in ranks)
                 one = walls[f"{entry}/one device/{B}"]
                 print(f"phase 11 world {world} {entry} B={B}: host wall "
-                      f"sharded {sh * 1e3:.4f} ms (slowest rank), one "
+                      f"sharded graphed {sh * 1e3:.4f} ms, eager "
+                      f"{ea * 1e3:.4f} ms (slowest rank each), one "
                       f"device {one * 1e3:.4f} ms (rank 0 alone, graphed), "
-                      f"{sh / one:.1f}x; medians of {SHARD_WALL_SWEEPS}; "
-                      f"{card}")
-    print(f"phase sharded path: done in {time.perf_counter() - t0:.1f} s")
+                      f"graphed {sh / one:.1f}x one device, eager "
+                      f"{ea / sh:.2f}x graphed; medians of "
+                      f"{SHARD_WALL_SWEEPS}; {card}")
+    print(f"phase sharded path: done in {time.perf_counter() - t0:.1f} s; "
+          f"{launches} crossbar_mvm launches on the sharded path")
+    results["launches"] = launches
     return results
 
 
@@ -6480,6 +6569,10 @@ def main() -> int:
             torch.backends.cudnn.allow_tf32:
         fail("TF32 is on: the port's f32 contract needs it off")
     print(f"phase build: nvcc for sm_90a, {kernels.build_all():.1f} s")
+    off = check_numerics(device)
+    print(f"phase build: sqrt_rn / rsqrt_rn on the card equal the f64 route "
+          f"on {NUMERICS_DRAWS} f32 draws; the card's own f32 "
+          + ", ".join(f"{k} differs on {n}" for k, n in off.items()))
     for source in ("crossbar_mvm.cu", "fused_impact.cu", "ta_feedback.cu",
                    "digital_cotm.cu"):
         for line in kernel_resources(source):
@@ -6530,7 +6623,9 @@ def main() -> int:
 
     static_path(served, trained, compressed, device, card)
     graph_path(served, trained, compressed, coresident, card)
-    sharded_path(card)
+    # The sharded path runs crossbar_mvm (row 3) on every rank's shards.
+    mvm_row = next(r for r in rows if r["name"] == "crossbar_mvm")
+    mvm_row["launches"] += sharded_path(card)["launches"]
     _, head_row = lm_path(device, card)
     rows.append(head_row)
     _, ssm_row = ssm_path(device, card)

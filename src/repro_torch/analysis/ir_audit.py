@@ -35,15 +35,17 @@ shapes, as ``aten.argmax.default(f32[8,10]) -> i64[8]``.  The checks:
   shared memory allow against the blocks its planner assumes, and the
   estimate at least what nvcc reports.
 * **Graph** (error, on a card): every prepared entry is one captured
-  CUDA graph (``impact.graphs``), unless the session names a reason it
-  runs eagerly (``InferenceSession.eager_reason``: no lane at B = 0, or a
-  sharded entry, whose sums over the process group run on the host),
-  which the audit reports as an ``"info"`` finding;
+  CUDA graph (``impact.graphs``; a sharded serving entry one graph a
+  local stage), unless the session names a reason it runs eagerly
+  (``InferenceSession.eager_reason``: no lane at B = 0), which the audit
+  reports as an ``"info"`` finding;
   the launches its kernel wrappers made at capture are the trace's
   primitive lines, symbol for symbol; and the graph holds as many
   kernel nodes of the port's sources as the entry's kernels launch
   (``cost_analysis``' ``launches``; none on a reference backend), so no
-  launch escaped the capture or was captured twice.
+  launch escaped the capture or was captured twice; a staged entry's
+  every stage holds the nodes priced for it
+  (``InferenceSession.stage_launches``).
 * **Fingerprint** (warning): a histogram of the trace's primitives and
   ops plus its operand bytes, diffed against committed ``baselines``
   when given: a change that reroutes a session shows even where the
@@ -380,7 +382,7 @@ def traced_launches(trace: str) -> dict[str, int]:
     return counts
 
 
-def graph_findings(graph, trace: str, port_launches: int, *,
+def graph_findings(graph, trace: str, port_launches, *,
                    entry: str = "?", batch: int = 0,
                    reason: str | None = None) -> list[AuditFinding]:
     """One prepared entry on a card against its op trace: ``graph`` (an
@@ -388,7 +390,13 @@ def graph_findings(graph, trace: str, port_launches: int, *,
     must exist unless the batch is empty or ``reason`` says why the entry
     runs eagerly (then one ``"info"`` finding names it), must have
     recorded at capture the trace's launches, and its census must hold
-    ``port_launches`` kernel nodes of the port's sources."""
+    ``port_launches`` kernel nodes of the port's sources: an int, or a
+    sequence of one count a stage (``InferenceSession.stage_launches``),
+    against which each stage's own census is held as well, and which
+    must show a kernel node where the stage recorded a launch."""
+    per_stage = ([int(port_launches)] if isinstance(port_launches, int)
+                 else [int(n) for n in port_launches])
+    port_launches = sum(per_stage)
     traced = traced_launches(trace)
     if graph is None:
         if reason is not None:
@@ -412,6 +420,23 @@ def graph_findings(graph, trace: str, port_launches: int, *,
             f"the graph holds {nodes} kernel node(s) of the port's sources, "
             f"the entry's kernels launch {port_launches} "
             f"({graph.census.describe()})"))
+    stages = getattr(graph, "stages", None)
+    if stages is not None and len(per_stage) > 1:
+        if len(stages) != len(per_stage):
+            findings.append(AuditFinding(
+                "graph", "error", entry, batch,
+                f"{len(stages)} captured stage(s), the entry prices "
+                f"{len(per_stage)}"))
+        for i, ((cap, _), want) in enumerate(zip(stages, per_stage)):
+            nodes = cap.census.port_kernels
+            if nodes != want or bool(cap.launches) != bool(nodes):
+                findings.append(AuditFinding(
+                    "graph", "error", entry, batch,
+                    f"stage {i} holds {nodes} kernel node(s) of the port's "
+                    f"sources, its capture recorded "
+                    f"{_build.record_symbols(cap.launches)} and the entry "
+                    f"prices {want} for it "
+                    f"({cap.census.describe()})"))
     return findings
 
 
@@ -467,8 +492,9 @@ def audit_session(session, entry: str | None = None,
                     f"{ws.variant} takes {ws.smem_bytes} B of shared memory "
                     f"a block, over the budget of {budget} B"))
         if session.graphed and session.is_compiled(e, b):
-            port = (0 if getattr(session.backend, "reference", False) else
-                    int(session.cost_analysis(e, b)["launches"]))
+            port = session.stage_launches(e, b)
+            if getattr(session.backend, "reference", False):
+                port = [0] * len(port)
             findings += graph_findings(session.graph(e, b), trace, port,
                                        entry=e, batch=b,
                                        reason=session.eager_reason(e, b))

@@ -17,6 +17,13 @@ operands into the static inputs: numpy arrays and host tensors through a
 pinned staging buffer, device tensors on the device.  It replays the
 graph, adds the recorded launches to the kernels' counts, and returns
 clones of the static outputs, so that a result survives the next call.
+
+``StagedEntry`` is the same for an entry of a sharded session, whose
+body sums over the process group between its local stages
+(``sharding.crossbar.ShardedCall``): one graph a stage, all in the
+session's pool, each stage reading the entry's static inputs and the
+previous stage's static outputs; the collectives run on those outputs
+between the replays, outside every graph.
 """
 from __future__ import annotations
 
@@ -201,13 +208,13 @@ class GraphedEntry:
 
     def __init__(self, name: str, batch: int, fn: Callable,
                  inputs: Sequence[torch.Tensor], pool):
+        self._setup(name, batch, inputs)
+        self.stages = [(self._capture(fn, self.inputs, pool), None)]
+
+    def _setup(self, name: str, batch: int,
+               inputs: Sequence[torch.Tensor]) -> None:
         self.name, self.batch = name, batch
         self.inputs = tuple(inputs)
-        try:
-            self.captured = capture(fn, self.inputs, pool)
-        except RuntimeError as e:
-            raise RuntimeError(f"capturing {name}@{batch} into a CUDA graph "
-                               f"failed: {e}") from e
         # Pinned host buffers of the inputs that host operands pass
         # through, made on first use, each with its numpy view.
         self._staging: list[tuple[torch.Tensor, np.ndarray] | None] = \
@@ -216,14 +223,34 @@ class GraphedEntry:
         self._copied = torch.cuda.Event() if self.inputs[0].is_cuda else None
         self._pending = False
 
+    def _capture(self, fn: Callable, inputs, pool, what: str = "") -> Captured:
+        try:
+            return capture(fn, inputs, pool)
+        except RuntimeError as e:
+            raise RuntimeError(f"capturing {self.name}@{self.batch}{what} "
+                               f"into a CUDA graph failed: {e}") from e
+
+    @property
+    def outputs(self):
+        """The static outputs a call returns clones of."""
+        return self.stages[-1][0].outputs
+
     @property
     def census(self) -> Census:
-        return self.captured.census
+        """The nodes of the entry's graphs, all stages together."""
+        kernels, other = [], collections.Counter()
+        for cap, _ in self.stages:
+            kernels += cap.census.kernels
+            other.update(cap.census.other)
+        return Census(kernels=tuple(kernels), other=dict(other))
 
     @property
     def launches(self) -> dict[str, int]:
         """The launches of one call, by C symbol."""
-        return _build.record_symbols(self.captured.launches)
+        record = collections.Counter()
+        for cap, _ in self.stages:
+            record.update(cap.launches)
+        return _build.record_symbols(record)
 
     def _stage(self, i: int, x) -> torch.Tensor:
         """The host operand ``x`` in input ``i``'s pinned staging buffer."""
@@ -258,15 +285,53 @@ class GraphedEntry:
             self._copied.record()
 
     def replay(self) -> None:
-        """Replay the graph on the current stream and count its launches."""
-        try:
-            self.captured.graph.replay()
-        except RuntimeError as e:
-            raise RuntimeError(f"replaying the CUDA graph of {self.name}@"
-                               f"{self.batch} failed: {e}") from e
-        _build.add_launches(self.captured.launches)
+        """Replay the graph of every stage on the current stream, in
+        order, and count its launches; a stage's collective runs on its
+        static outputs after its replay."""
+        for i, (cap, collective) in enumerate(self.stages):
+            try:
+                cap.graph.replay()
+            except RuntimeError as e:
+                what = f" stage {i}" if len(self.stages) > 1 else ""
+                raise RuntimeError(f"replaying the CUDA graph of {self.name}@"
+                                   f"{self.batch}{what} failed: {e}") from e
+            _build.add_launches(cap.launches)
+            if collective is not None:
+                # gloo's all_reduce of a CUDA tensor makes its own stream
+                # wait on the current one before it copies the tensor to
+                # the host, and makes the current stream wait on its copy
+                # back before it returns: the replay above is on the
+                # current stream, and so is the next stage's, so the sum
+                # sits between them.
+                collective(*cap.outputs)
 
     def __call__(self, *args):
         self.copy_in(*args)
         self.replay()
-        return _clone(self.captured.outputs)
+        return _clone(self.outputs)
+
+
+class StagedEntry(GraphedEntry):
+    """One prepared ``(entry, batch)`` of a sharded session on a card: one
+    captured graph a local stage, in the session's pool, with the
+    collectives between them.
+
+    ``stages`` is a list of ``(fn, collective)``: stage i's ``fn`` takes
+    the entry's static inputs and then stage i - 1's static outputs (a
+    tuple of tensors) and returns its own; ``collective`` (None after the
+    last stage) sums stage i's outputs in place over the process group.
+    Stage i is captured once stage i - 1's outputs exist, so its warm-up
+    run reads buffers no replay has written yet: a stage must not branch
+    on the values it reads."""
+
+    def __init__(self, name: str, batch: int,
+                 stages: Sequence[tuple[Callable, Callable | None]],
+                 inputs: Sequence[torch.Tensor], pool):
+        self._setup(name, batch, inputs)
+        self.stages = []
+        carry = ()
+        for i, (fn, collective) in enumerate(stages):
+            cap = self._capture(fn, self.inputs + carry, pool,
+                                f" stage {i}")
+            self.stages.append((cap, collective))
+            carry = tuple(cap.outputs)

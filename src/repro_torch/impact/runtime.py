@@ -40,9 +40,12 @@ datapath, as in the reference.  A sharded session is SPMD: every rank of
 the mesh must issue the same sequence of calls with the same inputs
 (``ir_text`` and ``audit`` included, which run the entries), and each
 rank gets the full result.  A sharded entry sums over the process group
-on the host (``gloo``), which a CUDA graph cannot hold, so it runs its
-eager body and ``graph()`` gives None for it; ``ta_feedback`` does not
-shard and is captured as on one device.
+on the host (``gloo``), which a CUDA graph cannot hold, so on a card it
+is prepared as a ``graphs.StagedEntry``: its local stages
+(``sharding.crossbar.ShardedCall``, then the entry's finish) captured
+one graph each, the two all-reduces run between the replays.  The eager
+body runs the same stages with the same collectives between them.
+``ta_feedback`` does not shard and is captured as on one device.
 
 The session also prices and audits what it serves, launching nothing of
 its own and preparing nothing: ``cost_analysis(entry, batch)`` sums the
@@ -378,17 +381,13 @@ class InferenceSession:
         return exe if isinstance(exe, graphs.GraphedEntry) else None
 
     def eager_reason(self, entry: str, batch: int) -> str | None:
-        """Why ``(entry, batch)`` runs its eager body rather than a CUDA
-        graph, or None where it is captured: the CPU, no lane, or a
-        sharded entry, whose sums over the process group run on the host
-        (``gloo``) where a graph cannot hold them."""
+        """Why ``(entry, batch)`` runs its eager body rather than CUDA
+        graphs, or None where it is captured (a sharded serving entry as
+        one graph a local stage): the CPU, or no lane."""
         if not self.graphed:
             return "the CPU captures no CUDA graph"
         if batch == 0:
             return "B = 0: nothing to launch"
-        if self.plan is not None and entry != "ta_feedback":
-            return ("sharded: its all_reduce over the process group runs "
-                    "on the host, which a CUDA graph cannot hold")
         return None
 
     # -- cost and audit -----------------------------------------------------
@@ -509,6 +508,25 @@ class InferenceSession:
         return [work.Item(name, *work.fused_impact(
             B, K, R, tr, C * tc, S * sr, M, metered=metered, packed=packed,
             needed=self._needed()), work.launches_fused(B, C * tc))]
+
+    def stage_launches(self, entry: str, batch: int) -> list[int]:
+        """The device launches of the port's kernels that
+        ``cost_analysis`` prices for each graph of ``(entry, batch)``: one
+        number for an entry captured whole; for a sharded serving entry
+        its clause stage's, its class stage's and its finish's (0)."""
+        items = self.work_items(entry, batch)
+        total = int(sum(i.launches for i in items))
+        if self.route(entry) != "sharded":
+            return [total]
+        sys_ = self.system
+        R, tr = sys_.clause_i.shape[0], sys_.clause_i.shape[2]
+        n_clause = len(crossbar_sh.clause_calls(
+            sys_.n_literals, tr,
+            crossbar_sh.local_shards(self.mesh, R, self.plan[0]),
+            self._packed is not None))
+        mvm = [i for i in items if i.kernel == "crossbar_mvm_f32"]
+        first = int(sum(i.launches for i in mvm[:n_clause]))
+        return [first, total - first, 0]
 
     def cost_analysis(self, entry: str, batch: int) -> dict[str, float]:
         """The work of the ``(entry, batch)`` call, summed over ``work_items``:
@@ -784,43 +802,73 @@ class InferenceSession:
 
     def _exe(self, entry: str, batch: int) -> Callable:
         """The prepared ``(entry, batch)``, prepared on first use: captured
-        into a ``graphs.GraphedEntry`` on a card, the eager body where
-        ``eager_reason`` gives one (the CPU, B = 0, a sharded entry).  Only a first preparation counts in
-        ``trace_count``; a graph that ``refresh_operands`` dropped is
-        captured again without counting."""
+        into a ``graphs.GraphedEntry`` on a card (a ``graphs.StagedEntry``,
+        one graph a stage, for a sharded serving entry), the eager body
+        where ``eager_reason`` gives one (the CPU, B = 0).  Only a first
+        preparation counts in ``trace_count``; a graph that
+        ``refresh_operands`` dropped is captured again without
+        counting."""
         key = (entry, batch)
         exe = self._exes.get(key)
         if exe is None:
             if entry not in self._ENTRIES:
                 raise ValueError(f"unknown entry point {entry!r}")
             body = getattr(self, f"_{entry}_fn")
-            if self.eager_reason(entry, batch) is None:
+            if self.eager_reason(entry, batch) is not None:
+                exe = _Eager(body, self.device,
+                             [d for _, d in self.input_specs(entry, batch)])
+            elif self.plan is not None and entry != "ta_feedback":
+                exe = graphs.StagedEntry(entry, batch,
+                                         self._sharded_stages(entry, batch),
+                                         self.zero_inputs(entry, batch),
+                                         self._pool)
+            else:
                 exe = graphs.GraphedEntry(entry, batch, body,
                                           self.zero_inputs(entry, batch),
                                           self._pool)
-            else:
-                exe = _Eager(body, self.device,
-                             [d for _, d in self.input_specs(entry, batch)])
             if key not in self._exes:
                 self._traces[entry] += 1
             self._exes[key] = exe
         return exe
 
-    def _sharded_expr(self, literals: torch.Tensor, valid=None,
-                      lane_cols=None, meter: bool = False):
-        """``sharding.crossbar.fused_impact_sharded`` on the session's
-        operands and plan, packed or not: the one datapath of every
-        serving entry and metering on a mesh."""
-        return crossbar_sh.fused_impact_sharded(
-            literals, self._clause_i, self._nonempty, self._class_i,
-            thresh=I_CSA_THRESHOLD, mesh=self.mesh, impl=self.backend.name,
-            valid=valid, meter=meter, shard_r=self.plan[0],
-            shard_s=self.plan[1], packed=self._packed,
-            packed_tr=self.system.clause_i.shape[2], lane_cols=lane_cols)
+    def _sharded_stages(self, entry: str, batch: int) -> list:
+        """A sharded serving entry's body as its local stages around the
+        two all-reduces (``sharding.crossbar.ShardedCall`` on the
+        session's operands and plan, packed or not; the one datapath of
+        every metering on a mesh): ``(fn, collective)`` pairs, each ``fn``
+        taking the entry's operands and then the previous stage's outputs.
+        The last stage finishes the entry as on one device."""
+        sys_ = self.system
+        metered = entry != "predict" and self.meters_energy
+        tr = sys_.clause_i.shape[2]
+        call = crossbar_sh.ShardedCall(
+            batch, sys_.n_literals, tuple(sys_.clause_i.shape),
+            tuple(sys_.class_i.shape), thresh=I_CSA_THRESHOLD,
+            mesh=self.mesh, impl=self.backend.name, meter=metered,
+            shard_r=self.plan[0], shard_s=self.plan[1],
+            packed_tr=tr if self._packed is not None else None)
+        n_in = len(self.input_specs(entry, batch))
+
+        def clause(literals, *_):
+            return call.clause_stage(literals, self._clause_i, self._packed)
+
+        def klass(*args):
+            _, valid, mids = self._split(entry, args[:n_in])
+            viol, i_col = args[n_in:]
+            lane_cols = None if mids is None else self._co_lane_cols(mids)
+            return (call.class_stage(
+                viol, i_col, self._nonempty, self._class_i,
+                valid=valid if metered else None, lane_cols=lane_cols),)
+
+        def finish(*args):
+            _, valid, mids = self._split(entry, args[:n_in])
+            out, = args[n_in:]
+            return self._finish(entry, call.tail(out), valid, mids)
+
+        return [(clause, lambda viol, _: call.reduce_viol(viol)),
+                (klass, call.reduce_out), (finish, None)]
 
     def _scores_expr(self, literals: torch.Tensor) -> torch.Tensor:
-        if self.plan is not None:
-            return self._sharded_expr(literals)
         if self._packed is not None:
             return self.backend.fused_impact_packed(
                 literals, self._packed, self._nonempty, self._class_i,
@@ -832,11 +880,8 @@ class InferenceSession:
     def _metered_expr(self, literals: torch.Tensor, valid: torch.Tensor):
         """Metered core -> (scores (B, m), per-lane summed clause currents
         (B,), per-lane summed class currents (B,)), zero on invalid lanes:
-        the fused meters, or the staged per-shard oracle; with a shard
-        plan the sharded lowering under both meterings.  A packed session
-        meters the quantized currents, the ones its cells draw."""
-        if self.plan is not None:
-            return self._sharded_expr(literals, valid, meter=True)
+        the fused meters, or the staged per-shard oracle.  A packed
+        session meters the quantized currents, the ones its cells draw."""
         tr = self.system.clause_i.shape[2]
         if self.spec.metering == "fused":
             if self._packed is not None:
@@ -883,11 +928,7 @@ class InferenceSession:
                         model_ids: torch.Tensor) -> torch.Tensor:
         """Co-resident twin of ``_scores_expr``: the backend's co-resident
         primitives (packed or not), which gate fired bits to each lane's
-        own clause-column span before the class stage; with a shard plan
-        the sharded lowering with the lane mask."""
-        if self.plan is not None:
-            return self._sharded_expr(
-                literals, lane_cols=self._co_lane_cols(model_ids))
+        own clause-column span before the class stage."""
         if self._packed is not None:
             return self.backend.fused_impact_coresident_packed(
                 literals, self._packed, self._nonempty, self._class_i,
@@ -904,12 +945,7 @@ class InferenceSession:
         lanes masked after (exact: the meters are per-lane); under
         ``"staged"`` the per-shard pair with the lane mask and the valid
         mask on the fired bits before the class drive.  Valid lanes see
-        the same composition either way.  With a shard plan, the sharded
-        lowering with the lane mask under both meterings."""
-        if self.plan is not None:
-            return self._sharded_expr(
-                literals, valid, lane_cols=self._co_lane_cols(model_ids),
-                meter=True)
+        the same composition either way."""
         tr = self.system.clause_i.shape[2]
         if self.spec.metering == "fused":
             if self._packed is not None:
@@ -943,42 +979,71 @@ class InferenceSession:
                                         include)
 
     def _predict_fn(self, literals, *model_ids):
-        if self.coresident is not None:
-            scores = self._co_scores_expr(literals, *model_ids)
-            return self._co_pred(scores, *model_ids), scores
-        scores = self._scores_expr(literals)
-        return torch.argmax(scores, dim=-1), scores
+        return self._serve("predict", literals, *model_ids)
 
     def _infer_step_fn(self, literals, valid, *model_ids):
-        co = self.coresident is not None
-        if not self.meters_energy:
-            scores = (self._co_scores_expr(literals, *model_ids) if co
-                      else self._scores_expr(literals))
-            zeros = torch.zeros((literals.shape[0],), dtype=torch.float32,
-                                device=literals.device)
-            e_cl = e_cs = zeros
-        else:
-            scores, i_cl, i_cs = (
-                self._co_metered_expr(literals, valid, *model_ids) if co
-                else self._metered_expr(literals, valid))
-            e_cl, e_cs = energy_mod.per_lane_read_energy(i_cl, i_cs)
-        preds = (self._co_pred(scores, *model_ids) if co
-                 else torch.argmax(scores, dim=-1))
-        return torch.where(valid, preds, -1), e_cl, e_cs
+        return self._serve("infer_step", literals, valid, *model_ids)
 
     def _infer_with_report_fn(self, literals, valid, *model_ids):
-        if self.coresident is not None:
-            scores, i_cl_lane, i_cs_lane = self._co_metered_expr(
-                literals, valid, *model_ids)
-            preds = self._co_pred(scores, *model_ids)
+        return self._serve("infer_with_report", literals, valid, *model_ids)
+
+    def _split(self, entry: str, args) -> tuple:
+        """(literals, valid or None, model ids or None) of a serving
+        entry's operands."""
+        rest = list(args[1:])
+        valid = rest.pop(0) if entry != "predict" else None
+        mids = rest.pop(0) if self.coresident is not None else None
+        return args[0], valid, mids
+
+    def _serve(self, entry: str, *args):
+        """A serving entry's eager body: the crossbar core on the
+        session's routing, then ``_finish``; with a shard plan the staged
+        lowering, its collectives between the stages."""
+        if self.plan is not None:
+            carry = ()
+            for fn, collective in self._sharded_stages(entry,
+                                                       args[0].shape[0]):
+                carry = fn(*args, *carry)
+                if collective is not None:
+                    collective(*carry)
+            return carry
+        literals, valid, mids = self._split(entry, args)
+        metered = entry != "predict" and self.meters_energy
+        if mids is not None:
+            core = (self._co_metered_expr(literals, valid, mids) if metered
+                    else self._co_scores_expr(literals, mids))
         else:
-            scores, i_cl_lane, i_cs_lane = self._metered_expr(literals,
-                                                              valid)
-            preds = torch.argmax(scores, dim=-1)
-        # Sentinel invalid lanes like infer_step: the staged and fused
-        # lowerings see different scores on an excluded lane.
-        return (torch.where(valid, preds, -1), i_cl_lane.sum(),
-                i_cs_lane.sum())
+            core = (self._metered_expr(literals, valid) if metered
+                    else self._scores_expr(literals))
+        return self._finish(entry, core, valid, mids)
+
+    def _finish(self, entry: str, core, valid, mids):
+        """A serving entry's outputs from its crossbar core (scores, or
+        with metering scores and the per-lane clause / class currents):
+        ``predict`` -> (predictions, scores); ``infer_step`` ->
+        (predictions, per-lane energies, zeros under ``"off"``);
+        ``infer_with_report`` -> (predictions, the batch's summed
+        currents).  Free lanes predict -1; on a co-resident session the
+        argmax is tenant-local."""
+        metered = entry != "predict" and self.meters_energy
+        scores, *meters = core if metered else (core,)
+        if entry == "infer_step":
+            if metered:
+                meters = energy_mod.per_lane_read_energy(*meters)
+            else:
+                zeros = torch.zeros((scores.shape[0],), dtype=torch.float32,
+                                    device=scores.device)
+                meters = (zeros, zeros)
+        preds = (self._co_pred(scores, mids) if mids is not None
+                 else torch.argmax(scores, dim=-1))
+        if entry == "predict":
+            return preds, scores
+        # Sentinel invalid lanes: the staged and fused lowerings see
+        # different scores on an excluded lane.
+        preds = torch.where(valid, preds, -1)
+        if entry == "infer_with_report":
+            return preds, meters[0].sum(), meters[1].sum()
+        return (preds, *meters)
 
     def __repr__(self) -> str:
         return (f"InferenceSession(backend={self.spec.backend!r}, "

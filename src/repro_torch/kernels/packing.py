@@ -41,6 +41,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..numerics import sqrt_rn
+
 CODE_DEAD = 0
 CODE_LCS = 1
 CODE_HCS = 2
@@ -106,7 +108,7 @@ def population_split(currents: torch.Tensor) -> torch.Tensor:
     currents = currents.to(torch.float32)
     hi = torch.clamp(currents.max(), min=0.0)
     lo = torch.where(currents > 0.0, currents, hi).min()
-    return torch.sqrt(torch.clamp(hi, min=1e-30) * torch.clamp(lo, min=1e-30))
+    return sqrt_rn(torch.clamp(hi, min=1e-30) * torch.clamp(lo, min=1e-30))
 
 
 def classify_currents(currents: torch.Tensor, *,

@@ -48,6 +48,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..launch.mesh import axis_sizes
+from ..numerics import rsqrt_rn
 from ..sharding.layout import (Sharding, all_gather_axis, all_reduce_axis,
                                all_reduce_max, entry_names,
                                reduce_scatter_axis)
@@ -406,7 +407,7 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
     data path stays in x.dtype; scales by ``1 + gamma`` (gamma starts at
     zero)."""
     var = x.float().square().mean(dim=-1, keepdim=True)
-    inv = torch.rsqrt(var + eps).to(x.dtype)
+    inv = rsqrt_rn(var + eps).to(x.dtype)
     return x * inv * (1.0 + gamma.to(x.dtype))
 
 
@@ -415,7 +416,7 @@ def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     x32 = x.float()
     mu = x32.mean(dim=-1, keepdim=True)
     var = x32.var(dim=-1, keepdim=True, correction=0)
-    inv = torch.rsqrt(var + eps).to(x.dtype)
+    inv = rsqrt_rn(var + eps).to(x.dtype)
     out = (x - mu.to(x.dtype)) * inv
     return out * gamma.to(x.dtype) + beta.to(x.dtype)
 

@@ -35,6 +35,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..numerics import rsqrt_rn
 from ..sharding.layout import all_gather_axis, all_reduce_axis
 from .base import NULL_CTX, P, ShardCtx, dense, model_split, rms_norm, silu
 from .config import ModelConfig
@@ -119,7 +120,7 @@ def _gated_norm(y: torch.Tensor, z: torch.Tensor, gamma: torch.Tensor,
         return rms_norm(y, gamma) * silu(z)
     ss = all_reduce_axis(y.float().square().sum(dim=-1, keepdim=True),
                          ctx.mesh, "model")
-    inv = torch.rsqrt(ss / (y.shape[-1] * ctx.model_size) + 1e-6)
+    inv = rsqrt_rn(ss / (y.shape[-1] * ctx.model_size) + 1e-6)
     return y * inv.to(y.dtype) * (1.0 + gamma.to(y.dtype)) * silu(z)
 
 

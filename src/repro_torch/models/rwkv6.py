@@ -40,6 +40,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..numerics import rsqrt_rn
 from .base import (NULL_CTX, P, ShardCtx, StackedLM, dense, dense_out,
                    layer_norm, model_split, sigmoid, silu)
 from .ssm_common import chunked_la, la_step
@@ -153,7 +154,7 @@ class RWKV6LM(StackedLM):
         o32 = o.to(F32)
         mu = o32.mean(-1, keepdim=True)
         var = o32.var(-1, keepdim=True, correction=0)
-        o32 = (o32 - mu) * torch.rsqrt(var + 1e-5)
+        o32 = (o32 - mu) * rsqrt_rn(var + 1e-5)
         o32 = o32 * tm["ln_x"]["gamma"] + tm["ln_x"]["beta"]
         return dense_out(o32.to(dtype) * g, tm["wo"])
 

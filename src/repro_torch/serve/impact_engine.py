@@ -26,10 +26,13 @@ of ``serve.zoo.ModelZoo``.
 
 A sharded session (one with a shard plan on a mesh) is SPMD: every rank
 issues the same sequence of sweeps with the same inputs.  So on a mesh
-every rank runs its own engine over the same requests, with a clock
-that reads the same on every rank (``clock=``), which makes every
-admission decision the same; each rank then holds the full predictions
-and bills.
+every rank runs its own engine over the same requests, and every rank's
+clock must read the same, which makes every admission decision the
+same; each rank then holds the full predictions and bills.  ``run``
+takes such a clock from the caller (``clock=``); ``replay_trace`` on a
+mesh of more than one rank reads rank 0's wall clock on every rank
+(``serve.clock.MeshClock``), so each rank calls it with the same
+arguments.
 """
 from __future__ import annotations
 
@@ -43,6 +46,7 @@ import numpy as np
 from ..impact.energy import EnergyReport
 from ..impact.pipeline import IMPACTSystem
 from ..impact.runtime import InferenceSession, RuntimeSpec
+from .clock import replay_clock
 from .engine import Backpressure, BatchingQueue, Request, SlotTable
 from .engine import latency_percentiles
 from .tracing import Tracer
@@ -216,6 +220,11 @@ class IMPACTEngine:
     def trace(self) -> Tracer | None:
         return self._zoo.trace
 
+    def _set_clock(self, clock: Callable[[], float]) -> None:
+        """Read ``clock`` from now on, here and in the zoo below."""
+        self.clock = clock
+        self._zoo._set_clock(clock)
+
     @trace.setter
     def trace(self, tracer: Tracer | None) -> None:
         self._zoo.attach_trace(tracer)
@@ -362,12 +371,24 @@ def replay_trace(engine: IMPACTEngine, literals: np.ndarray,
     and the scheduler steps continuously.  The engine must be on a wall
     clock (a frozen injected clock raises instead of hanging).  Returns
     tail-latency percentiles + throughput; ``trace_path`` writes the
-    Chrome-tracing timeline."""
+    Chrome-tracing timeline.
+
+    On a mesh of more than one rank every rank replays the same trace
+    through its own engine, and every reading of the clock is rank 0's
+    (``serve.clock.replay_clock``): the ranks take the same decisions and
+    return the same result.  An injected clock there raises."""
     n = len(arrivals)
     if literals.shape[0] < n:
         raise ValueError(
             f"replay_trace needs one literal row per arrival: got "
             f"{literals.shape[0]} rows for {n} arrivals")
+    with replay_clock(engine, engine.mesh, "replay_trace"):
+        return _replay(engine, literals, arrivals, trace_path)
+
+
+def _replay(engine: IMPACTEngine, literals: np.ndarray, arrivals: np.ndarray,
+            trace_path: str | None) -> dict:
+    n = len(arrivals)
     tracer = engine.trace
     if trace_path is not None and tracer is None:
         tracer = Tracer(clock=engine.clock)

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..impact.runtime import InferenceSession, RuntimeSpec, build_coresident
+from .clock import replay_clock
 from .engine import Backpressure, BatchingQueue, Request, SlotTable, \
     latency_percentiles
 from .impact_engine import BatchStats, RequestRecord, aggregate_reports
@@ -241,6 +242,15 @@ class ModelZoo:
                            n_literals=system.n_literals, system=system)
         self._name_tenant_track(t)
         return t
+
+    def _set_clock(self, clock: Callable[[], float]) -> None:
+        """Read ``clock`` from now on: the zoo, every tenant's queue and
+        the tracer."""
+        self.clock = clock
+        for t in self.tenants:
+            t.queue.clock = clock
+        if self.trace is not None:
+            self.trace.clock = clock
 
     def attach_trace(self, trace: Tracer | None) -> None:
         """Attach (or replace) the Chrome-tracing emitter, re-clocked onto
@@ -634,12 +644,20 @@ def replay_zoo_trace(zoo: ModelZoo, requests: Sequence[tuple[str, Any]],
     ``arrivals[i]`` seconds have elapsed.  Returns tail-latency
     percentiles, throughput and the zoo's per-tenant / per-SLO stats;
     ``trace_path`` writes the Chrome-tracing timeline (one process track
-    per tenant)."""
+    per tenant).  On a mesh of more than one rank every rank replays,
+    reading rank 0's clock, as ``impact_engine.replay_trace`` does."""
     n = len(arrivals)
     if len(requests) < n:
         raise ValueError(
             f"replay_zoo_trace needs one request per arrival: got "
             f"{len(requests)} requests for {n} arrivals")
+    with replay_clock(zoo, zoo.session.mesh, "replay_zoo_trace"):
+        return _replay_zoo(zoo, requests, arrivals, trace_path)
+
+
+def _replay_zoo(zoo: ModelZoo, requests, arrivals: np.ndarray,
+                trace_path: str | None) -> dict:
+    n = len(arrivals)
     tracer = zoo.trace
     if trace_path is not None and tracer is None:
         tracer = Tracer(clock=zoo.clock)

@@ -48,8 +48,10 @@ reference.
 own device, over the groups of the mesh's axes.  Over ``gloo`` (the way
 ``launch.mesh.spawn`` starts a world) that works for CPU and CUDA
 tensors, so several ranks may share one card; the reduction itself runs
-on the host, which is why a session does not capture a sharded entry
-into a CUDA graph.
+on the host, which a CUDA graph cannot hold.  So the lowering is split
+into its local stages around the two collectives (``ShardedCall``): a
+session on a card captures each stage into a graph of its own and runs
+the collectives between the replays.
 
 Parity contract (``tests/test_torch_sharding.py``, against the
 reference's ``fused_impact_shmap``): CSA bits and argmax exactly equal
@@ -267,6 +269,132 @@ def _all_reduce(t: torch.Tensor, mesh, axes: tuple[str, ...]) -> None:
                             group=mesh.get_group(a))
 
 
+class ShardedCall:
+    """One sharded call's local stages on this rank, around its two
+    collectives: ``clause_stage`` (drive to the partial violation
+    counts), ``reduce_viol``, ``class_stage`` (fired bits to the partial
+    output rows), ``reduce_out`` and ``tail`` (scores and meters sliced
+    out of the summed output).  ``fused_impact_sharded`` runs them in
+    that order; a session on a card captures each stage into a CUDA graph
+    of its own and runs the collectives between the replays.
+
+    Everything the constructor computes (this rank's batch rows, its
+    local shards, whether it is the model axis's first rank) is a Python
+    value fixed by the mesh and the shapes, so a captured stage holds it
+    as a constant."""
+
+    def __init__(self, B: int, K: int, clause_shape: tuple[int, ...],
+                 class_shape: tuple[int, ...], *, thresh: float, mesh,
+                 impl: str, meter: bool, shard_r: bool, shard_s: bool,
+                 packed_tr: int | None = None):
+        R, C, tr, tc = clause_shape
+        S, sr, M = class_shape
+        m = model_size(mesh)
+        if not (shard_r or shard_s):
+            raise ValueError("no-op plan: use the single-device kernels")
+        if (shard_r and R % m) or (shard_s and S % m):
+            raise ValueError(f"plan ({shard_r}, {shard_s}) needs R={R} and "
+                             f"S={S} to divide the model axis ({m})")
+        self.mesh, self.thresh, self.impl, self.meter = mesh, thresh, impl, meter
+        self.shard_r, self.shard_s = shard_r, shard_s
+        self.B, self.K, self.M, self.n = B, K, M, C * tc
+        self.tr = tr if packed_tr is None else packed_tr
+        self.rows, self.batch_sharded = batch_rows(mesh, B)
+        self.rs = local_shards(mesh, R, shard_r)
+        self.ss = local_shards(mesh, S, shard_s)
+        self.sr = sr
+        # (whether each part of the output is a partial sum over the model
+        # axis): the class currents, then the two meters.
+        self.partial = (shard_s,) + ((shard_r, shard_s) if meter else ())
+        self.reduce_model = any(self.partial)
+        # A replicated quantity enters the model sum from the axis's first
+        # rank only (the others add exact zeros), so it is billed once.
+        self.first = (not self.reduce_model
+                      or mesh.get_local_rank("model") == 0)
+
+    def clause_stage(self, literals: torch.Tensor, clause_i, packed=None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+        """literals (B, K) -> (this rank's violation counts (b, n) int32,
+        its clause column currents (b, R_loc, n) f32) on its rows."""
+        rs = self.rs
+        drive = 1.0 - literals[self.rows].to(torch.float32)
+        if packed is not None:
+            i_col = _local_column_currents_packed(
+                drive, packed.bits[rs.start:rs.stop], packed.levels, self.tr,
+                rs, impl=self.impl)
+        else:
+            i_col = _local_column_currents(drive, clause_i[rs.start:rs.stop],
+                                           rs, impl=self.impl)
+        # Partial CSA bits: the local shards whose column current trips the
+        # sense amp.  With R sharded the sum over the model group is Fig.
+        # 14's digital AND (a clause fires iff the total is zero); with R
+        # replicated the local count is already the total.
+        viol = (i_col >= self.thresh).to(torch.int32).sum(dim=1)
+        return viol, i_col
+
+    def reduce_viol(self, viol: torch.Tensor) -> None:
+        """The digital AND: ``viol`` summed in place over the model axis
+        when R shards."""
+        if self.shard_r:
+            _all_reduce(viol, self.mesh, ("model",))
+
+    def class_stage(self, viol: torch.Tensor, i_col: torch.Tensor,
+                    nonempty: torch.Tensor, class_i: torch.Tensor, *,
+                    valid: torch.Tensor | None = None,
+                    lane_cols: torch.Tensor | None = None) -> torch.Tensor:
+        """The summed violation counts -> this rank's part of the output
+        (B, M [+ 2]) f32: its class shards' currents (and meters) on its
+        rows, zeros elsewhere."""
+        rows = self.rows
+        fired = (viol == 0) & nonempty.to(torch.bool)[None, :]
+        if valid is not None:
+            fired &= valid[rows].to(torch.bool)[:, None]
+        if lane_cols is not None:
+            fired &= lane_cols[rows].to(torch.bool)
+        # Class stage: this rank drives its own class shards with their
+        # slice of the clause bits; with S sharded the per-shard ADC and
+        # digital add is the sum over the model group that follows.
+        drv = fired.to(torch.float32)
+        ss = self.ss
+        i_cls = torch.zeros((drv.shape[0], len(ss), self.M),
+                            dtype=torch.float32, device=drv.device)
+        for i, lo, k in class_calls(self.n, self.sr, ss):
+            i_cls[:, i] = ops.crossbar_mvm(drv[:, lo:lo + k].contiguous(),
+                                           class_i[ss[i], :k].contiguous(),
+                                           v_read=1.0, cutoff=0.0,
+                                           impl=self.impl)
+        parts = [i_cls.sum(dim=1)]
+        if self.meter:
+            if valid is not None:
+                i_col = i_col * valid[rows].to(torch.float32)[:, None, None]
+            parts += [i_col.sum(dim=(1, 2))[:, None],
+                      i_cls.sum(dim=(1, 2))[:, None]]
+        out = torch.cat([t if p or self.first else torch.zeros_like(t)
+                         for t, p in zip(parts, self.partial)], dim=1)
+        if self.batch_sharded:
+            full = torch.zeros((self.B, out.shape[1]), dtype=torch.float32,
+                               device=out.device)
+            full[rows] = out
+            out = full
+        return out
+
+    def reduce_out(self, out: torch.Tensor) -> None:
+        """The per-shard ADC and digital add (and the batch's assembly):
+        ``out`` summed in place over the model axis where a part is
+        partial, and over the data axes where the batch shards."""
+        _all_reduce(out, self.mesh,
+                    (("model",) if self.reduce_model else ())
+                    + (data_axes(self.mesh) if self.batch_sharded else ()))
+
+    def tail(self, out: torch.Tensor):
+        """The summed output -> scores (B, M), and with ``meter`` the
+        per-lane clause and class currents (B,)."""
+        scores = out[:, :self.M]
+        if not self.meter:
+            return scores
+        return scores, out[:, self.M], out[:, self.M + 1]
+
+
 def fused_impact_sharded(literals: torch.Tensor,
                          clause_i: torch.Tensor | None,
                          nonempty: torch.Tensor, class_i: torch.Tensor, *,
@@ -300,84 +428,27 @@ def fused_impact_sharded(literals: torch.Tensor,
     (``kernels.ref.coresident_lane_mask``): ANDed into the fired bits
     after the violation reduction and before the class drive, so a lane's
     foreign columns never reach foreign class rows.
+
+    The body is ``ShardedCall``'s stages with the two all-reduces between
+    them.
     """
-    B, K = literals.shape
     if packed is not None:
         if clause_i is not None or packed_tr is None:
             raise ValueError("packed mode takes clause_i=None and the "
                              "unpacked shard rows packed_tr")
-        R, C, _, tc = packed.bits.shape
-        tr = packed_tr
+        clause_shape = tuple(packed.bits.shape)
     else:
-        R, C, tr, tc = clause_i.shape
-    S, sr, M = class_i.shape
-    n = C * tc
-    m = model_size(mesh)
+        clause_shape = tuple(clause_i.shape)
+    n = clause_shape[1] * clause_shape[3]
     if nonempty.shape != (n,):
         raise ValueError(f"nonempty has shape {tuple(nonempty.shape)}, the "
                          f"clause grid {n} columns")
-    if not (shard_r or shard_s):
-        raise ValueError("no-op plan: use the single-device kernels")
-    if (shard_r and R % m) or (shard_s and S % m):
-        raise ValueError(f"plan ({shard_r}, {shard_s}) needs R={R} and S={S} "
-                         f"to divide the model axis ({m})")
-
-    rows, batch_sharded = batch_rows(mesh, B)
-    rs = local_shards(mesh, R, shard_r)
-    ss = local_shards(mesh, S, shard_s)
-    dev = literals.device
-    drive = 1.0 - literals[rows].to(torch.float32)
-    if packed is not None:
-        i_col = _local_column_currents_packed(
-            drive, packed.bits[rs.start:rs.stop], packed.levels, tr, rs,
-            impl=impl)
-    else:
-        i_col = _local_column_currents(drive, clause_i[rs.start:rs.stop],
-                                       rs, impl=impl)
-    # Partial CSA bits: the local shards whose column current trips the
-    # sense amp.  With R sharded the sum over the model group is Fig. 14's
-    # digital AND (a clause fires iff the total is zero); with R
-    # replicated the local count is already the total.
-    viol = (i_col >= thresh).to(torch.int32).sum(dim=1)
-    if shard_r:
-        _all_reduce(viol, mesh, ("model",))
-    fired = (viol == 0) & nonempty.to(torch.bool)[None, :]
-    if valid is not None:
-        fired &= valid[rows].to(torch.bool)[:, None]
-    if lane_cols is not None:
-        fired &= lane_cols[rows].to(torch.bool)
-
-    # Class stage: this rank drives its own class shards with their slice
-    # of the clause bits; with S sharded the per-shard ADC and digital
-    # add is the sum over the model group below.
-    drv = fired.to(torch.float32)
-    i_cls = torch.zeros((drv.shape[0], len(ss), M), dtype=torch.float32,
-                        device=dev)
-    for i, lo, k in class_calls(n, sr, ss):
-        i_cls[:, i] = ops.crossbar_mvm(drv[:, lo:lo + k].contiguous(),
-                                       class_i[ss[i], :k].contiguous(),
-                                       v_read=1.0, cutoff=0.0, impl=impl)
-    # (quantity, whether it is a partial sum over the model axis)
-    parts = [(i_cls.sum(dim=1), shard_s)]
-    if meter:
-        if valid is not None:
-            i_col = i_col * valid[rows].to(torch.float32)[:, None, None]
-        parts += [(i_col.sum(dim=(1, 2))[:, None], shard_r),
-                  (i_cls.sum(dim=(1, 2))[:, None], shard_s)]
-    reduce_model = any(p for _, p in parts)
-    # A replicated quantity enters the model sum from the axis's first
-    # rank only (the others add exact zeros), so it is billed once.
-    first = not reduce_model or mesh.get_local_rank("model") == 0
-    out = torch.cat([t if p or first else torch.zeros_like(t)
-                     for t, p in parts], dim=1)
-    if batch_sharded:
-        full = torch.zeros((B, out.shape[1]), dtype=torch.float32,
-                           device=dev)
-        full[rows] = out
-        out = full
-    _all_reduce(out, mesh, (("model",) if reduce_model else ())
-                + (data_axes(mesh) if batch_sharded else ()))
-    scores = out[:, :M]
-    if not meter:
-        return scores
-    return scores, out[:, M], out[:, M + 1]
+    call = ShardedCall(*literals.shape, clause_shape, tuple(class_i.shape),
+                       thresh=thresh, mesh=mesh, impl=impl, meter=meter,
+                       shard_r=shard_r, shard_s=shard_s, packed_tr=packed_tr)
+    viol, i_col = call.clause_stage(literals, clause_i, packed)
+    call.reduce_viol(viol)
+    out = call.class_stage(viol, i_col, nonempty, class_i, valid=valid,
+                           lane_cols=lane_cols)
+    call.reduce_out(out)
+    return call.tail(out)

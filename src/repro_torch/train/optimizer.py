@@ -34,6 +34,7 @@ from typing import Any
 import torch
 
 from ..models.base import leaves, tree_map, unflatten
+from ..numerics import sqrt_rn
 from ..sharding.layout import all_gather_dim, entry_names, gather_scalar
 
 F32 = torch.float32
@@ -126,14 +127,14 @@ def global_norm(tree: Tree, shardings: Tree | None = None) -> torch.Tensor:
         total = 0
         for g in flat:
             total = total + torch.sum(torch.square(g.to(F32)))
-        return torch.sqrt(total)
+        return sqrt_rn(total)
     sh = [s for _, s in leaves(shardings)]
     total = torch.zeros((), dtype=F32, device=flat[0].device)
     for g, s in zip(flat, sh):
         at = s.coordinate()
         if all(at[a] == 0 for a in s.replicated_axes):
             total = total + torch.sum(torch.square(g.to(F32)))
-    return torch.sqrt(gather_scalar(total, sh[0].mesh).sum())
+    return sqrt_rn(gather_scalar(total, sh[0].mesh).sum())
 
 
 def _update(p, g, m, v, clip, lr, bc1, bc2, cfg: AdamWConfig) -> None:
@@ -144,7 +145,7 @@ def _update(p, g, m, v, clip, lr, bc1, bc2, cfg: AdamWConfig) -> None:
     m32 = b1 * m.to(F32) + (1 - b1) * g
     v32 = b2 * v.to(F32) + (1 - b2) * torch.square(g)
     del g
-    update = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
+    update = (m32 / bc1) / (sqrt_rn(v32 / bc2) + cfg.eps)
     p.sub_(lr * (update + cfg.weight_decay * p))
     del update
     m.copy_(m32)

@@ -3,8 +3,11 @@
 ``world_main(rank, tmp)`` runs on every rank of a ``gloo`` world that
 ``repro_torch.launch.mesh.spawn`` starts on the CPU.  It reads the cases
 (``cases.json``) and their numpy inputs (``inputs.npz``) from ``tmp``,
-drives the port's sharded lowering, sharded sessions and an engine on a
-sharded session, and writes everything it computed to
+drives the port's sharded lowering, sharded sessions (eager, and
+graphed through the capture recorder of ``tests/_torch_graph_recorder.py``:
+one graph a local stage, the collectives between the replays), an
+engine on a sharded session and ``replay_trace`` on a wall clock, and
+writes everything it computed to
 ``w<world>_rank<rank>.npz``; the test holds those outputs against the
 reference's ``fused_impact_shmap``, against the port's single-device
 sessions (also computed here, on the same rank) and against each other.
@@ -14,23 +17,32 @@ starts with the port alone.
 import dataclasses
 import json
 import os
+import time
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from repro_torch.convert import system_from_arrays
-from repro_torch.impact import RuntimeSpec, Topology
+from repro_torch.impact import RuntimeSpec, Topology, graphs
+from repro_torch.impact.runtime import InferenceSession
 from repro_torch.impact.yflash import I_CSA_THRESHOLD as TH
 from repro_torch.kernels import _build, ops, packing
 from repro_torch.launch.mesh import axis_sizes, make_crossbar_mesh
 from repro_torch.serve import IMPACTEngine
+from repro_torch.serve.impact_engine import poisson_arrivals, replay_trace
+from repro_torch.serve.zoo import ModelZoo, SLOClass, replay_zoo_trace
 from repro_torch.sharding import crossbar
+
+from _torch_graph_recorder import Recorder, patch
 
 PACKINGS = ("none", "2bit")
 METERINGS = ("off", "staged", "fused")
 SHARD_MODES = ("both", "r", "s", "none")
+PLACEMENTS = ("both", "r", "s")
 ENGINE_CAPACITY = 8
+# replay_trace: this many requests of a seeded Poisson trace at this rate.
+REPLAY_REQUESTS, REPLAY_RATE = 64, 400.0
 
 
 class VirtualClock:
@@ -188,6 +200,98 @@ def engine_case(system, requests, mesh, out: dict) -> None:
     out["engine/traces"] = np.array(session.trace_count)
 
 
+def _served(s, lits, buf, valid) -> list[torch.Tensor]:
+    """Every serving entry of ``s`` on the session inputs, its outputs in
+    order."""
+    p = s.predict(lits)
+    r = s.infer_step(buf, valid)
+    got = [p.predictions, p.scores, r.predictions, r.e_clause_lanes,
+           r.e_class_lanes]
+    if s.meters_energy:
+        rep = s.infer_with_report(buf, valid).report
+        got.append(torch.tensor([rep.read_energy_j, rep.clause_energy_j,
+                                 rep.class_energy_j], dtype=torch.float64))
+    return got
+
+
+def graphed_cases(system, lits, buf, valid, mesh, out: dict) -> None:
+    """Each placement x packing x metering, served through staged graphs
+    (the recorder stands in for the capture) and eagerly: every output,
+    the stages a graph has, the captures, and ``trace_count`` before and
+    after serving twice."""
+    B = lits.shape[0]
+    saved = {k: getattr(graphs, k) for k in ("enabled", "new_pool",
+                                             "capture")}
+    rec = patch(setattr, Recorder())
+    try:
+        for shard in PLACEMENTS:
+            for pk in PACKINGS:
+                for m in METERINGS:
+                    spec = RuntimeSpec(device="cpu", metering=m, packing=pk,
+                                       capacity=B, batch_sizes=(B,),
+                                       topology=Topology(mesh=mesh,
+                                                         shard=shard))
+                    key = f"graph/{shard}/{pk}/{m}"
+                    # New sessions, not the system's cached ones.
+                    with rec.off():
+                        eager = InferenceSession(system, spec)
+                    n0 = len(rec.log)
+                    s = InferenceSession(system, spec)
+                    if m != "off":
+                        s.warm(B, "infer_with_report")
+                    before = s.trace_count
+                    g = s.graph("infer_step", B)
+                    out[f"{key}/stages"] = np.array(
+                        [len(s.graph(e, B).stages)
+                         for e, _ in s.compiled_shapes()])
+                    out[f"{key}/captures"] = np.array(
+                        sum(x[0] == "capture" for x in rec.log[n0:]
+                            if isinstance(x, tuple)))
+                    out[f"{key}/staged"] = np.array(
+                        isinstance(g, graphs.StagedEntry)
+                        and s.eager_reason("infer_step", B) is None)
+                    for i in range(2):
+                        for j, (a, b) in enumerate(zip(
+                                _served(s, lits, buf, valid),
+                                _served(eager, lits, buf, valid))):
+                            out[f"{key}/{i}/{j}/graphed"] = a.numpy()
+                            out[f"{key}/{i}/{j}/eager"] = b.numpy()
+                    out[f"{key}/traces"] = np.array([before, s.trace_count])
+    finally:
+        for k, v in saved.items():
+            setattr(graphs, k, v)
+
+
+def replay_case(system, requests, mesh, out: dict) -> None:
+    """``replay_trace`` on a ``time.monotonic`` engine over a sharded
+    session: a seeded Poisson trace, every rank with the same arguments;
+    what it completed, shed, predicted and billed."""
+    session = system.compile(RuntimeSpec(
+        device="cpu", capacity=ENGINE_CAPACITY,
+        topology=Topology(mesh=mesh)))
+    eng = IMPACTEngine(session, clock=time.monotonic)
+    arrivals = poisson_arrivals(REPLAY_REQUESTS, REPLAY_RATE, seed=5)
+    res = replay_trace(eng, requests, arrivals)
+    assert eng.clock is time.monotonic
+    recs = sorted(eng.request_records, key=lambda r: r.rid)
+    out["replay/counts"] = np.array([res["offered"], res["completed"],
+                                     res["shed"], len(recs)])
+    out["replay/times"] = np.array([res["wall_s"], res["p50_s"],
+                                    res["p99_s"]])
+    out["replay/pred"] = np.array([r.pred for r in recs])
+    out["replay/bills"] = np.array([r.e_read_j for r in recs])
+    out["replay/meter"] = np.array(
+        sum(rep.read_energy_j for rep in eng.reports))
+    out["replay/traces"] = np.array(session.trace_count)
+    # The same trace through a one-tenant zoo on the sharded session.
+    zoo = ModelZoo(session, [("t", SLOClass())], clock=time.monotonic)
+    res = replay_zoo_trace(zoo, [("t", row) for row in requests], arrivals)
+    recs = sorted(zoo.request_records, key=lambda r: r.rid)
+    out["zoo_replay/counts"] = np.array([res["completed"], res["shed"]])
+    out["zoo_replay/pred"] = np.array([r.pred for r in recs])
+    out["zoo_replay/bills"] = np.array([r.e_read_j for r in recs])
+
+
 def world_main(rank: int, tmp: str) -> None:
     # Small operands: one thread a rank beats ranks competing for cores.
     torch.set_num_threads(1)
@@ -217,4 +321,6 @@ def world_main(rank: int, tmp: str) -> None:
     session_cases(system, lits, buf, valid, mesh, out)
     shard_mode_cases(system, buf, valid, mesh, out)
     engine_case(system, z["session/requests"], mesh, out)
+    graphed_cases(system, lits, buf, valid, mesh, out)
+    replay_case(system, z["session/replay"], mesh, out)
     np.savez(os.path.join(tmp, f"w{world}_rank{rank}.npz"), **out)

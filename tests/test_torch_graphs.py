@@ -12,9 +12,6 @@ audit's ``"graph"`` check.  Results are held bitwise to the eager
 session, and the graphed and eager sessions to the JAX session
 (``"xla"``) at the reference's tolerances.
 """
-import collections
-import contextlib
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,6 +27,8 @@ from repro_torch.impact import RuntimeSpec, build_coresident, graphs
 from repro_torch.impact.yflash import read_current
 from repro_torch.kernels import _build
 from repro_torch.kernels.fused_impact import KERNEL as FUSED
+
+from _torch_graph_recorder import Recorder, patch
 
 # (B, K, n, M, R, tr, C, tc, S, sr): a sharded ragged grid.
 LAYOUT = (12, 120, 40, 5, 2, 64, 2, 24, 2, 24)
@@ -72,57 +71,6 @@ def _arrays(B, K, n, M, R, tr, C, tc, S, sr, seed=0):
     return d, lits, valid
 
 
-class _FakeGraph:
-    """Replays by running the body on the static inputs and writing its
-    results into the static outputs, as a captured graph would."""
-
-    def __init__(self, fn, inputs, outputs, log):
-        self.fn, self.inputs, self.outputs, self.log = fn, inputs, outputs, log
-
-    def replay(self):
-        self.log.append("replay")
-        _write(self.outputs, self.fn(*self.inputs))
-
-
-def _write(dst, src):
-    if isinstance(dst, torch.Tensor):
-        dst.copy_(src)
-    else:
-        for d, s in zip(dst, src):
-            _write(d, s)
-
-
-class Recorder:
-    """Stands in for ``graphs.capture``: runs the body once on the static
-    buffers and logs it.  ``launches`` is the record a capture on a card
-    would have made (the CPU wrappers launch nothing)."""
-
-    def __init__(self, launches=None, census=None, fail=None):
-        self.log = []
-        self.launches = collections.Counter(launches or {})
-        self.census = census or graphs.Census(kernels=(), other={})
-        self.fail = fail
-        self.on = True
-
-    @contextlib.contextmanager
-    def off(self):
-        """Within the block, sessions prepare their entries eagerly."""
-        self.on = False
-        try:
-            yield
-        finally:
-            self.on = True
-
-    def __call__(self, fn, inputs, pool):
-        self.log.append(("capture", tuple(tuple(t.shape) for t in inputs)))
-        if self.fail is not None:
-            raise RuntimeError(self.fail)
-        outputs = fn(*inputs)
-        return graphs.Captured(
-            graph=_FakeGraph(fn, inputs, outputs, self.log), outputs=outputs,
-            launches=collections.Counter(self.launches), census=self.census)
-
-
 @pytest.fixture(scope="module")
 def data():
     return _arrays(*LAYOUT)
@@ -141,10 +89,7 @@ def graphed(monkeypatch):
 
 
 def _patch(monkeypatch, rec):
-    monkeypatch.setattr(graphs, "enabled", lambda device: rec.on)
-    monkeypatch.setattr(graphs, "new_pool", lambda device: None)
-    monkeypatch.setattr(graphs, "capture", rec)
-    return rec
+    return patch(monkeypatch.setattr, rec)
 
 
 def _spec(**kw):

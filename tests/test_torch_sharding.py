@@ -11,16 +11,21 @@ started with ``torch.multiprocessing.spawn`` on a file rendezvous
 reference's ``SHARD_SHAPES`` and ``ASYM_SHAPES`` whose model axis is 2 or
 4, a batch that does not divide the data axis, both packings, ``valid``
 with free lanes, ``lane_cols``, sessions under ``Topology(mesh, shard)``
-with all three meterings, and ``IMPACTEngine.run`` on every rank; (d)
-one subprocess runs the reference's lowering and sessions on 8 forced
-host devices (``JAX_PLATFORMS=cpu``, as
+with all three meterings, the same sessions at every placement served
+through staged graphs (``tests/_torch_graph_recorder.py`` stands in for
+the capture: one graph a local stage, the all-reduces between the
+replays) against their eager twins, ``IMPACTEngine.run`` on every rank,
+and ``replay_trace`` on a ``time.monotonic`` engine (every reading rank
+0's); (d) one subprocess runs the reference's lowering and sessions on
+8 forced host devices (``JAX_PLATFORMS=cpu``, as
 ``tests/test_crossbar_sharding.py`` does) and the ranks are held to it.
 
 Tolerances: CSA bits (read through an identity class operand) and
 argmax exact; scores rtol 1e-6; lane meters and per-lane energies rtol
 1e-5, zero on free lanes; per-request bills sum to the batch meter at
 rel 1e-9 (the port bills in f64); every rank of a world returns the same
-full result, bit for bit.
+full result, bit for bit; a graphed sharded session returns its eager
+twin's outputs bit for bit.
 """
 import json
 import os
@@ -41,9 +46,11 @@ from repro_torch.impact import RuntimeSpec, Topology, build_coresident
 from repro_torch.impact import graphs
 from repro_torch.launch.mesh import (make_crossbar_mesh, make_debug_mesh,
                                      spawn)
+from repro_torch.kernels.crossbar_mvm import KERNEL as MVM
 from repro_torch.sharding import crossbar, rules
 
 import _torch_sharding_ranks as ranks
+from _torch_graph_recorder import Recorder, patch
 from test_torch_runtime import _arrays
 
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
@@ -157,8 +164,9 @@ def test_topology_resolution():
 
 def test_sharded_session_prices_its_own_rank(monkeypatch):
     """``route`` is ``"sharded"`` for every serving entry; the work is
-    this rank's local shards and lanes; the sharded entries name why they
-    run eagerly, which the audit's graph check reports as info."""
+    this rank's local shards and lanes; on a card a sharded entry with a
+    lane is captured (no eager reason), and only B = 0 runs eagerly,
+    which the audit's graph check reports as info."""
     mesh = FakeMesh(data=1, model=2)
     monkeypatch.setattr(mesh, "get_local_rank", lambda axis: 0,
                         raising=False)
@@ -176,14 +184,73 @@ def test_sharded_session_prices_its_own_rank(monkeypatch):
     packed = system.compile(RuntimeSpec(device="cpu", packing="2bit"))
     assert len(packed.mvm_calls()) == 4 + 1      # 4 bitplanes + 1 class
     monkeypatch.setattr(graphs, "enabled", lambda device: True)
-    assert "sharded" in s.eager_reason("infer_step", 8)
-    assert s.eager_reason("ta_feedback", 8) is None
+    for e in ("predict", "infer_step", "infer_with_report", "ta_feedback"):
+        assert s.eager_reason(e, 8) is None
     assert "B = 0" in s.eager_reason("infer_step", 0)
+    f = ir_audit.graph_findings(None, "", 0, entry="infer_step", batch=0,
+                                reason=s.eager_reason("infer_step", 0))
+    assert [(x.check, x.severity) for x in f] == [("graph", "info")]
+    assert "B = 0" in f[0].message
+    assert ir_audit.AuditReport(tuple(f), {}, {}, 1).ok
     f = ir_audit.graph_findings(None, "", 3, entry="infer_step", batch=8,
                                 reason=s.eager_reason("infer_step", 8))
-    assert [(x.check, x.severity) for x in f] == [("graph", "info")]
-    assert "sharded" in f[0].message
-    assert ir_audit.AuditReport(tuple(f), {}, {}, 1).ok
+    assert [(x.check, x.severity) for x in f] == [("graph", "error")]
+
+
+# A kernel node of crossbar_mvm.cu, named as cuFuncGetName gives it.
+MVM_NODE = ("_ZN47_GLOBAL__N__5b68df1e_15_crossbar_mvm_cu_968572f29mvm_"
+            "tilesILi1ELi1EEEvPKfS2_Pfiiifff")
+
+
+@pytest.mark.parametrize("packing", ["none", "2bit"])
+def test_sharded_entry_captures_one_graph_a_stage(monkeypatch, packing):
+    """On a card (the recorder stands in for the capture) a sharded
+    serving entry is a ``StagedEntry``: the clause stage, the class stage
+    and the finish, each captured once into the session's pool, the
+    second and third reading the static outputs of the one before; the
+    priced launches split over the stages; the audit holds each stage's
+    census to its share, and a census that lost a node is an error."""
+    mesh = FakeMesh(data=1, model=2)
+    monkeypatch.setattr(mesh, "get_local_rank", lambda axis: 0,
+                        raising=False)
+    system, _ = _small_system(mesh)
+    rec = patch(monkeypatch.setattr, Recorder())
+    s = system.compile(RuntimeSpec(device="cpu", metering="fused",
+                                   packing=packing, capacity=8))
+    g = s.graph("infer_step", 8)
+    assert isinstance(g, graphs.StagedEntry) and s.trace_count == 1
+    assert [x for x in rec.log if x[0] == "capture"] == [
+        ("capture", ((8, 120), (8,))),
+        ("capture", ((8, 120), (8,), (8, 48), (8, 1, 48))),
+        ("capture", ((8, 120), (8,), (8, 7)))]
+    viol, i_col = g.stages[0][0].outputs
+    assert all(x is y for x, y in zip(g.stages[1][0].graph.inputs[2:],
+                                      (viol, i_col)))
+    assert g.stages[2][1] is None
+    per = s.stage_launches("infer_step", 8)
+    cost = s.cost_analysis("infer_step", 8)["launches"]
+    assert len(per) == 3 and sum(per) == cost and per[2] == 0
+    # This rank's one class shard makes the class stage's one call; the
+    # clause stage makes the rest (one a bitplane when packed).
+    calls = [len(s.mvm_calls()) - 1, 1, 0]
+    assert calls[0] == (4 if packing == "2bit" else 1)
+    for (cap, _), n, c in zip(g.stages, per, calls):
+        assert bool(n) == bool(c)
+        cap.launches.clear()
+        if c:
+            cap.launches[MVM] = c
+        cap.census = graphs.Census(kernels=(MVM_NODE,) * n, other={})
+    # The entry's op trace names one primitive line a wrapper call (its
+    # body runs the all-reduces, which a FakeMesh cannot).
+    trace = "kernel crossbar_mvm_f32(f32[8,64], f32[64,48])\n" * sum(calls)
+    assert g.launches == ir_audit.traced_launches(trace)
+    assert ir_audit.graph_findings(g, trace, per, entry="infer_step",
+                                   batch=8) == []
+    g.stages[1][0].census = graphs.Census(kernels=(MVM_NODE,) * (per[1] - 1),
+                                          other={})
+    f = ir_audit.graph_findings(g, trace, per, entry="infer_step", batch=8)
+    assert {x.severity for x in f} == {"error"}
+    assert any("stage 1 holds" in x.message for x in f)
 
 
 def test_coresident_grids_never_shard():
@@ -358,6 +425,9 @@ def _inputs(tmp: pathlib.Path) -> None:
     rng = np.random.default_rng(99)
     arrays["session/requests"] = (
         rng.random((N_REQUESTS, lits.shape[1])) < 0.5).astype(np.int8)
+    arrays["session/replay"] = (
+        rng.random((ranks.REPLAY_REQUESTS, lits.shape[1])) < 0.5).astype(
+            np.int8)
     np.savez(tmp / "inputs.npz", **arrays)
     cases = [dict(name=n, inputs=i, world=w, mesh=list(m))
              for n, i, w, m, _, _ in CASES]
@@ -569,3 +639,95 @@ def test_crossbar_scaling_reduced(capsys):
     assert out.count(" same ") == len(crossbar_scaling.TILINGS)
     assert out.count("rank ") == 2 * len(crossbar_scaling.TILINGS)
     assert "plan (True, True)" in out and "0 other differences" in out
+
+
+GRAPHED = [(w, sh, pk, m) for w in WORLDS for sh in ranks.PLACEMENTS
+           for pk in ranks.PACKINGS for m in ranks.METERINGS]
+
+
+@pytest.mark.parametrize("world,shard,pk,m", GRAPHED,
+                         ids=[f"w{w}-{sh}-{p}-{m}" for w, sh, p, m in GRAPHED])
+def test_graphed_sharded_sessions_equal_eager(worlds, world, shard, pk, m):
+    """Every placement x packing x metering served through staged graphs
+    (the recorder captures on the CPU; the all-reduces run between the
+    replays) on every rank: each prepared entry is three captured stages,
+    its outputs over two rounds of calls are its eager twin's bit for
+    bit, and serving prepares nothing."""
+    n_entries = 3 if m != "off" else 2
+    for r in range(world):
+        got = worlds[(world, r)]
+        k = f"graph/{shard}/{pk}/{m}"
+        assert bool(got[f"{k}/staged"])
+        assert got[f"{k}/stages"].tolist() == [3] * n_entries
+        assert int(got[f"{k}/captures"]) == 3 * n_entries
+        assert got[f"{k}/traces"].tolist() == [n_entries] * 2
+        outs = 5 + (m != "off")
+        for i in range(2):
+            for j in range(outs):
+                np.testing.assert_array_equal(
+                    got[f"{k}/{i}/{j}/graphed"], got[f"{k}/{i}/{j}/eager"],
+                    err_msg=f"rank {r} call {i} output {j}")
+        assert (got[f"{k}/0/2/graphed"] == -1).any()
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_replay_trace_on_a_mesh(worlds, world):
+    """``replay_trace`` on a ``time.monotonic`` engine over a sharded
+    session, every rank reading rank 0's clock: every rank completes,
+    sheds, predicts and bills the same; the predictions are one device's;
+    the bills sum to the batch meter in f64 (rel 1e-9); serving prepared
+    nothing new."""
+    base = worlds[(world, 0)]
+    for r in range(world):
+        got = worlds[(world, r)]
+        for k in ("counts", "times", "pred", "bills", "meter"):
+            np.testing.assert_array_equal(got[f"replay/{k}"],
+                                          base[f"replay/{k}"], err_msg=k)
+    n = ranks.REPLAY_REQUESTS
+    assert base["replay/counts"].tolist() == [n, n, 0, n]
+    d, _, _ = _arrays(*SHAPES[SESSION_INPUTS],
+                      seed=len(SESSION_INPUTS) + SHAPES[SESSION_INPUTS][0])
+    rng = np.random.default_rng(99)
+    rng.random((N_REQUESTS, d["n_literals"]))
+    requests = (rng.random((n, d["n_literals"])) < 0.5).astype(np.int8)
+    direct = system_from_arrays(d, device="cpu").compile(
+        RuntimeSpec(device="cpu")).predict(requests)
+    np.testing.assert_array_equal(base["replay/pred"],
+                                  direct.predictions.numpy())
+    bills, meter = base["replay/bills"], float(base["replay/meter"])
+    assert (bills > 0).all()
+    assert abs(sum(bills.tolist()) - meter) <= 1e-9 * abs(meter)
+    assert int(base["replay/traces"]) == 1
+    # replay_zoo_trace on a one-tenant zoo over the same session.
+    for r in range(world):
+        got = worlds[(world, r)]
+        for k in ("counts", "pred", "bills"):
+            np.testing.assert_array_equal(got[f"zoo_replay/{k}"],
+                                          base[f"zoo_replay/{k}"])
+    assert base["zoo_replay/counts"].tolist() == [n, 0]
+    np.testing.assert_array_equal(base["zoo_replay/pred"],
+                                  base["replay/pred"])
+
+
+def test_replay_on_a_mesh_refuses_an_injected_clock(monkeypatch):
+    """On a mesh of more than one rank, ``replay_trace`` and
+    ``replay_zoo_trace`` need a wall clock that rank 0 reads for every
+    rank: a per-rank injected clock raises before anything is served, and
+    the engine keeps its clock."""
+    from repro_torch.serve import IMPACTEngine
+    from repro_torch.serve.impact_engine import replay_trace
+    from repro_torch.serve.zoo import ModelZoo, SLOClass, replay_zoo_trace
+    mesh = FakeMesh(data=1, model=2)
+    monkeypatch.setattr(mesh, "get_local_rank", lambda axis: 0,
+                        raising=False)
+    system, lits = _small_system(mesh)
+    session = system.compile(RuntimeSpec(device="cpu", capacity=4))
+    clock = ranks.VirtualClock()
+    eng = IMPACTEngine(session, clock=clock)
+    with pytest.raises(ValueError, match="needs a wall clock"):
+        replay_trace(eng, lits, np.zeros(len(lits)))
+    assert eng.clock is clock and eng.request_records == []
+    zoo = ModelZoo(session, [("t", SLOClass())], clock=clock)
+    with pytest.raises(ValueError, match="needs a wall clock"):
+        replay_zoo_trace(zoo, [("t", row) for row in lits], np.zeros(2))
+    assert zoo.clock is clock and zoo.request_records == []
