@@ -232,7 +232,20 @@ Phases, each of which must pass or the script exits non-zero:
    on every rank (nothing, on one device); printed beside them, not
    gated: the predicted peak (arguments + temp) against
    ``torch.cuda.max_memory_allocated`` over the same step, and the
-   card's ``total_memory`` against ``dryrun.HBM_BYTES``.
+   card's ``total_memory`` against ``dryrun.HBM_BYTES``;
+18. the paper's experiments (``repro_torch.paper``) between one reset and
+   one read of the launch counts: Tables 4 and 6 and Fig. 13 on phase
+   5's trained parameters (the paper's MNIST CoTM config, passed in, not
+   retrained), Table 5 on all seven datasets (2000 samples, 6 epochs;
+   cifar2 and human_activity take two 512-column clause tiles), Figs. 7-8
+   at c2c(60) / d2d(100); gates: Table 4's own (fused predictions equal
+   the staged ones, clause and class energy and TOPS/W within rtol 1e-4),
+   ``fused_impact``, ``fused_impact_metered`` and ``crossbar_mvm``
+   launched in the phase (their launches added to rows 1-3 of the kernel
+   table), then ``fused_impact`` on the trained cifar2 system's own
+   operands against its plain version: CSA bits (through an identity
+   class operand) and argmax exact, scores at rtol 1e-6; the phase's and
+   each section's wall printed.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -6534,6 +6547,112 @@ def dry_path(proc: subprocess.Popen, out_dir: str, llama: dict,
     return dict(records=recs, seconds=wall)
 
 
+# -- phase 18 --------------------------------------------------------------
+
+# The paper's experiments (``repro_torch.paper``): Tables 4 and 6 and Fig.
+# 13 on phase 5's trained parameters (the paper's MNIST CoTM config,
+# passed in, not retrained), Table 5 on all seven datasets at the
+# reference's sizes, Figs. 7-8 at the reference's c2c(60) / d2d(100).
+PAPER_TABLE5_TRAIN, PAPER_TABLE5_EPOCHS = 2000, 6
+PAPER_C2C_CYCLES, PAPER_D2D_DEVICES = 60, 100
+PAPER_KERNELS = ("fused_impact_f32", "fused_impact_metered_f32",
+                 "crossbar_mvm_f32")
+# The Table 5 system whose operands hold fused_impact to its plain
+# version: two 512-column clause tiles.
+PAPER_CHECK_DATASET = "cifar2"
+
+
+def paper_path(model: tuple, device, card: str) -> dict:
+    """Phase 18: the sections of ``repro_torch.paper`` on the card between
+    one reset and one read of the launch counts (Table 4's gates raise
+    inside its section), then ``fused_impact`` on the cifar2 system's own
+    operands against its plain version: CSA bits (through an identity
+    class operand) and argmax exact, scores at RTOL_SCORES.  Returns the
+    phase's launch counts and wall."""
+    from repro_torch import kernels
+    from repro_torch.data.synthetic import table5_dataset
+    from repro_torch.impact.yflash import I_CSA_THRESHOLD as TH
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_impact import fused_impact
+    from repro_torch.paper import (common, fig7_8_variability,
+                                   fig13_tuning_sweep, table4_energy,
+                                   table5_datasets, table6_comparison)
+    params, cfg = model
+    t0 = time.perf_counter()
+    trained = common.trained_mnist_cotm(device=device, params=params)
+    if trained.cfg != cfg:
+        fail(f"phase 18: phase 5 trained at {cfg}, the paper's sections "
+             f"run at {trained.cfg}")
+    systems: dict = {}
+    sections = (
+        ("table4", lambda: table4_energy.main(device=device,
+                                              trained=trained)),
+        ("table6", lambda: table6_comparison.main(device=device,
+                                                  trained=trained)),
+        ("fig13", lambda: fig13_tuning_sweep.main(device=device,
+                                                  trained=trained)),
+        ("table5", lambda: table5_datasets.main(
+            device=device, n_train=PAPER_TABLE5_TRAIN,
+            epochs=PAPER_TABLE5_EPOCHS, systems=systems)),
+        ("fig7_8", lambda: fig7_8_variability.main(
+            device=device, cycles=PAPER_C2C_CYCLES,
+            n_devices=PAPER_D2D_DEVICES)))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    walls, rows = {}, {}
+    for name, run in sections:
+        t = time.perf_counter()
+        rows.update((r.name, r) for r in run())
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t
+    launches = kernels.launch_counts()
+    for sym in PAPER_KERNELS:
+        if launches[sym] == 0:
+            fail(f"phase 18: {sym} was never launched by the paper's "
+                 f"sections")
+    t4 = {k: rows[f"table4/{k}"].values["ours"] for k in (
+        "clause_pJ_per_datapoint", "clause_pJ_per_datapoint_fused",
+        "class_pJ_per_datapoint", "class_pJ_per_datapoint_fused",
+        "tops_per_w", "tops_per_w_fused")}
+    print(f"phase 18: Table 4's gates held (fused vs staged: clause "
+          f"{t4['clause_pJ_per_datapoint_fused']!r} / "
+          f"{t4['clause_pJ_per_datapoint']!r} pJ, class "
+          f"{t4['class_pJ_per_datapoint_fused']!r} / "
+          f"{t4['class_pJ_per_datapoint']!r} pJ, TOPS/W "
+          f"{t4['tops_per_w_fused']!r} / {t4['tops_per_w']!r}); sections' "
+          f"walls " + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items())
+          + f"; launches {', '.join(f'{s} {launches[s]}' for s in PAPER_KERNELS)}")
+
+    # fused_impact on the trained two-column-tile system's operands.
+    system = systems[PAPER_CHECK_DATASET]
+    xt, _, _ = table5_dataset(PAPER_CHECK_DATASET, 400, seed=7)
+    lits = table5_datasets.literals(xt, device).to(torch.int8)
+    ci, ne, cls = system.clause_i, system._nonempty_eff(), system.class_i
+    R, C, tr, tc = ci.shape
+    S, sr, _ = cls.shape
+    got = fused_impact(lits, ci, ne, cls, thresh=TH)
+    want = ref.fused_impact_ref(lits, ci, ne, cls, thresh=TH)
+    exact(f"phase 18 {PAPER_CHECK_DATASET}: fused_impact argmax",
+          got.argmax(-1), want.argmax(-1))
+    err = allclose(f"phase 18 {PAPER_CHECK_DATASET}: fused_impact scores",
+                   got, want, RTOL_SCORES)
+    eye = identity_class(S, sr, C * tc, device)
+    bits = fused_impact(lits, ci, ne, eye, thresh=TH) > 0.5
+    want_bits, i_col = ref.impact_clause_bits_ref(lits, ci, ne, thresh=TH)
+    if not bool(want_bits.any()):
+        fail(f"phase 18 {PAPER_CHECK_DATASET}: no clause fired on the "
+             f"test literals, so the CSA bits check holds nothing")
+    csa_bits_exact(f"phase 18 {PAPER_CHECK_DATASET}: fused_impact CSA bits",
+                   bits, want_bits, i_col, TH)
+    wall = time.perf_counter() - t0
+    print(f"phase 18: fused_impact on the {PAPER_CHECK_DATASET} system "
+          f"((R, C, tr, tc) = {(R, C, tr, tc)}, {tuple(lits.shape)} "
+          f"literals): CSA bits ({int(want_bits.sum())} fired) and argmax "
+          f"exact, scores max abs err {err:.3e}; phase 18 done in "
+          f"{wall:.1f} s; {card}")
+    return dict(launches=launches, seconds=wall, max_abs_err=err)
+
+
 def kernel_resources(source: str) -> list[str]:
     """Each kernel of ``source`` with its registers, shared memory and
     spills, from the build's ``nvcc --resource-usage`` report."""
@@ -6631,8 +6750,9 @@ def main() -> int:
     _, ssm_row = ssm_path(device, card)
     rows.append(ssm_row)
     llama_train = train_lm_path(device, card)["llama"]
-    # Phase 15's world needs the card to itself: drop what the earlier
-    # phases hold.
+    # Phase 18 reads phase 5's trained model; phase 15's world needs the
+    # card to itself: drop what the earlier phases hold.
+    paper_model = trained["model"]
     del served, trained, compressed, coresident, _
     zero_path(card)
     tp = tp_path(card)
@@ -6643,6 +6763,15 @@ def main() -> int:
     if tp["heads"]:
         fail(f"phase 16: head launches at no row's shape: {tp['heads']}")
     dry_path(dry, dry_dir, llama_train, tp, card)
+    paper = paper_path(paper_model, device, card)
+    for r in rows:
+        sym = {"fused_impact": "fused_impact_f32",
+               "fused_impact_metered": "fused_impact_metered_f32",
+               "crossbar_mvm": "crossbar_mvm_f32"}.get(r["name"])
+        if sym is not None:
+            r["launches"] += paper["launches"][sym]
+        if r["name"] == "fused_impact":
+            r["max_abs_err"] = max(r["max_abs_err"], paper["max_abs_err"])
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``repro_torch`` and not
-``chip_smoke.py`` imports ``jax`` or the JAX reference package ``repro``,
+``chip_smoke.py`` imports ``jax``, the JAX reference package ``repro`` or
+the reference's scripts ``benchmarks``,
 importing the port loads neither, and an entry point that was not given
 ``device="cpu"`` raises when there is no CUDA device instead of falling
 back to the CPU."""
@@ -17,7 +18,7 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:
@@ -49,7 +50,8 @@ def test_importing_the_port_loads_neither_jax_nor_reference():
         "repro_torch.models, repro_torch.configs, repro_torch.serve_lm, "
         "repro_torch.train_lm, repro_torch.launch.specs, "
         "repro_torch.sharding.layout, repro_torch.train.step, "
-        "repro_torch.launch.census, repro_torch.launch.dryrun\n"
+        "repro_torch.launch.census, repro_torch.launch.dryrun, "
+        "repro_torch.paper.__main__\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"
