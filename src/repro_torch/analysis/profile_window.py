@@ -4,7 +4,9 @@
 window, and a window that launches its first kernel as it opens can lose
 the events of its first kernels, or of all of them.  ``device_profile``
 keeps ``MARGIN_S`` of idle time at each end of its window, so a gate
-that counts the kernels of a window counts them all.
+that counts the kernels of a window counts them all.  ``idle_by_span``
+lays the card's idle gaps of such a window on the program's spans
+(``repro_torch.tracing``), which record while the profiler does.
 
     python -m repro_torch.analysis.profile_window [--windows N]
 
@@ -16,6 +18,7 @@ how many windows lost device events and which launches they lost.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import json
 import time
@@ -23,10 +26,14 @@ import time
 import numpy as np
 import torch
 
+from .. import tracing
+
 MARGIN_S = 0.05
 # clause_eval at the training path's digital shape (B, K, N), CALLS
 # launches a window, as chip_smoke.py's profile gates have.
 SHAPE, CALLS = (256, 1568, 500), 50
+#: Where ``idle_by_span`` puts idle time no program span covers.
+OUTSIDE = "outside the program"
 
 
 @contextlib.contextmanager
@@ -42,6 +49,59 @@ def device_profile(cpu: bool = False, margin_s: float = MARGIN_S):
         yield prof
         torch.cuda.synchronize()
         time.sleep(margin_s)
+
+
+def idle_by_span(events, spans) -> dict[str, float]:
+    """Seconds the card sat idle, by the innermost program span the host
+    was in -> ``{span name or OUTSIDE: seconds}``, largest first.
+
+    ``events``: the kineto events of a profiled window
+    (``prof.profiler.kineto_results.events()``); the card is busy while
+    one of its kernels, copies or fills runs (its user annotations are
+    not work).  ``spans``: ``repro_torch.tracing.spans()`` records of the
+    same window, on the same clock.  The window runs from the first
+    span's start to the last one's end; idle time there that no span
+    covers goes to ``OUTSIDE``: the caller's own code between the
+    program's calls."""
+    marks = tracing.nest(spans)
+    if not marks:
+        return {}
+    w0, w1 = marks[0][0], marks[-1][0]
+    cuda = torch.autograd.DeviceType.CUDA
+    busy = sorted(
+        (max(a, w0), min(b, w1)) for a, b in (
+            (e.start_ns(), e.start_ns() + e.duration_ns()) for e in events
+            if e.device_type() == cuda and not e.is_user_annotation())
+        if b > w0 and a < w1)
+    gaps, t = [], w0
+    for a, b in busy:
+        if a > t:
+            gaps.append((t, a))
+        t = max(t, b)
+    if w1 > t:
+        gaps.append((t, w1))
+    # Contiguous segments of the window, each under its innermost span.
+    segs, names, t = [], [], w0
+    for ns, begins, name in marks:
+        if ns > t:
+            segs.append((t, ns, names[-1] if names else OUTSIDE))
+            t = ns
+        if begins:
+            names.append(name)
+        else:
+            names.pop()
+    idle = collections.Counter()
+    k = 0
+    for a, b in gaps:
+        while k < len(segs) and segs[k][1] <= a:
+            k += 1
+        j = k
+        while j < len(segs) and segs[j][0] < b:
+            overlap = min(b, segs[j][1]) - max(a, segs[j][0])
+            if overlap > 0:
+                idle[segs[j][2]] += overlap
+            j += 1
+    return {name: ns / 1e9 for name, ns in idle.most_common()}
 
 
 def window(fn, calls: int, cpu: bool, margin_s: float) -> dict:

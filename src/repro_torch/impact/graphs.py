@@ -17,6 +17,10 @@ operands into the static inputs: numpy arrays and host tensors through a
 pinned staging buffer, device tensors on the device.  It replays the
 graph, adds the recorded launches to the kernels' counts, and returns
 clones of the static outputs, so that a result survives the next call.
+Each step is a span of ``repro_torch.tracing`` (``graphs.copy_in`` with
+its ``graphs.staging_wait``, ``graphs.replay``, ``graphs.clone``,
+``graphs.capture``), with the bytes copied in and cloned out and the
+captures counted.
 
 ``StagedEntry`` is the same for an entry of a sharded session, whose
 body sums over the process group between its local stages
@@ -38,6 +42,7 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from .. import tracing
 from ..kernels import _build
 
 #: ``CUgraphNodeType`` names (``cuda.h``), for the census.
@@ -200,6 +205,12 @@ def _clone(x):
     return type(x)(_clone(y) for y in x)
 
 
+def _leaves(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for y in x for t in _leaves(y)]
+
+
 class GraphedEntry:
     """One prepared ``(entry, batch)`` on a card: static input buffers,
     the captured graph and its static outputs.  ``__call__`` takes the
@@ -225,15 +236,28 @@ class GraphedEntry:
 
     def _capture(self, fn: Callable, inputs, pool, what: str = "") -> Captured:
         try:
-            return capture(fn, inputs, pool)
+            with tracing.span("graphs.capture"):
+                cap = capture(fn, inputs, pool)
         except RuntimeError as e:
             raise RuntimeError(f"capturing {self.name}@{self.batch}{what} "
                                f"into a CUDA graph failed: {e}") from e
+        tracing.add("graphs.captures", always=True)
+        return cap
 
     @property
     def outputs(self):
         """The static outputs a call returns clones of."""
         return self.stages[-1][0].outputs
+
+    @functools.cached_property
+    def in_bytes(self) -> int:
+        """Bytes a call copies into the static inputs."""
+        return sum(t.nbytes for t in self.inputs)
+
+    @functools.cached_property
+    def out_bytes(self) -> int:
+        """Bytes a call clones out of the static outputs."""
+        return sum(t.nbytes for t in _leaves(self.outputs))
 
     @property
     def census(self) -> Census:
@@ -270,45 +294,53 @@ class GraphedEntry:
         the device, anything else through its pinned staging buffer
         without a synchronize.  A staging buffer is written only once
         the previous call's copies out of it have run."""
-        if self._pending:
-            self._copied.synchronize()
-            self._pending = False
-        for i, (static, x) in enumerate(zip(self.inputs, args)):
-            if isinstance(x, torch.Tensor) and x.device.type != "cpu":
-                static.copy_(x)
-            elif static.device.type == "cpu":
-                static.copy_(torch.as_tensor(x))
-            else:
-                static.copy_(self._stage(i, x), non_blocking=True)
-                self._pending = True
-        if self._pending:
-            self._copied.record()
+        with tracing.span("graphs.copy_in"):
+            if self._pending:
+                with tracing.span("graphs.staging_wait"):
+                    self._copied.synchronize()
+                self._pending = False
+            for i, (static, x) in enumerate(zip(self.inputs, args)):
+                if isinstance(x, torch.Tensor) and x.device.type != "cpu":
+                    static.copy_(x)
+                elif static.device.type == "cpu":
+                    static.copy_(torch.as_tensor(x))
+                else:
+                    static.copy_(self._stage(i, x), non_blocking=True)
+                    self._pending = True
+            if self._pending:
+                self._copied.record()
+        tracing.add("graphs.copy_in_bytes", self.in_bytes)
 
     def replay(self) -> None:
         """Replay the graph of every stage on the current stream, in
         order, and count its launches; a stage's collective runs on its
         static outputs after its replay."""
-        for i, (cap, collective) in enumerate(self.stages):
-            try:
-                cap.graph.replay()
-            except RuntimeError as e:
-                what = f" stage {i}" if len(self.stages) > 1 else ""
-                raise RuntimeError(f"replaying the CUDA graph of {self.name}@"
-                                   f"{self.batch}{what} failed: {e}") from e
-            _build.add_launches(cap.launches)
-            if collective is not None:
-                # gloo's all_reduce of a CUDA tensor makes its own stream
-                # wait on the current one before it copies the tensor to
-                # the host, and makes the current stream wait on its copy
-                # back before it returns: the replay above is on the
-                # current stream, and so is the next stage's, so the sum
-                # sits between them.
-                collective(*cap.outputs)
+        with tracing.span("graphs.replay"):
+            for i, (cap, collective) in enumerate(self.stages):
+                try:
+                    cap.graph.replay()
+                except RuntimeError as e:
+                    what = f" stage {i}" if len(self.stages) > 1 else ""
+                    raise RuntimeError(
+                        f"replaying the CUDA graph of {self.name}@"
+                        f"{self.batch}{what} failed: {e}") from e
+                _build.add_launches(cap.launches)
+                if collective is not None:
+                    # gloo's all_reduce of a CUDA tensor makes its own
+                    # stream wait on the current one before it copies the
+                    # tensor to the host, and makes the current stream
+                    # wait on its copy back before it returns: the replay
+                    # above is on the current stream, and so is the next
+                    # stage's, so the sum sits between them.
+                    collective(*cap.outputs)
 
     def __call__(self, *args):
         self.copy_in(*args)
         self.replay()
-        return _clone(self.outputs)
+        with tracing.span("graphs.clone"):
+            out = _clone(self.outputs)
+        tracing.add("graphs.clone_bytes", self.out_bytes)
+        return out
 
 
 class StagedEntry(GraphedEntry):

@@ -20,6 +20,7 @@ from typing import Any
 
 import torch
 
+from .. import tracing
 from ..core.cotm import CoTMConfig, CoTMParams, include_mask, to_unipolar
 from ..device import resolve_device
 from ..kernels import backends
@@ -115,16 +116,18 @@ class IMPACTSystem:
                     datapoints: int) -> EnergyReport:
         """Fold one step's per-lane read energies into the paper's
         batch-level ``EnergyReport`` (float64 host sums, so per-request
-        bills add up to the batch meter)."""
-        return energy_mod.report_from_lane_energies(
-            e_clause_lanes, e_class_lanes,
-            program_energy_j=self.encode_stats["program_energy_j"],
-            erase_energy_j=self.encode_stats["erase_energy_j"],
-            latency_s=self._grid_latency(),
-            ops_per_datapoint=(self.n_literals * self.n_clauses
-                               + self.n_clauses * self.n_classes),
-            datapoints=datapoints,
-            area_mm2=sum(self.area_mm2().values()))
+        bills add up to the batch meter); a ``tracing`` span,
+        ``pipeline.step_report``."""
+        with tracing.span("pipeline.step_report"):
+            return energy_mod.report_from_lane_energies(
+                e_clause_lanes, e_class_lanes,
+                program_energy_j=self.encode_stats["program_energy_j"],
+                erase_energy_j=self.encode_stats["erase_energy_j"],
+                latency_s=self._grid_latency(),
+                ops_per_datapoint=(self.n_literals * self.n_clauses
+                                   + self.n_clauses * self.n_classes),
+                datapoints=datapoints,
+                area_mm2=sum(self.area_mm2().values()))
 
     def area_mm2(self) -> dict[str, float]:
         # Paper convention (Table 4): area of the *occupied* region.

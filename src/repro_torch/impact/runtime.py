@@ -86,6 +86,7 @@ from typing import Any, Callable
 
 import torch
 
+from .. import tracing
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..kernels import backends, packing, ref, work
 from ..kernels.crossbar_mvm import sm_count
@@ -707,22 +708,24 @@ class InferenceSession:
         predictions are tenant-local class indices and ``scores`` the
         combined (B, M_total) currents, zero outside each lane's own class
         span."""
-        lits = self._lits(literals)
-        mids = self._model_ids(model_ids, lits.shape[0])
-        preds, scores = self._call("predict", lits, *mids)
-        return InferenceResult(predictions=preds, scores=scores)
+        with tracing.span("runtime.predict"):
+            lits = self._lits(literals)
+            mids = self._model_ids(model_ids, lits.shape[0])
+            preds, scores = self._call("predict", lits, *mids)
+            return InferenceResult(predictions=preds, scores=scores)
 
     def infer_step(self, literals, valid, model_ids=None) -> InferenceResult:
         """One scheduler sweep over a fixed-capacity slot buffer: invalid
         lanes predict -1 and bill exactly zero; per-lane energies are
         zeros under ``metering="off"``.  On a co-resident session
         ``model_ids`` selects each lane's tenant."""
-        lits = self._lits(literals)
-        v = self._valid(valid, lits.shape[0])
-        mids = self._model_ids(model_ids, lits.shape[0])
-        preds, e_cl, e_cs = self._call("infer_step", lits, v, *mids)
-        return InferenceResult(predictions=preds, e_clause_lanes=e_cl,
-                               e_class_lanes=e_cs)
+        with tracing.span("runtime.infer_step"):
+            lits = self._lits(literals)
+            v = self._valid(valid, lits.shape[0])
+            mids = self._model_ids(model_ids, lits.shape[0])
+            preds, e_cl, e_cs = self._call("infer_step", lits, v, *mids)
+            return InferenceResult(predictions=preds, e_clause_lanes=e_cl,
+                                   e_class_lanes=e_cs)
 
     def infer_with_report(self, literals, valid=None,
                           model_ids=None) -> InferenceResult:
@@ -732,31 +735,32 @@ class InferenceSession:
         (``valid`` False) are excluded from the accounting and predict
         -1.  On a co-resident session ``model_ids`` selects each lane's
         tenant."""
-        if not self.meters_energy:
-            raise RuntimeError(
-                "this session was compiled with metering='off' — "
-                "infer_with_report needs RuntimeSpec(metering='fused') "
-                "(single-pass, serving speed) or 'staged' (the oracle)")
-        lits = self._lits(literals)
-        B = lits.shape[0]
-        v = self._valid(valid, B)
-        mids = self._model_ids(model_ids, B)
-        preds, i_cl_sum, i_cs_sum = self._call("infer_with_report", lits, v,
-                                               *mids)
-        sys_ = self.system
-        e_clause = float(V_READ * i_cl_sum * T_READ)
-        e_class = float(V_READ * i_cs_sum * T_READ)
-        n_dp = int(v.sum())
-        ops_xp = n_dp * (sys_.n_literals * sys_.n_clauses
-                         + sys_.n_clauses * sys_.n_classes)
-        report = EnergyReport(
-            read_energy_j=e_clause + e_class,
-            clause_energy_j=e_clause, class_energy_j=e_class,
-            program_energy_j=sys_.encode_stats["program_energy_j"],
-            erase_energy_j=sys_.encode_stats["erase_energy_j"],
-            latency_s=sys_._grid_latency(), ops_crosspoint=ops_xp,
-            datapoints=n_dp, area_mm2=sum(sys_.area_mm2().values()))
-        return InferenceResult(predictions=preds, report=report)
+        with tracing.span("runtime.infer_with_report"):
+            if not self.meters_energy:
+                raise RuntimeError(
+                    "this session was compiled with metering='off' — "
+                    "infer_with_report needs RuntimeSpec(metering='fused') "
+                    "(single-pass, serving speed) or 'staged' (the oracle)")
+            lits = self._lits(literals)
+            B = lits.shape[0]
+            v = self._valid(valid, B)
+            mids = self._model_ids(model_ids, B)
+            preds, i_cl_sum, i_cs_sum = self._call("infer_with_report",
+                                                   lits, v, *mids)
+            sys_ = self.system
+            e_clause = float(V_READ * i_cl_sum * T_READ)
+            e_class = float(V_READ * i_cs_sum * T_READ)
+            n_dp = int(v.sum())
+            ops_xp = n_dp * (sys_.n_literals * sys_.n_clauses
+                             + sys_.n_clauses * sys_.n_classes)
+            report = EnergyReport(
+                read_energy_j=e_clause + e_class,
+                clause_energy_j=e_clause, class_energy_j=e_class,
+                program_energy_j=sys_.encode_stats["program_energy_j"],
+                erase_energy_j=sys_.encode_stats["erase_energy_j"],
+                latency_s=sys_._grid_latency(), ops_crosspoint=ops_xp,
+                datapoints=n_dp, area_mm2=sum(sys_.area_mm2().values()))
+            return InferenceResult(predictions=preds, report=report)
 
     def ta_feedback(self, lit2, fired2, sel, match, hi, lo,
                     include) -> torch.Tensor:

@@ -18,3 +18,5 @@ def rng():
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running test")
+    config.addinivalue_line("markers", "card: needs a CUDA card; skips "
+                            "without one")
