@@ -17,12 +17,15 @@ Phases, each of which must pass or the script exits non-zero:
    and the four fused kernels bit for bit equal to themselves from
    launch to launch; ``fused_impact`` and ``fused_impact_metered`` also
    on literals one byte past an aligned base (the plain-load path); the
-   four fused kernels also at 1000 and 300 lanes, where the tail takes 4
-   and 2 lanes a block; the packed twins also on codes one and four bytes
-   past an aligned base (plain loads, 4-byte copies); ``class_sum`` also
-   on signed int8 clauses, past 16 classes, at one clause, on clauses
-   one byte off and with no lane, class or clause, bit for bit equal
-   from launch to launch;
+   four fused kernels also at 1000 and 300 lanes, where the tail gives a
+   lane several warps or a block several lanes, and at the benchmark's
+   16,384 lanes in its MNIST and CIFAR-2 layouts (the tail's device time
+   a call there and at 128 lanes is printed last, ``time_tail``); the
+   packed twins also on codes
+   one and four bytes past an aligned base (plain loads, 4-byte copies);
+   ``class_sum`` also on signed int8 clauses, past 16 classes, at one
+   clause, on clauses one byte off and with no lane, class or clause,
+   bit for bit equal from launch to launch;
 4. the serving path at paper width (K=1568 literals, n=500 clauses, m=10
    classes, capacity 128): ``build_system`` with device variability,
    sessions for every metering mode, ``predict`` / ``infer_with_report``,
@@ -739,25 +742,35 @@ def check_unaligned_codes(device) -> tuple[float, float]:
     return errs
 
 
+# The benchmark's bulk batch in its two layouts (perfbench/configs): MNIST
+# on one 2048 x 512 clause tile, M = 10; CIFAR-2 on 1 x 2 tiles, M = 2.
+BULK_BATCH = 16_384
+BULK_SHAPES = [(BULK_BATCH, K, N_CLAUSES, M_CLASSES, 1, 2048, 1, 512, 1, 2048),
+               (BULK_BATCH, 2048, 1000, 2, 1, 2048, 2, 512, 1, 2048)]
+TAIL_TIMED_CALLS = 20
+
+
 def check_tail_lanes(device) -> dict[str, float]:
-    """The four fused kernels at the batches that give the tail blocks
-    of several lanes: the paper layout at the compressed path's
-    calibration batch (N_CALIBRATION lanes) and at 300 lanes, and the
-    ragged multi-shard layout at both, against their plain versions as
-    ``check_fused`` holds them.  On the card the plans must give both 2
-    and 4 lanes a tail block.  Returns the max absolute error per
-    kernel."""
+    """The four fused kernels at the batches whose tails take other
+    decompositions: the paper layout at the compressed path's
+    calibration batch (N_CALIBRATION lanes) and at 300 lanes, the ragged
+    multi-shard layout at both, and the benchmark's two layouts at
+    BULK_BATCH lanes, against their plain versions as ``check_fused``
+    holds them.  On the card the plans must give a lane several warps, a
+    block several lanes, and the bulk batch full blocks.  Returns the max
+    absolute error per kernel."""
     from repro_torch.impact.yflash import I_CSA_THRESHOLD as TH
     from repro_torch.kernels import packing
     from repro_torch.kernels.crossbar_mvm import sm_count
-    from repro_torch.kernels.fused_impact import plan
+    from repro_torch.kernels.fused_impact import TAIL_THREADS, plan
     errs = dict(fused_impact=0.0, fused_impact_metered=0.0,
                 fused_impact_packed=0.0, fused_impact_packed_metered=0.0)
-    seen = set()
-    for i, (B, base) in enumerate(((N_CALIBRATION, 0), (300, 0),
-                                   (N_CALIBRATION, 2), (300, 2))):
-        shape = (B,) + KERNEL_SHAPES[base][1:]
-        _, K_, _, _, R, tr, C, tc, _, _ = shape
+    plans = []
+    shapes = [(B,) + KERNEL_SHAPES[base][1:]
+              for B, base in ((N_CALIBRATION, 0), (300, 0),
+                              (N_CALIBRATION, 2), (300, 2))] + BULK_SHAPES
+    for i, shape in enumerate(shapes):
+        B, K_, _, _, R, tr, C, tc, _, _ = shape
         s = synthetic_system(shape, device, seed=60 + i)
         pk = packing.pack_clause_operand(s["clause_i"])
         runs = ((("fused_impact", "fused_impact_metered"), False,
@@ -772,15 +785,56 @@ def check_tail_lanes(device) -> dict[str, float]:
             errs[names[1]] = max(errs[names[1]], e_m)
             if device.type == "cuda":
                 p = plan(B, K_, R, C, tr, tc, sm_count(device.index), packed)
-                seen.add(p.lanes)
-                print(f"{names[0]} tail lanes {shape}: {p.tail_blocks} "
-                      f"blocks of {p.lanes} lane(s); max abs err {e:.3e} / "
-                      f"{e_m:.3e} (metered)")
-    if device.type == "cuda" and not {2, 4} <= seen:
-        fail(f"tail lanes: the plans gave {sorted(seen)} lanes a block, "
-             f"not both 2 and 4")
+                plans.append((B, p))
+                print(f"{names[0]} tail {shape}: {p.tail_blocks} blocks of "
+                      f"{p.lanes} lane(s), {p.tail_warps} warp(s) a lane; "
+                      f"max abs err {e:.3e} / {e_m:.3e} (metered)")
+    if device.type == "cuda":
+        if not (any(p.tail_warps > 1 for _, p in plans)
+                and any(p.lanes > 1 for _, p in plans)):
+            fail("tail plans: no lane took several warps, or no block "
+                 "several lanes")
+        if any(p.tail_threads != TAIL_THREADS for B, p in plans
+               if B == BULK_BATCH):
+            fail(f"tail plans: a block at {BULK_BATCH} lanes is not full")
     torch.cuda.synchronize()
     return errs
+
+
+def time_tail(device, calls: int = TAIL_TIMED_CALLS) -> None:
+    """The four fused kernels at the serving capacity (paper layout) and
+    at BULK_SHAPES, ``calls`` calls each in one ``torch.profiler`` window
+    a shape: ``impact_tail``'s device time a call, printed beside pass
+    1's (the f32 and packed entries share a tail variant).  Run last:
+    after these windows of long kernels, later profiled windows were
+    seen to lose their first kernels' events (``profile_training``'s
+    count of ``ta_feedback`` kernels)."""
+    from repro_torch.analysis.profile_window import device_profile
+    from repro_torch.impact.yflash import I_CSA_THRESHOLD as TH
+    from repro_torch.kernels import packing
+    from repro_torch.kernels.fused_impact import (
+        fused_impact, fused_impact_metered, fused_impact_packed,
+        fused_impact_packed_metered)
+    for i, shape in enumerate([KERNEL_SHAPES[0]] + BULK_SHAPES):
+        s = synthetic_system(shape, device, seed=70 + i)
+        pk = packing.pack_clause_operand(s["clause_i"])
+        f32 = (s["literals"], s["clause_i"], s["nonempty"], s["class_i"])
+        codes = (s["literals"], pk.bits, pk.levels, s["nonempty"],
+                 s["class_i"])
+        tr = shape[5]
+        runs = ((fused_impact, f32, {}), (fused_impact_metered, f32, {}),
+                (fused_impact_packed, codes, dict(tr=tr)),
+                (fused_impact_packed_metered, codes, dict(tr=tr)))
+        for fn, args, kw in runs:
+            fn(*args, thresh=TH, **kw)
+        torch.cuda.synchronize()
+        with device_profile() as prof:
+            for fn, args, kw in runs:
+                for _ in range(calls):
+                    fn(*args, thresh=TH, **kw)
+            torch.cuda.synchronize()
+        print_fused_passes(f"B={shape[0]} K={shape[1]} "
+                           f"C*tc={shape[6] * shape[7]}", *pass_times(prof))
 
 
 def digital_operands(shape, device, seed=0):
@@ -6772,6 +6826,7 @@ def main() -> int:
             r["launches"] += paper["launches"][sym]
         if r["name"] == "fused_impact":
             r["max_abs_err"] = max(r["max_abs_err"], paper["max_abs_err"])
+    time_tail(device)
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -6,15 +6,15 @@ and ``threads`` x registers of the register file; a block past 227 KB
 (232,448 B) of shared memory does not launch, and the blocks an SM runs
 at once are bounded by the SM's 65,536 registers, 2,048 threads and
 228 KB of shared memory.  The launch planners assume an occupancy
-(``crossbar_mvm.BLOCKS_PER_SM``, ``fused_impact.BLOCKS_PER_SM`` and
-``PACKED_BLOCKS_PER_SM``): they size a wave of blocks by it, so a kernel
-whose registers or shared memory allow fewer blocks an SM makes the plan
-wrong without any error.  This module prices the shared memory of each
-kernel from the constants the wrappers expose (which move when the CUDA
-sources' do; the tests hold them to the sources), and ``blocks_per_sm``
-reads the registers and shared memory nvcc reports
-(``kernels._build.resource_table``) against those limits.  It is the
-Hopper counterpart of the reference's VMEM budget check.
+(``crossbar_mvm.BLOCKS_PER_SM``, ``fused_impact.BLOCKS_PER_SM``,
+``PACKED_BLOCKS_PER_SM`` and ``TAIL_BLOCKS_PER_SM``): they size a wave
+of blocks by it, so a kernel whose registers or shared memory allow
+fewer blocks an SM makes the plan wrong without any error.  This module
+prices the shared memory of each kernel from the constants the wrappers
+expose (which move when the CUDA sources' do; the tests hold them to the
+sources), and ``blocks_per_sm`` reads the registers and shared memory
+nvcc reports (``kernels._build.resource_table``) against those limits.
+It is the Hopper counterpart of the reference's VMEM budget check.
 
 Register counts are known only once compiled: a ``WorkingSet`` carries
 the cap its launch bounds put on them, and the occupancy check takes the
@@ -45,7 +45,7 @@ MAX_BLOCKS_PER_SM = 32
 MAX_REGISTERS = 255
 REGISTER_UNIT = 256                # registers are given out per warp in 256s
 
-_F32, _F64, _I32 = 4, 8, 4
+_F32, _F64, _I32, _U16 = 4, 8, 4, 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,24 +94,27 @@ def mvm_working_sets() -> tuple[WorkingSet, ...]:
 def fused_working_sets(*, packed: bool) -> tuple[WorkingSet, WorkingSet]:
     """``fused_impact.cu``: pass 1 (a ring of f32 drive and cell stages
     and the int8 literals as copied; packed, also the codes as copied)
-    and the tail (the fired bits of its lanes, the f64 class sums of one
-    pass of classes for each warp and lane, and one f64 meter a warp,
-    which the unmetered variant leaves out: both variants share the
-    name, so the estimate covers the larger)."""
+    and the tail (the fired bits of its lanes, the nonempty bits of the
+    columns they share, one f64 clause meter a warp, which the unmetered
+    variants leave out, and each warp's f64 class sums of one pass of
+    classes and u16 list of fired columns: all variants share the name,
+    so the estimate covers the largest), whose launch bounds cap its
+    registers for ``TAIL_BLOCKS_PER_SM`` blocks an SM."""
     b, n, k = _fused.F32_TILE
     tile = _fused.STAGES * (_F32 * b * (k + 4) + _F32 * k * n + b * k)
     if packed:
         tile += _fused.STAGES * k // 4 * n
     warps = _fused.TAIL_THREADS // 32
-    tail = (_I32 * _fused.TAIL_FIRED_WORDS
-            + _F64 * warps * _fused.TAIL_MAX_LANES * _fused.TAIL_CLASSES
-            + _F64 * warps)
+    tail = (2 * _I32 * _fused.TAIL_FIRED_WORDS + _F64 * warps
+            + _F64 * warps * _fused.TAIL_CLASSES
+            + _U16 * warps * _fused.TAIL_LIST)
     src = "fused_impact.cu"
     return (WorkingSet("packed_tiles" if packed else "impact_tiles", src,
                        _fused.THREADS, tile,
                        min_blocks=_fused.PACKED_BLOCKS_PER_SM if packed
                        else 1),
-            WorkingSet("impact_tail", src, _fused.TAIL_THREADS, tail))
+            WorkingSet("impact_tail", src, _fused.TAIL_THREADS, tail,
+                       min_blocks=_fused.TAIL_BLOCKS_PER_SM))
 
 
 def ta_feedback_working_set() -> WorkingSet:
@@ -156,7 +159,7 @@ def planned_blocks() -> dict[str, int]:
     return {"mvm_tiles": _mvm.BLOCKS_PER_SM,
             "mvm_narrow": _mvm.BLOCKS_PER_SM,
             "impact_tiles": _fused.BLOCKS_PER_SM,
-            "impact_tail": _fused.BLOCKS_PER_SM,
+            "impact_tail": _fused.TAIL_BLOCKS_PER_SM,
             "packed_tiles": _fused.PACKED_BLOCKS_PER_SM}
 
 

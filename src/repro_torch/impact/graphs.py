@@ -36,6 +36,7 @@ import contextlib
 import ctypes
 import dataclasses
 import functools
+import gc
 import re
 from typing import Any, Callable, Sequence
 
@@ -176,23 +177,32 @@ class Captured:
 def capture(fn: Callable, inputs: Sequence[torch.Tensor], pool) -> Captured:
     """Run ``fn(*inputs)`` once on a side stream, then capture it there
     into one CUDA graph drawing on the memory ``pool``.  Neither run adds
-    to the kernels' launch counts."""
+    to the kernels' launch counts.  The garbage collector is off while
+    capturing: a collection that frees another graph then calls the CUDA
+    runtime in a way a capture forbids, and the capture is invalidated
+    (``cudaErrorStreamCaptureInvalidated`` at the body's next launch)."""
     side = torch.cuda.Stream(device=inputs[0].device)
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side), _build.record_launches():
         fn(*inputs)
     graph = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.stream(side), _build.record_launches() as launches:
-        graph.capture_begin(pool=pool)
-        try:
-            outputs = fn(*inputs)
-        except BaseException:
-            # End the broken capture; the body's own error is the one
-            # to raise.
-            with contextlib.suppress(RuntimeError):
-                graph.capture_end()
-            raise
-        graph.capture_end()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.stream(side), _build.record_launches() as launches:
+            graph.capture_begin(pool=pool)
+            try:
+                outputs = fn(*inputs)
+            except BaseException:
+                # End the broken capture; the body's own error is the one
+                # to raise.
+                with contextlib.suppress(RuntimeError):
+                    graph.capture_end()
+                raise
+            graph.capture_end()
+    finally:
+        if collecting:
+            gc.enable()
     graph.instantiate()
     torch.cuda.current_stream().wait_stream(side)
     return Captured(graph=graph, outputs=outputs, launches=launches,

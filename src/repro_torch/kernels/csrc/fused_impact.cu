@@ -74,17 +74,34 @@
 //      while the block waits at the barrier (PERF.md).  Planned as
 //      the f32 pass (14 chunks of 112 rows, 224 blocks at the paper
 //      shape), which measured best.
-// 2. `impact_tail`, one launch for CSA, class stage and lane sums, shared
-//    by all four entries (it never sees the clause operand's format).  A
-//    block owns 1-4 lanes and all C*tc columns: for each column and
-//    shard it adds the chunk partials in chunk order in f32, latches the
-//    CSA bit with the reference's strict `<`, ANDs over shards and with
-//    nonempty, and keeps the bits in shared memory; then f64 class scores
-//    over the fired columns, each warp over a fixed column range, a fixed
-//    shuffle tree, then the warps in warp order.  Metered, the clause
-//    meter adds every shard's column current in f64 and the class meter
-//    the f64 scores; everything rounds to f32 once.  Launched as a
-//    programmatic dependent.
+// 2. `impact_tail<METERED, VW>`, one launch for CSA, class stage and lane
+//    sums, shared by all four entries (it never sees the clause operand's
+//    format).  It reads the partials once, (R * splits, B, C*tc) f32, and
+//    little else, so memory bounds it (33.5 MB at B = 16,384 and the paper
+//    shape: 10 us at 3.35 TB/s).  Each lane has a group of whole warps
+//    (one at B = 16,384, four at B = 128; `plan`), and each thread of the
+//    group owns column groups of VW = 4 (16-byte loads, cached in L2 only;
+//    plain 4-byte ones where C*tc % 4 != 0 or `part` is not 16-byte
+//    aligned): it issues the loads of WIDE groups at once or, where it owns
+//    fewer groups than there are partial planes (small B, many chunks),
+//    DEEP planes of one group, before adding any.  Per column it adds the
+//    chunk partials in chunk order in f32, latches the CSA bit with the
+//    reference's strict `<`, ANDs over shards, and the lanes of a word OR
+//    their bits into words of 32 columns in ascending order in shared
+//    memory, ANDed with the nonempty words the block builds once.  Then
+//    each warp lists its run of the lane's fired columns in ascending
+//    order in shared memory, and its lanes, subgroups of min(M, 32) lanes
+//    a class each, add the listed columns' class_i rows in f64: a
+//    subgroup reads one row at a time, so a load touches few cache lines,
+//    and no lane walks bits for a class it does not add.  Subgroups' sums
+//    add in subgroup order, then the group's warps in warp order.
+//    Metered, the clause meter adds every shard's column current in f64 (a
+//    shuffle tree a warp, then the group's warps in warp order) and the
+//    class meter the f64 scores in class order; everything rounds to f32
+//    once.  Launched as a programmatic dependent.  (A first design walked
+//    the fired bits once for each class, one lane a class: 64 / 152 us at
+//    B = 16,384 on the benchmark's MNIST / CIFAR-2 data, issue-bound;
+//    PERF.md.)
 // No float atomics anywhere, so scores and meters are identical from run
 // to run.  The packed meters bill the quantized column currents, as the
 // reference's packed kernel does.
@@ -449,11 +466,18 @@ packed_tiles(const int8_t* __restrict__ lits,
 
 // -- pass 2: impact_tail ----------------------------------------------------
 
-constexpr int TAIL_THREADS = 512;
+constexpr int TAIL_THREADS = 256;   // threads a block at most
 constexpr int TAIL_WARPS = TAIL_THREADS / 32;
-constexpr int TAIL_MAX_LANES = 4;
+// Blocks an SM the tail is planned for (`TAIL_BLOCKS_PER_SM` in
+// fused_impact.py): 32 warps, so at most 64 registers a thread.
+constexpr int TAIL_BLOCKS = 4;
 constexpr int FIRED_WORDS = 2048;   // fired bits of all a block's lanes
-constexpr int MT = 16;              // classes a pass of the class stage
+constexpr int WIDE = 4;             // column groups a thread loads at once
+constexpr int DEEP = 8;             // ... or partial planes of one group
+constexpr int MT = 32;              // classes a pass of the class stage
+constexpr int LIST = 1024;          // a warp's fired columns of 32 words
+static_assert(LIST == 32 * 32, "a list holds every column of 32 words");
+static_assert(32 * FIRED_WORDS <= 65536, "columns fit the u16 list");
 
 __device__ __forceinline__ double warp_sum(double v) {
 #pragma unroll
@@ -462,114 +486,221 @@ __device__ __forceinline__ double warp_sum(double v) {
   return v;                                  // lane 0 holds the sum
 }
 
-// Block: lanes [blockIdx.x * lanes, + lanes), all N = C*tc columns.  The
-// lanes (1, 2 or 4) split the threads: lane l has threads
-// [l * tpl, (l + 1) * tpl), tpl = 512 / lanes, thread t of them takes
-// columns t, t + tpl, ...  Fired bit j of lane l is bit j % 32 of
-// fired[l * words + j / 32].
-template <bool METERED>
-__global__ void __launch_bounds__(TAIL_THREADS)
+// VW consecutive f32 partials, read once: a 16-byte load or a 4-byte one,
+// cached in L2 only, so that L1 keeps the class rows.
+template <int VW>
+__device__ __forceinline__ void load_cols(float (&v)[VW], const float* p) {
+  if constexpr (VW == 4) {
+    const float4 x = __ldcg(reinterpret_cast<const float4*>(p));
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+  } else {
+    v[0] = __ldcg(p);
+  }
+}
+
+// The CSA of one lane's columns, by a group of G threads (whole warps) of
+// which this is thread tg.  The columns come in groups of VW (16-byte
+// loads at VW = 4), group tg + k * G for k = 0, 1, ...: U groups at a
+// time, and of each the R * splits partial planes S at a time, every load
+// of a batch issued before any is added.  A column's
+// chunk partials are added in chunk order in f32, its shards' currents
+// latched with the strict `<` and ANDed over shards; then the 32 / VW
+// lanes that hold a word's 32 columns OR their bits into it, in ascending
+// order, and AND it with `ne`, the nonempty words: `fired[j / 32]` bit
+// j % 32.  Metered, `meter` adds every shard's column current in f64.
+template <int U, int S, int VW, bool METERED>
+__device__ __forceinline__ void csa(const float* __restrict__ part,
+                                    const unsigned* ne, unsigned* fired,
+                                    double& meter, bool lane_in, int b,
+                                    int B, int N, int planes, int splits,
+                                    int tg, int G, float thresh) {
+  constexpr int TPW = 32 / VW;               // lanes a word
+  const int groups = N / VW, wl = tg % 32;
+  const int rounds = (groups + G - 1) / G;   // uniform over the block
+  const size_t slice = (size_t)B * N;
+  const float* row = part + (size_t)b * N;
+  for (int k0 = 0; k0 < rounds; k0 += U) {
+    int col[U];
+    bool in[U];
+    float acc[U][VW];
+    unsigned f = 0;                          // bit u * VW + e: fired
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int g = (k0 + u) * G + tg;
+      in[u] = lane_in && k0 + u < rounds && g < groups;
+      col[u] = g * VW;
+#pragma unroll
+      for (int e = 0; e < VW; ++e) acc[u][e] = 0.f;
+      if (in[u]) f |= ((1u << VW) - 1u) << (u * VW);
+    }
+    int s = 0;                               // chunk within the shard
+    for (int i0 = 0; i0 < planes; i0 += S) {
+      float v[U][S][VW];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int q = 0; q < S; ++q) {
+          if (in[u] && i0 + q < planes) {
+            load_cols<VW>(v[u][q], row + (i0 + q) * slice + col[u]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < VW; ++e) v[u][q][e] = 0.f;
+          }
+        }
+#pragma unroll
+      for (int q = 0; q < S; ++q) {
+        if (i0 + q >= planes) break;         // uniform
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+#pragma unroll
+          for (int e = 0; e < VW; ++e) acc[u][e] += v[u][q][e];
+        if (++s == splits) {                 // a shard's currents are whole
+          s = 0;
+#pragma unroll
+          for (int u = 0; u < U; ++u)
+#pragma unroll
+            for (int e = 0; e < VW; ++e) {
+              if (!(acc[u][e] < thresh)) f &= ~(1u << (u * VW + e));
+              if (METERED && in[u]) meter += acc[u][e];
+              acc[u][e] = 0.f;
+            }
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (k0 + u >= rounds) break;           // uniform
+      const unsigned mine = (f >> (u * VW)) & ((1u << VW) - 1u);
+      unsigned word;
+      if constexpr (VW == 1) {
+        word = __ballot_sync(0xffffffffu, mine);
+      } else {
+        word = mine << (VW * (wl % TPW));
+#pragma unroll
+        for (int x = 1; x < TPW; x *= 2)
+          word |= __shfl_xor_sync(0xffffffffu, word, x);
+      }
+      const int g = (k0 + u) * G + tg, at = g * VW / 32;
+      if (wl % TPW == 0 && g < groups) fired[at] = word & ne[at];
+    }
+  }
+}
+
+// Block: `lanes` lanes from blockIdx.x * lanes, each served by a group of
+// `warps` warps (threads [l * G, (l + 1) * G), G = 32 * warps).  The block
+// first ballots nonempty into words; each group streams its lane's
+// columns (`csa`, wide or deep by what a thread owns), then runs the class
+// stage below.  Metered, the clause meter is each warp's shuffle tree,
+// then the group's warps in warp order; the class meter adds the f64
+// scores in class order.
+template <bool METERED, int VW>
+__global__ void __launch_bounds__(TAIL_THREADS, TAIL_BLOCKS)
 impact_tail(const float* __restrict__ part,
             const uint8_t* __restrict__ nonempty,
             const float* __restrict__ class_i, float* __restrict__ scores,
             float* __restrict__ meter_clause, float* __restrict__ meter_class,
-            int B, int R, int N, int splits, int Nc, int M, int lanes,
-            float thresh) {
-  __shared__ unsigned fired[FIRED_WORDS];
-  __shared__ double red[TAIL_WARPS][TAIL_MAX_LANES][MT];
+            int B, int R, int N, int splits, int Nc, int M, int warps,
+            int lanes, float thresh) {
+  __shared__ unsigned fired_all[FIRED_WORDS];
+  __shared__ unsigned ne[FIRED_WORDS];
   __shared__ double wmeter[TAIL_WARPS];
-  const int tid = threadIdx.x, warp = tid / 32, wl = tid % 32;
-  grid_dependency_wait();
-  const int b0 = blockIdx.x * lanes;
-  const int tpl = TAIL_THREADS / lanes;
+  __shared__ double wclass[TAIL_WARPS][MT];
+  __shared__ uint16_t lists[TAIL_WARPS][LIST];
+  const int G = 32 * warps, tid = threadIdx.x, warp = tid / 32;
+  const int l = tid / G, tg = tid % G, wig = tg / 32, wl = tid % 32;
+  const int b = blockIdx.x * lanes + l;
+  const bool lane_in = b < B;
   const int words = (N + 31) / 32;
-
-  // CSA: chunk partials in chunk order (f32), strict `<`, AND over
-  // shards and with nonempty; the clause meter over every column.
-  {
-    const int l = tid / tpl, t = tid % tpl, b = b0 + l;
-    const size_t shard = (size_t)splits * B * N, slice = (size_t)B * N;
-    double meter = 0.0;
-    for (int j0 = 0; j0 < N; j0 += tpl) {   // uniform over each warp
-      const int j = j0 + t;
-      bool f = false;
-      if (b < B && j < N) {
-        f = nonempty[j] != 0;
-        const float* p = part + (size_t)b * N + j;
-        for (int r = 0; r < R; ++r) {
-          const float* q = p + r * shard;
-          float i_col = 0.f;
-          for (int s0 = 0; s0 < splits; s0 += 16) {   // 16 loads in flight
-            float v[16];
-#pragma unroll
-            for (int u = 0; u < 16; ++u)
-              v[u] = s0 + u < splits ? q[(s0 + u) * slice] : 0.f;
-#pragma unroll
-            for (int u = 0; u < 16; ++u)
-              if (s0 + u < splits) i_col += v[u];
-          }
-          f = f && (i_col < thresh);
-          if (METERED) meter += i_col;
-        }
-      }
-      const unsigned word = __ballot_sync(0xffffffffu, f);
-      if (wl == 0 && j < N) fired[l * words + j / 32] = word;
-    }
-    if (METERED) {
-      meter = warp_sum(meter);
-      if (wl == 0) wmeter[warp] = meter;
-    }
+  unsigned* fired = fired_all + l * words;
+  grid_dependency_wait();
+  for (int j = tid; j < 32 * words; j += blockDim.x) {   // whole warps
+    const unsigned word = __ballot_sync(0xffffffffu, j < N && nonempty[j]);
+    if (wl == 0) ne[j / 32] = word;
   }
-  __syncthreads();
+  __syncthreads();                           // the nonempty words
 
-  // Class stage: warp w sums the fired columns of [w * cw, (w + 1) * cw)
-  // in f64, lane by lane of the warp and then by a shuffle tree; thread l
-  // adds the warps' sums in warp order.
-  const int live = min(N, Nc);
-  const int cw = (live + TAIL_WARPS - 1) / TAIL_WARPS;
-  const int jb = warp * cw, je = min(live, jb + cw);
+  double meter = 0.0;
+  const int planes = R * splits;
+  if (planes > (N / VW + G - 1) / G)        // few groups a thread: deep
+    csa<1, DEEP, VW, METERED>(part, ne, fired, meter, lane_in, b, B, N,
+                              planes, splits, tg, G, thresh);
+  else
+    csa<WIDE, 1, VW, METERED>(part, ne, fired, meter, lane_in, b, B, N,
+                              planes, splits, tg, G, thresh);
+  if (METERED) {
+    meter = warp_sum(meter);
+    if (wl == 0) wmeter[warp] = meter;
+  }
+  if (warps > 1)
+    __syncthreads();                         // the group's words and sums
+  else
+    __syncwarp();
+
+  // Class stage, ms classes a pass.  Warp k of the group takes the k-th of
+  // `warps` runs of the lane's fired words below min(N, Nc), 32 words at a
+  // time: it lists their fired columns in ascending order in shared
+  // memory (a prefix sum of the words' bit counts), then its lanes form P
+  // subgroups of ms lanes, lane m of subgroup p adding class m0 + m of
+  // list entries p, p + P, ... in f64.
+  const int live = min(N, Nc), lw = (live + 31) / 32;
+  const int run = (lw + warps - 1) / warps;
+  const int w_end = min(lw, (wig + 1) * run);
+  const int ms = max(1, min(M, 32)), P = 32 / ms, p = wl / ms;
+  uint16_t* list = lists[warp];
   double cls = 0.0;
-  for (int m0 = 0; m0 < M; m0 += MT) {
-    for (int l = 0; l < lanes; ++l) {
-      double acc[MT];
+  for (int m0 = 0; m0 < M; m0 += ms) {       // uniform over the block
+    const float* col = class_i + min(m0 + wl % ms, M - 1);
+    double acc = 0.0;
+    for (int c0 = lane_in ? wig * run : w_end; c0 < w_end; c0 += 32) {
+      const int w = c0 + wl;
+      unsigned bits = w < w_end ? fired[w] : 0u;
+      if (live - 32 * w < 32) bits &= (1u << max(0, live - 32 * w)) - 1u;
+      int at = __popc(bits);                 // inclusive prefix sum
 #pragma unroll
-      for (int mm = 0; mm < MT; ++mm) acc[mm] = 0.0;
-      if (b0 + l < B) {
-        for (int j = jb + wl; j < je; j += 32) {
-          if ((fired[l * words + j / 32] >> (j % 32)) & 1u) {
-            const float* row = class_i + (size_t)j * M + m0;
-#pragma unroll
-            for (int mm = 0; mm < MT; ++mm)
-              if (m0 + mm < M) acc[mm] += row[mm];
-          }
-        }
+      for (int x = 1; x < 32; x *= 2) {
+        const int o = __shfl_up_sync(0xffffffffu, at, x);
+        if (wl >= x) at += o;
       }
+      const int total = __shfl_sync(0xffffffffu, at, 31);
+      for (at -= __popc(bits); bits; bits &= bits - 1u)
+        list[at++] = static_cast<uint16_t>(32 * w + __ffs(bits) - 1);
+      __syncwarp();
+      for (int e = p < P ? p : total; e < total; e += 4 * P) {
+        float v[4];
 #pragma unroll
-      for (int mm = 0; mm < MT; ++mm) {
-        if (m0 + mm < M) {                   // uniform over the block
-          const double v = warp_sum(acc[mm]);
-          if (wl == 0) red[warp][l][mm] = v;
-        }
+        for (int u = 0; u < 4; ++u)
+          v[u] = e + u * P < total ? col[(size_t)list[e + u * P] * M] : 0.f;
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (e + u * P < total) acc += v[u];
       }
+      __syncwarp();                          // the list is free again
     }
-    __syncthreads();
-    if (tid < lanes && b0 + tid < B) {
-      for (int mm = 0; mm < MT && m0 + mm < M; ++mm) {
-        double v = red[0][tid][mm];
-#pragma unroll
-        for (int w = 1; w < TAIL_WARPS; ++w) v += red[w][tid][mm];
-        scores[(size_t)(b0 + tid) * M + m0 + mm] = static_cast<float>(v);
-        cls += v;
-      }
+    // The warp's subgroups in order, then the group's warps in order.
+    const double own = acc;
+    for (int k = 1; k < P; ++k)
+      acc += __shfl_sync(0xffffffffu, own, k * ms + wl % ms);
+    const int m = m0 + wl;
+    if (warps > 1) {
+      if (wl < ms) wclass[warp][wl] = acc;
+      __syncthreads();
+      if (wig == 0 && wl < ms)
+        for (int k = 1; k < warps; ++k) acc += wclass[warp + k][wl];
+      if (m0 + ms < M) __syncthreads();      // wclass is free again
     }
-    __syncthreads();                         // red is free again
+    if (wig == 0 && lane_in) {               // uniform over the warp
+      if (wl < ms && m < M)
+        scores[(size_t)b * M + m] = static_cast<float>(acc);
+      if (METERED)
+        for (int t = 0; t < ms && m0 + t < M; ++t)
+          cls += __shfl_sync(0xffffffffu, acc, t);
+    }
   }
-  if (METERED && tid < lanes && b0 + tid < B) {
-    const int wpl = tpl / 32;                // warps of a lane
-    double cl = 0.0;
-    for (int w = tid * wpl; w < (tid + 1) * wpl; ++w) cl += wmeter[w];
-    meter_clause[b0 + tid] = static_cast<float>(cl);
-    meter_class[b0 + tid] = static_cast<float>(cls);
+  if (METERED && wig == 0 && wl == 0 && lane_in) {
+    double cl = wmeter[warp];
+    for (int k = 1; k < warps; ++k) cl += wmeter[warp + k];
+    meter_clause[b] = static_cast<float>(cl);
+    meter_class[b] = static_cast<float>(cls);
   }
 }
 
@@ -577,12 +708,19 @@ impact_tail(const float* __restrict__ part,
 
 constexpr int BAD = static_cast<int>(cudaErrorInvalidValue);
 
-// The checks every entry makes: shapes, and a split of the fullest
-// shard's `live` rows into `splits` chunks of `chunk` rows (whole stages
-// of `stage` rows, none empty) -> 0, or BAD.
+// The tail's plan (`fused_impact.plan`): `warps` warps a lane, `lanes`
+// lanes a block, the partials read `width` floats at a time (4: 16-byte
+// loads, which need C*tc % 4 == 0 and `part` 16-byte aligned; or 1).
+struct TailPlan {
+  int warps, lanes, width;
+};
+
+// The checks every entry makes: shapes, a split of the fullest shard's
+// `live` rows into `splits` chunks of `chunk` rows (whole stages of
+// `stage` rows, none empty) and the tail's plan -> 0, or BAD.
 int check_plan(int B, int K, int R, int C, int tr, int tc, int Nc, int M,
-               int stage, int splits, int chunk, int lanes, int tiles_c,
-               int tile_b) {
+               int stage, int splits, int chunk, TailPlan tail,
+               const float* part, int tiles_c, int tile_b) {
   if (B < 0 || K < 0 || R < 1 || C < 0 || tr < 0 || tc < 0 || Nc < 0 ||
       M < 0 || (long long)R * tr < K)
     return BAD;
@@ -594,9 +732,13 @@ int check_plan(int B, int K, int R, int C, int tr, int tc, int Nc, int M,
   if ((long long)R * splits > 65535 || (B + tile_b - 1) / tile_b > 65535 ||
       (long long)C * tiles_c > 0x7fffffff)
     return BAD;
-  const long long words = ((long long)C * tc + 31) / 32;
-  if ((lanes != 1 && lanes != 2 && lanes != TAIL_MAX_LANES) ||
-      lanes * words > FIRED_WORDS)
+  const long long N = (long long)C * tc, words = (N + 31) / 32;
+  const int w = tail.warps, l = tail.lanes;
+  if (w < 1 || l < 1 || (w & (w - 1)) != 0 || (l & (l - 1)) != 0 ||
+      w * l > TAIL_WARPS || l * words > FIRED_WORDS)
+    return BAD;
+  if (tail.width != 1 &&
+      (tail.width != 4 || N % 4 != 0 || !aligned16(part)))
     return BAD;
   return 0;
 }
@@ -606,11 +748,13 @@ cudaError_t launch_tail(const float* part, const uint8_t* nonempty,
                         const float* class_i, float* scores,
                         float* meter_clause, float* meter_class, int B,
                         int R, int C, int tc, int splits, int Nc, int M,
-                        int lanes, float thresh, cudaStream_t stream) {
-  return launch(impact_tail<METERED>, dim3((B + lanes - 1) / lanes),
-                TAIL_THREADS, stream, part, nonempty, class_i, scores,
-                meter_clause, meter_class, B, R, C * tc, splits, Nc, M,
-                lanes, thresh);
+                        TailPlan t, float thresh, cudaStream_t stream) {
+  const auto kernel = t.width == 4 ? impact_tail<METERED, 4>
+                                   : impact_tail<METERED, 1>;
+  return launch(kernel, dim3((B + t.lanes - 1) / t.lanes),
+                32 * t.warps * t.lanes, stream, part, nonempty, class_i,
+                scores, meter_clause, meter_class, B, R, C * tc, splits, Nc,
+                M, t.warps, t.lanes, thresh);
 }
 
 // Pass 1 over a grid of (column tiles, lane tiles, R * splits) blocks.
@@ -638,9 +782,9 @@ template <bool METERED, class Pass1>
 int run(Pass1 pass1, const uint8_t* nonempty, const float* class_i,
         float* part, float* scores, float* meter_clause, float* meter_class,
         int B, int K, int R, int C, int tr, int tc, int Nc, int M,
-        float thresh, int splits, int chunk, int lanes,
+        float thresh, int splits, int chunk, TailPlan tail,
         cudaStream_t stream) {
-  if (check_plan(B, K, R, C, tr, tc, Nc, M, BK, splits, chunk, lanes,
+  if (check_plan(B, K, R, C, tr, tc, Nc, M, BK, splits, chunk, tail, part,
                  (tc + BN - 1) / BN, BM) != 0)
     return BAD;
   if (B == 0) return static_cast<int>(cudaGetLastError());
@@ -652,7 +796,7 @@ int run(Pass1 pass1, const uint8_t* nonempty, const float* class_i,
   }
   return static_cast<int>(launch_tail<METERED>(
       part, nonempty, class_i, scores, meter_clause, meter_class, B, R, C,
-      tc, splits, Nc, M, lanes, thresh, stream));
+      tc, splits, Nc, M, tail, thresh, stream));
 }
 
 template <bool METERED>
@@ -660,7 +804,7 @@ int run_f32(const int8_t* lits, const float* clause_i,
             const uint8_t* nonempty, const float* class_i, float* part,
             float* scores, float* meter_clause, float* meter_class, int B,
             int K, int R, int C, int tr, int tc, int Nc, int M, float thresh,
-            int lit_width, int vec_c, int splits, int chunk, int lanes,
+            int lit_width, int vec_c, int splits, int chunk, TailPlan tail,
             cudaStream_t stream) {
   if (!literals_ok(lits, lit_width, K, R, tr) ||
       (vec_c && (tc % 4 != 0 || !aligned16(clause_i))))
@@ -675,7 +819,7 @@ int run_f32(const int8_t* lits, const float* clause_i,
   };
   return run<METERED>(pass1, nonempty, class_i, part, scores, meter_clause,
                       meter_class, B, K, R, C, tr, tc, Nc, M, thresh, splits,
-                      chunk, lanes, stream);
+                      chunk, tail, stream);
 }
 
 template <bool METERED>
@@ -684,7 +828,7 @@ int run_packed(const int8_t* lits, const uint8_t* bits, const float* levels,
                float* scores, float* meter_clause, float* meter_class, int B,
                int K, int R, int C, int tr, int tc, int Nc, int M,
                float thresh, int lit_width, int code_width, int splits,
-               int chunk, int lanes, cudaStream_t stream) {
+               int chunk, TailPlan tail, cudaStream_t stream) {
   const bool codes_ok =
       code_width == 1 ||
       (code_width == 4 && reinterpret_cast<std::uintptr_t>(bits) % 4 == 0 &&
@@ -701,7 +845,7 @@ int run_packed(const int8_t* lits, const uint8_t* bits, const float* levels,
   };
   return run<METERED>(pass1, nonempty, class_i, part, scores, meter_clause,
                       meter_class, B, K, R, C, tr, tc, Nc, M, thresh, splits,
-                      chunk, lanes, stream);
+                      chunk, tail, stream);
 }
 
 }  // namespace
@@ -717,7 +861,10 @@ int run_packed(const int8_t* lits, const uint8_t* bits, const float* levels,
 //   splits, chunk: the live rows of the fullest shard, min(tr, K), in
 //             `splits` chunks of `chunk` rows (a multiple of 16), the
 //             last one ragged and none empty;
-//   lanes:    lanes a tail block (1, 2 or 4).
+//   warps, lanes, tail_width: the tail's warps a lane and lanes a block
+//             (powers of two, at most 8 warps a block), and 4 for its
+//             16-byte loads of part (C*tc % 4 == 0, part 16-byte aligned)
+//             or 1.
 // A plan this file cannot run returns cudaErrorInvalidValue, launching
 // nothing.  Launches on `stream`; returns cudaGetLastError() after every
 // launch.
@@ -727,10 +874,12 @@ extern "C" int fused_impact_f32(const int8_t* lits, const float* clause_i,
                                 float* scores, int B, int K, int R, int C,
                                 int tr, int tc, int Nc, int M, float thresh,
                                 int lit_width, int vec_c, int splits,
-                                int chunk, int lanes, cudaStream_t stream) {
+                                int chunk, int warps, int lanes,
+                                int tail_width, cudaStream_t stream) {
   return run_f32<false>(lits, clause_i, nonempty, class_i, part, scores,
                         nullptr, nullptr, B, K, R, C, tr, tc, Nc, M, thresh,
-                        lit_width, vec_c, splits, chunk, lanes, stream);
+                        lit_width, vec_c, splits, chunk,
+                        {warps, lanes, tail_width}, stream);
 }
 
 extern "C" int fused_impact_metered_f32(
@@ -738,11 +887,11 @@ extern "C" int fused_impact_metered_f32(
     const float* class_i, float* part, float* scores, float* meter_clause,
     float* meter_class, int B, int K, int R, int C, int tr, int tc, int Nc,
     int M, float thresh, int lit_width, int vec_c, int splits, int chunk,
-    int lanes, cudaStream_t stream) {
+    int warps, int lanes, int tail_width, cudaStream_t stream) {
   return run_f32<true>(lits, clause_i, nonempty, class_i, part, scores,
                        meter_clause, meter_class, B, K, R, C, tr, tc, Nc, M,
-                       thresh, lit_width, vec_c, splits, chunk, lanes,
-                       stream);
+                       thresh, lit_width, vec_c, splits, chunk,
+                       {warps, lanes, tail_width}, stream);
 }
 
 // The packed entries: bits (R, C, ceil(tr/4), tc) u8 and levels (2,) f32
@@ -754,11 +903,11 @@ extern "C" int fused_impact_packed_f32(
     const uint8_t* nonempty, const float* class_i, float* part,
     float* scores, int B, int K, int R, int C, int tr, int tc, int Nc, int M,
     float thresh, int lit_width, int code_width, int splits, int chunk,
-    int lanes, cudaStream_t stream) {
+    int warps, int lanes, int tail_width, cudaStream_t stream) {
   return run_packed<false>(lits, bits, levels, nonempty, class_i, part,
                            scores, nullptr, nullptr, B, K, R, C, tr, tc, Nc,
                            M, thresh, lit_width, code_width, splits, chunk,
-                           lanes, stream);
+                           {warps, lanes, tail_width}, stream);
 }
 
 extern "C" int fused_impact_packed_metered_f32(
@@ -766,9 +915,10 @@ extern "C" int fused_impact_packed_metered_f32(
     const uint8_t* nonempty, const float* class_i, float* part,
     float* scores, float* meter_clause, float* meter_class, int B, int K,
     int R, int C, int tr, int tc, int Nc, int M, float thresh, int lit_width,
-    int code_width, int splits, int chunk, int lanes, cudaStream_t stream) {
+    int code_width, int splits, int chunk, int warps, int lanes,
+    int tail_width, cudaStream_t stream) {
   return run_packed<true>(lits, bits, levels, nonempty, class_i, part,
                           scores, meter_clause, meter_class, B, K, R, C, tr,
                           tc, Nc, M, thresh, lit_width, code_width, splits,
-                          chunk, lanes, stream);
+                          chunk, {warps, lanes, tail_width}, stream);
 }

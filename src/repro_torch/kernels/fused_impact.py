@@ -17,10 +17,11 @@ allocates the kernel's scratch.
 
 The launch is planned here, once per shape and SM count (``plan``): the
 pass-1 tile, the split of each shard's live rows into chunks of whole
-stages for about one wave of blocks, and the tail's lanes a block.  The
-copy widths of the literals, the f32 clause currents and the packed codes
-are chosen per call from their pointers and strides (``copy_widths``,
-``code_width``).
+stages for about one wave of blocks, and the tail's warps a lane and
+lanes a block.  The copy widths of the literals, the f32 clause currents
+and the packed codes, and the tail's load width, are chosen per call from
+their pointers and strides (``copy_widths``, ``code_width``,
+``tail_width``).
 """
 from __future__ import annotations
 
@@ -39,9 +40,9 @@ SOURCE = "fused_impact.cu"
 _P, _I, _F = _build.PTR, _build.INT, _build.FLOAT
 # B, K, R, C, tr, tc, Nc, M, thresh
 _SHAPE_ARGS = [_I] * 8 + [_F]
-# lit_width, vec_c (code_width when packed), splits, chunk, lanes; then the
-# stream
-_PLAN = [_I] * 5 + [_P]
+# lit_width, vec_c (code_width when packed), splits, chunk, the tail's warps
+# a lane, lanes a block and load width; then the stream
+_PLAN = [_I] * 7 + [_P]
 
 KERNEL = _build.CudaKernel(SOURCE, "fused_impact_f32",
                            [_P] * 6 + _SHAPE_ARGS + _PLAN)
@@ -58,22 +59,25 @@ KERNEL_PACKED_METERED = _build.CudaKernel(
 F32_TILE = (64, 64, 16)
 # Chunks are at least this many stages deep, to fill the copy ring.
 MIN_SPLIT_STAGES = 4
-# Blocks an SM runs at once: a wave of the f32 pass 1 and of the tail is
-# this many per SM ...
+# Blocks an SM runs at once: a wave of the f32 pass 1 is this many per
+# SM ...
 BLOCKS_PER_SM = 2
 # ... and of the packed pass 1 (``PACKED_BLOCKS`` in the CUDA source),
 # measured on its own: three an SM (20 chunks of 80 rows at the paper
 # shape) made rows 4-5 slower than two (PERF.md, findings).
 PACKED_BLOCKS_PER_SM = 2
-# The tail: lanes a block, and the shared-memory words of their fired
-# bits (so at most 65,536 clause columns a lane).
-TAIL_MAX_LANES, TAIL_FIRED_WORDS = 4, 2048
-# The blocks of both passes: threads of a pass-1 block (a 4 x 4 register
-# tile a thread), its copy ring's depth; threads of a tail block and the
-# classes of one pass of its class stage (f64 partial sums in shared
-# memory).
+# The tail (``TAIL_THREADS``, ``TAIL_BLOCKS``, ``FIRED_WORDS``, ``MT`` and
+# ``LIST`` in the CUDA source): threads a block at most, blocks an SM its
+# wave is planned for (32 warps; its registers are capped to fit them),
+# the shared-memory words of the fired bits of a block's lanes (so at
+# most 65,536 clause columns a lane), the classes of one pass of its class
+# stage (a warp's f64 partial sums in shared memory) and the entries of a
+# warp's list of fired columns (those of 32 words).
+TAIL_THREADS, TAIL_BLOCKS_PER_SM, TAIL_FIRED_WORDS = 256, 4, 2048
+TAIL_CLASSES, TAIL_LIST = 32, 1024
+# Pass 1's block: threads (a 4 x 4 register tile a thread) and its copy
+# ring's depth.
 THREADS, STAGES = 256, 3
-TAIL_THREADS, TAIL_CLASSES = 512, 16
 
 
 @dataclass(frozen=True)
@@ -82,15 +86,22 @@ class Plan:
     ``tile_n`` clause columns with ``stage`` rows a stage, the live rows
     of each shard in ``splits`` chunks of ``chunk`` rows (whole stages,
     the last one ragged), ``blocks`` pass-1 blocks; the tail in
-    ``tail_blocks`` blocks of ``lanes`` lanes."""
+    ``tail_blocks`` blocks of ``lanes`` lanes, each lane streamed by
+    ``tail_warps`` warps."""
     tile_b: int
     tile_n: int
     stage: int
     splits: int
     chunk: int
     blocks: int
+    tail_warps: int
     lanes: int
     tail_blocks: int
+
+    @property
+    def tail_threads(self) -> int:
+        """Threads of a tail block."""
+        return 32 * self.tail_warps * self.lanes
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -105,9 +116,12 @@ def plan(B: int, K: int, R: int, C: int, tr: int, tc: int, sms: int,
 
     Pass 1 takes about one wave of blocks (``BLOCKS_PER_SM`` an SM on f32
     cells, ``PACKED_BLOCKS_PER_SM`` on packed ones), with chunks deep
-    enough to fill the copy ring; the tail's lanes follow a wave of
-    ``BLOCKS_PER_SM`` either way.  Raises ``ValueError`` past 65,536
-    clause columns."""
+    enough to fill the copy ring.  The tail gives a lane as many warps as
+    a wave of ``TAIL_BLOCKS_PER_SM`` full blocks an SM holds for B lanes
+    (at most a block's, and no more threads than the lane has 16-byte
+    column groups), then puts as many lanes in a block as fit its
+    threads and fired words while the blocks still cover every SM.
+    Raises ``ValueError`` past 65,536 clause columns."""
     tile_b, tile_n, stage = F32_TILE
     live = max(0, min(tr, K))            # live rows of the fullest shard
     stages = _cdiv(live, stage)
@@ -122,12 +136,20 @@ def plan(B: int, K: int, R: int, C: int, tr: int, tc: int, sms: int,
     if words > TAIL_FIRED_WORDS:
         raise ValueError(f"{C * tc} clause columns: the kernel takes at "
                          f"most {32 * TAIL_FIRED_WORDS}")
-    lanes = min(TAIL_MAX_LANES, max(1, _cdiv(B, BLOCKS_PER_SM * sms)))
-    lanes = 1 << (lanes.bit_length() - 1)          # 1, 2 or 4
-    while lanes > 1 and lanes * words > TAIL_FIRED_WORDS:
-        lanes //= 2
-    return Plan(tile_b, tile_n, stage, splits, chunk, tiles * splits, lanes,
-                _cdiv(B, lanes))
+    block_warps = TAIL_THREADS // 32
+    tail_wave = TAIL_BLOCKS_PER_SM * sms * block_warps   # warps
+    groups = _cdiv(C * tc, 4)
+    warps = 1
+    while (2 * warps <= block_warps and 2 * warps * B <= tail_wave
+           and 64 * warps <= groups):
+        warps *= 2
+    lanes = 1
+    while (2 * lanes * warps <= block_warps
+           and 2 * lanes * words <= TAIL_FIRED_WORDS
+           and _cdiv(B, 2 * lanes) >= sms):
+        lanes *= 2
+    return Plan(tile_b, tile_n, stage, splits, chunk, tiles * splits, warps,
+                lanes, _cdiv(B, lanes))
 
 
 def copy_widths(literals: torch.Tensor, clause_i: torch.Tensor, R: int,
@@ -142,6 +164,13 @@ def copy_widths(literals: torch.Tensor, clause_i: torch.Tensor, R: int,
         else 1
     vec = clause_i.data_ptr() % 16 == 0 and clause_i.shape[-1] % 4 == 0
     return lit, 16 if vec else 4
+
+
+def tail_width(part: torch.Tensor, N: int) -> int:
+    """Floats a load of the tail reads from the partials ``part`` (R *
+    splits, B, N) at once: 4 (16 bytes) where N % 4 == 0 and the base is
+    16-byte aligned, else 1 (plain loads)."""
+    return 4 if N % 4 == 0 and part.data_ptr() % 16 == 0 else 1
 
 
 def code_width(bits: torch.Tensor) -> int:
@@ -173,7 +202,7 @@ def describe(literals: torch.Tensor, cells: torch.Tensor,
     return (f"{p.tile_b}x{p.tile_n} tiles, literals by {how(lit)}, {what} "
             f"by {how(width)}, {p.splits} chunk(s) of {p.chunk} rows a "
             f"shard, {p.blocks} blocks; tail {p.tail_blocks} blocks of "
-            f"{p.lanes} lane(s)")
+            f"{p.lanes} lane(s), {p.tail_warps} warp(s) a lane")
 
 
 def _operands(literals, nonempty, class_i, grid):
@@ -224,9 +253,10 @@ def _launch(kernel, literals, cells, nonempty, class_i, grid, *,
     p = plan(B, K, R, C, tr, tc, sm_count(dev.index), packed)
     lit, cl = copy_widths(literals, cells[0], R, tr)
     width = code_width(cells[0]) if packed else int(cl == 16)
-    plan_args = (lit, width, p.splits, p.chunk, p.lanes)
     part = torch.empty((R * p.splits * B * C * tc,), dtype=torch.float32,
                        device=dev)
+    plan_args = (lit, width, p.splits, p.chunk, p.tail_warps, p.lanes,
+                 tail_width(part, C * tc))
     kernel(literals.data_ptr(), *(t.data_ptr() for t in cells),
            ne.data_ptr(), class_i.data_ptr(), part.data_ptr(),
            *(t.data_ptr() for t in outs), *shape, thresh, *plan_args,

@@ -305,7 +305,7 @@ def test_resource_report_parses(sample_tables):
     assert mvm["mvm_tiles<0,0>"] == _build.Resources(
         registers=80, smem=27648, stack=8, spill_stores=8, spill_loads=8)
     assert mvm["mvm_reduce"].smem == 0
-    assert len(sample_tables["fused_impact.cu"]) == 10
+    assert len(sample_tables["fused_impact.cu"]) == 12
     assert sample_tables["digital_cotm.cu"]["class_sum_kernel<4>"] \
         .registers == 48
     with pytest.raises(ValueError, match="registers"):
@@ -325,13 +325,15 @@ def test_sample_kernels_fit_their_plans(sample_tables, monkeypatch):
     assert {w.variant for w in sets} == {
         k.split("<")[0] for t in sample_tables.values() for k in t}
     assert ir_audit.resource_findings(sets, sample_tables) == []
-    # A planner that assumed three blocks an SM would be wrong for the
-    # tail (64 registers x 512 threads allow two): the check bites.
+    # A planner that assumed five blocks an SM would be wrong for the
+    # tail (at most 64 registers x 256 threads allow four): the check
+    # bites.
     monkeypatch.setattr(importlib.import_module(
-        "repro_torch.kernels.fused_impact"), "BLOCKS_PER_SM", 3)
+        "repro_torch.kernels.fused_impact"), "TAIL_BLOCKS_PER_SM", 5)
     bad = ir_audit.resource_findings(sets, sample_tables)
     assert {f.message.split(":")[0] for f in bad} == {
-        "impact_tail<0>", "impact_tail<1>"}
+        "impact_tail<0,1>", "impact_tail<0,4>", "impact_tail<1,1>",
+        "impact_tail<1,4>"}
     assert all(f.check == "occupancy" and f.severity == "error"
                for f in bad)
 
@@ -359,11 +361,11 @@ def test_block_constants_match_the_sources():
         c["BK"] + 4)
     c = _constants(CSRC / "fused_impact.cu")
     assert fi.F32_TILE == (c["BM"], c["BN"], c["BK"])
-    assert (fi.STAGES, fi.TAIL_THREADS, fi.TAIL_MAX_LANES,
-            fi.TAIL_FIRED_WORDS, fi.TAIL_CLASSES,
+    assert (fi.STAGES, fi.TAIL_THREADS, fi.TAIL_BLOCKS_PER_SM,
+            fi.TAIL_FIRED_WORDS, fi.TAIL_CLASSES, fi.TAIL_LIST,
             fi.PACKED_BLOCKS_PER_SM) == (
-        c["STAGES"], c["TAIL_THREADS"], c["TAIL_MAX_LANES"],
-        c["FIRED_WORDS"], c["MT"], c["PACKED_BLOCKS"])
+        c["STAGES"], c["TAIL_THREADS"], c["TAIL_BLOCKS"],
+        c["FIRED_WORDS"], c["MT"], c["LIST"], c["PACKED_BLOCKS"])
     c = _constants(CSRC / "digital_cotm.cu")
     assert (cs.CS_LANES, cs.CS_CLASSES, cs.CS_CLAUSES) == (
         c["CS_LANES"], c["CS_MT"], c["CS_NC"])
@@ -376,7 +378,7 @@ def test_working_sets_fit_the_card():
     f32, tail = smem.fused_working_sets(packed=False)
     packed, tail_p = smem.fused_working_sets(packed=True)
     assert packed.smem_bytes > f32.smem_bytes
-    assert tail_p == tail and tail.smem_static == 16512
+    assert tail_p == tail and tail.smem_static == 34880
 
 
 # -- session audits ----------------------------------------------------------

@@ -7,9 +7,13 @@ properties are held here on the CPU with the SM count as a parameter, at
 the shapes ``chip_smoke.py`` launches the kernels at and at edge cases:
 every shard's live rows are covered once, the paper shape fills about
 one wave, the packed plan fills about one wave of
-``PACKED_BLOCKS_PER_SM`` blocks an SM with the f32 tile and stages, and
-the copy widths (literals, f32 cells, packed codes) follow the operands'
-pointers and strides.
+``PACKED_BLOCKS_PER_SM`` blocks an SM with the f32 tile and stages, the
+tail serves every lane once with the columns of each lane streamed once
+and fits its shared memory, spreads a lane over several warps at small
+batches and fills ``TAIL_BLOCKS_PER_SM`` full blocks an SM at the
+benchmark's 16,384 lanes, and the copy widths (literals, f32 cells,
+packed codes, the tail's loads) follow the operands' pointers and
+strides.
 """
 import importlib
 import importlib.util
@@ -36,6 +40,9 @@ SHAPES = ([(B, K, R, C, tr, tc)
              (5, 210, 3, 1, 100, 40), (5, 150, 3, 1, 100, 8),
              (3, 0, 1, 1, 16, 20), (1, 1568, 1, 1, 2048, 512),
              (4096, 1568, 1, 1, 2048, 512), (130, 2048, 1, 2, 2048, 512)])
+# The benchmark's bulk batch in its MNIST and CIFAR-2 layouts.
+BULK = [(B, K, R, C, tr, tc)
+        for B, K, _, _, R, tr, C, tc, _, _ in chip_smoke.BULK_SHAPES]
 
 
 def _cdiv(a, b):
@@ -62,14 +69,73 @@ def test_chunks_cover_each_shards_live_rows_once(B, K, R, C, tr, tc, sms,
         assert p.chunk >= fi.MIN_SPLIT_STAGES * p.stage
 
 
+def _tail_columns(p, N, width):
+    """How often the tail loads each column of a lane and writes each
+    fired word, by the kernel's map: thread tg of the lane's group of
+    G = 32 * tail_warps threads loads column groups tg + k * G of
+    ``width`` columns, and lanes 0..width-1 of each warp write the words
+    of its 32 * width columns."""
+    G = 32 * p.tail_warps
+    groups, words = N // width, _cdiv(N, 32)
+    rounds = _cdiv(groups, G)
+    cols, fired = [0] * N, [0] * words
+    for k in range(rounds):
+        for tg in range(G):
+            g = k * G + tg
+            if g < groups:
+                for e in range(width):
+                    cols[g * width + e] += 1
+        for wig in range(p.tail_warps):
+            g0 = k * G + 32 * wig
+            for w in range(width):
+                at = g0 * width // 32 + w
+                if g0 < groups and at < words:
+                    fired[at] += 1
+    return cols, fired
+
+
 @pytest.mark.parametrize("sms", SMS)
-@pytest.mark.parametrize("B,K,R,C,tr,tc", SHAPES)
+@pytest.mark.parametrize("B,K,R,C,tr,tc", SHAPES + BULK)
 def test_tail_lanes_fit_the_fired_bits(B, K, R, C, tr, tc, sms):
+    """Every lane is served once, by a group of whole warps, and a block's
+    fired words and f64 clause-meter partials (one a warp) fit the tail's
+    shared memory."""
     for packed in (False, True):
         p = fi.plan(B, K, R, C, tr, tc, sms, packed)
-        assert p.lanes in (1, 2, 4)
+        assert p.tail_warps in (1, 2, 4, 8) and p.lanes in (1, 2, 4, 8)
+        assert p.tail_threads == 32 * p.tail_warps * p.lanes
+        assert p.tail_threads <= fi.TAIL_THREADS
         assert p.lanes * _cdiv(C * tc, 32) <= fi.TAIL_FIRED_WORDS
         assert p.tail_blocks == _cdiv(B, p.lanes)
+        served = [blk * p.lanes + l for blk in range(p.tail_blocks)
+                  for l in range(p.lanes)]
+        assert [b for b in served if b < B] == list(range(B))
+
+
+@pytest.mark.parametrize("sms", SMS)
+@pytest.mark.parametrize("B,K,R,C,tr,tc", SHAPES + BULK)
+def test_tail_streams_each_column_once(B, K, R, C, tr, tc, sms):
+    """Under the plan's warps a lane, the tail loads every column of a
+    lane once and writes every fired word once, by 16-byte loads (where
+    C*tc % 4 == 0) and by plain ones."""
+    N = C * tc
+    p = fi.plan(B, K, R, C, tr, tc, sms)
+    for width in (4, 1) if N % 4 == 0 else (1,):
+        cols, fired = _tail_columns(p, N, width)
+        assert cols == [1] * N and fired == [1] * _cdiv(N, 32)
+
+
+@pytest.mark.parametrize("sms", SMS)
+@pytest.mark.parametrize("B,K,R,C,tr,tc", BULK)
+def test_bulk_batch_fills_the_planned_blocks_an_sm(B, K, R, C, tr, tc, sms):
+    """At the benchmark's 16,384 lanes the tail takes a warp a lane in
+    full blocks, at least ``TAIL_BLOCKS_PER_SM`` of them an SM, which
+    hold 32 resident warps an SM."""
+    for packed in (False, True):
+        p = fi.plan(B, K, R, C, tr, tc, sms, packed)
+        assert (p.tail_warps, p.tail_threads) == (1, fi.TAIL_THREADS)
+        assert p.tail_blocks >= fi.TAIL_BLOCKS_PER_SM * sms
+        assert fi.TAIL_BLOCKS_PER_SM * fi.TAIL_THREADS // 32 >= 32
 
 
 @pytest.mark.parametrize("sms", SMS)
@@ -81,7 +147,9 @@ def test_paper_shape_fills_about_one_wave(sms):
     assert (p.tile_b, p.tile_n, p.stage) == fi.F32_TILE == (64, 64, 16)
     assert (p.splits, p.chunk, p.blocks) == (14, 112, 224)
     assert 0.75 * wave <= p.blocks <= wave
-    assert (p.lanes, p.tail_blocks) == (1, 128)
+    # The tail spreads each of the 128 lanes over 4 warps, one 16-byte
+    # column group a thread.
+    assert (p.tail_warps, p.lanes, p.tail_blocks) == (4, 1, 128)
 
 
 @pytest.mark.parametrize("sms", SMS)
@@ -103,9 +171,10 @@ def test_packed_plan_fills_about_one_wave_in_whole_stages(B, K, R, C, tr,
     assert p.blocks <= max(tiles, wave)
     if tiles and wave // tiles <= stages // fi.MIN_SPLIT_STAGES:
         assert p.blocks >= 0.8 * (wave - tiles)
-    # The tail keeps the f32 plan's lanes.
+    # The tail keeps the f32 plan's warps and lanes.
     f = fi.plan(B, K, R, C, tr, tc, sms)
-    assert (p.lanes, p.tail_blocks) == (f.lanes, f.tail_blocks)
+    assert (p.tail_warps, p.lanes, p.tail_blocks) == (
+        f.tail_warps, f.lanes, f.tail_blocks)
 
 
 @pytest.mark.parametrize("sms", SMS)
@@ -118,7 +187,7 @@ def test_packed_paper_shape_runs_224_blocks(sms):
     assert (p.tile_b, p.tile_n, p.stage) == (64, 64, 16)
     assert (p.splits, p.chunk, p.blocks) == (14, 112, 224)
     assert 0.75 * fi.PACKED_BLOCKS_PER_SM * sms <= p.blocks
-    assert (p.lanes, p.tail_blocks) == (1, 128)
+    assert (p.tail_warps, p.lanes, p.tail_blocks) == (4, 1, 128)
 
 
 def test_edge_cases_plan_without_error():
@@ -132,19 +201,24 @@ def test_edge_cases_plan_without_error():
 
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("sms", SMS)
-@pytest.mark.parametrize("B,lanes", [(chip_smoke.N_CALIBRATION, 4),
-                                     (300, 2), (chip_smoke.CAPACITY, 1)])
-def test_chip_smoke_batches_plan_every_tail_lane_count(B, lanes, sms, packed):
-    """chip_smoke's tail-lane check holds the kernels at the calibration
-    batch and at 300 lanes, which must plan 4 and 2 lanes a tail block at
-    the paper and the multi-shard layouts; the serving capacity plans 1."""
-    for base in (0, 2):
+@pytest.mark.parametrize("B,want", [
+    (chip_smoke.N_CALIBRATION, {132: ((4, 2), (1, 4)), 114: ((2, 4), (1, 8))}),
+    (300, {132: ((4, 2), (1, 2)), 114: ((4, 2), (1, 2))}),
+    (chip_smoke.CAPACITY, {132: ((4, 1), (1, 1)), 114: ((4, 1), (1, 1))})])
+def test_chip_smoke_batches_plan_every_tail_lane_count(B, want, sms, packed):
+    """chip_smoke's tail check holds the kernels at the calibration batch
+    and at 300 lanes, whose (warps a lane, lanes a block) at the paper
+    and the multi-shard layouts give a lane several warps and a block
+    several lanes; the serving capacity spreads a paper lane over 4
+    warps, a block a lane."""
+    for base, w in zip((0, 2), want[sms]):
         _, K, _, _, R, tr, C, tc, _, _ = chip_smoke.KERNEL_SHAPES[base]
-        assert fi.plan(B, K, R, C, tr, tc, sms, packed).lanes == lanes
+        p = fi.plan(B, K, R, C, tr, tc, sms, packed)
+        assert (p.tail_warps, p.lanes) == w
 
 
 def test_many_columns_take_fewer_tail_lanes_and_too_many_raise():
-    assert fi.plan(4096, 64, 1, 1, 64, 512, 132).lanes == 4
+    assert fi.plan(4096, 64, 1, 1, 64, 512, 132).lanes == 8
     assert fi.plan(4096, 64, 1, 64, 64, 512, 132).lanes == 2   # 32,768
     assert fi.plan(4096, 64, 1, 128, 64, 512, 132).lanes == 1  # 65,536
     with pytest.raises(ValueError, match="clause columns"):
@@ -231,6 +305,17 @@ def test_chip_smoke_shapes_take_the_code_paths_they_are_meant_to(B, K, R, C,
     assert fi.code_width(_codes(shape, 2)) == 1
 
 
+@pytest.mark.parametrize("offset,N,width", [
+    (0, 512, 4), (0, 1024, 4), (4, 512, 4), (1, 512, 1), (2, 512, 1),
+    (0, 90, 1), (0, 33, 1), (0, 0, 4)])
+def test_tail_load_width_follows_pointer_and_columns(offset, N, width):
+    """The tail reads the partials 16 bytes at a time where their base is
+    16-byte aligned and N = C*tc % 4 == 0, else a float at a time."""
+    buf = torch.zeros(N * 3 + 16)
+    assert buf.data_ptr() % 16 == 0
+    assert fi.tail_width(buf[offset:offset + N * 3], N) == width
+
+
 @pytest.mark.parametrize("offset,tc,width", [
     (0, 512, 4), (8, 512, 4), (2, 512, 1), (3, 512, 1), (0, 20, 4),
     (0, 18, 1), (12, 32, 4), (16, 6, 1)])
@@ -249,10 +334,10 @@ def test_describe_names_the_packed_path(monkeypatch):
     assert fi.describe(lit, _codes((1, 1, 512, 512), 1), 2048) == (
         "64x64 tiles, literals by 16-byte copies, codes by plain loads, 14 "
         "chunk(s) of 112 rows a shard, 224 blocks; tail 128 blocks of 1 "
-        "lane(s)")
+        "lane(s), 4 warp(s) a lane")
     assert "codes by 4-byte copies" in fi.describe(
         lit, _codes((1, 1, 512, 512), 0), 2048)
     assert fi.describe(lit, torch.zeros((1, 1, 2048, 512))) == (
         "64x64 tiles, literals by 16-byte copies, cells by 16-byte copies, "
         "14 chunk(s) of 112 rows a shard, 224 blocks; tail 128 blocks of 1 "
-        "lane(s)")
+        "lane(s), 4 warp(s) a lane")

@@ -245,6 +245,61 @@ def test_launches_at_capture_are_recorded_not_counted(monkeypatch):
     assert k.launches == n0 + 3
 
 
+class _FakeStream:
+    def __init__(self, device=None):
+        pass
+
+    def wait_stream(self, other):
+        pass
+
+
+class _FakeGraph:
+    def __init__(self, keep_graph=False):
+        self.log = []
+
+    def capture_begin(self, pool=None):
+        self.log.append("begin")
+
+    def capture_end(self):
+        self.log.append("end")
+
+    def instantiate(self):
+        self.log.append("instantiate")
+
+
+@pytest.mark.parametrize("fails", [False, True])
+def test_capture_keeps_the_collector_off(monkeypatch, fails):
+    """``graphs.capture`` runs the body's captured pass with the garbage
+    collector off (a collection freeing another graph then would
+    invalidate the capture on the card), and turns it back on after,
+    also when the body raises; the eager pass before it collects as
+    usual.  The CUDA stream and graph are fakes on the CPU."""
+    import contextlib
+    import gc
+    monkeypatch.setattr(torch.cuda, "Stream", _FakeStream)
+    monkeypatch.setattr(torch.cuda, "current_stream", _FakeStream)
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
+    monkeypatch.setattr(graphs, "census", lambda g: None)
+    seen = []
+
+    def body(x):
+        seen.append(gc.isenabled())
+        if fails and len(seen) == 2:
+            raise RuntimeError("body failed")
+        return x + 1
+
+    assert gc.isenabled()
+    if fails:
+        with pytest.raises(RuntimeError, match="body failed"):
+            graphs.capture(body, [torch.zeros(2)], None)
+    else:
+        cap = graphs.capture(body, [torch.zeros(2)], None)
+        assert cap.graph.log == ["begin", "end", "instantiate"]
+    assert seen == [True, False] and gc.isenabled()
+
+
 def test_no_graph_at_b0(data, system, graphed):
     _, lits, _ = data
     sess = system.compile(_spec(metering="fused"))
