@@ -39,11 +39,12 @@ import math
 
 import torch
 
+from .. import tracing
 from ..sharding.layout import all_gather_axis, all_reduce_axis
 from .base import (NULL_CTX, P, ShardCtx, dense, dense_out, model_split,
                    rms_norm)
 from .config import ModelConfig
-from .rope import apply_rope, mrope_angles, rope_angles
+from .rope import apply_rope, mrope_angles, rope_angles, yarn_get_mscale
 
 BF16, F32 = torch.bfloat16, torch.float32
 
@@ -160,7 +161,7 @@ def _flash_rows(qc: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     dev = qc.device
     q_iota = torch.arange(cq, device=dev)[:, None]
     k_iota = torch.arange(k_chunk, device=dev)[None, :]
-    neg_inf = torch.tensor(-math.inf, dtype=F32, device=dev)
+    neg_inf = -math.inf      # a scalar operand: no copy to the card
     m = torch.full((B, H, cq), -math.inf, dtype=F32, device=dev)
     l = torch.zeros((B, H, cq), dtype=F32, device=dev)
     acc = torch.zeros((B, H, cq, Dv), dtype=F32, device=dev)
@@ -265,6 +266,9 @@ def _write_slot(cache: torch.Tensor, upd: torch.Tensor,
 
 def _angles(cfg: ModelConfig, positions: torch.Tensor,
             head_dim: int) -> torch.Tensor:
+    if cfg.rope_scaling is not None:
+        raise NotImplementedError("YaRN rope scaling is implemented for "
+                                  "MLA (DeepSeek-V2) only")
     if cfg.rope_style == "mrope":
         return mrope_angles(positions, head_dim, cfg.rope_theta,
                             cfg.mrope_sections)
@@ -369,6 +373,17 @@ def mla_forward(p, x: torch.Tensor, positions: torch.Tensor,
                 cfg: ModelConfig, *, ctx: ShardCtx = NULL_CTX,
                 cache: dict | None = None,
                 fill_len: int | None = None) -> tuple:
+    """Multi-head latent attention (``_mla``) under the span
+    ``mla.forward`` (``tracing``)."""
+    with tracing.span("mla.forward"):
+        return _mla(p, x, positions, cfg, ctx=ctx, cache=cache,
+                    fill_len=fill_len)
+
+
+def _mla(p, x: torch.Tensor, positions: torch.Tensor,
+         cfg: ModelConfig, *, ctx: ShardCtx = NULL_CTX,
+         cache: dict | None = None,
+         fill_len: int | None = None) -> tuple:
     """Multi-head latent attention; the cache holds the COMPRESSED kv
     stream: {"ckv": (B, Smax, r), "kr": (B, Smax, rope_dim), "len": (B,)}.
 
@@ -376,11 +391,19 @@ def mla_forward(p, x: torch.Tensor, positions: torch.Tensor,
     ``gqa_forward``: ``wq``, ``w_uk``, ``w_uv`` and ``wo`` are this rank's
     heads, ``w_dkv`` / ``w_kr`` whole; the caches hold this rank's slice
     of their last dim (``cache_axes``' ``"head_dim"``) and a decode step
-    all-gathers them before use."""
+    all-gathers them before use.
+
+    With ``cfg.rope_scaling`` (YaRN) the rope angles are YaRN's and the
+    softmax scale is multiplied by ``yarn_get_mscale(factor,
+    mscale_all_dim) ** 2``, in the prefill and the absorbed decode alike
+    (DeepSeek-V2's ``DeepseekV2Attention``)."""
     m = cfg.mla
     B, S, _ = x.shape
     nope, rdim = m.qk_nope_head_dim, m.qk_rope_head_dim
     scale = 1.0 / math.sqrt(nope + rdim)
+    yarn = cfg.rope_scaling
+    if yarn is not None and yarn.mscale_all_dim:
+        scale *= yarn_get_mscale(yarn.factor, yarn.mscale_all_dim) ** 2
     heads = model_split(p, "wq", 1)
 
     q = dense(x, p["wq"])
@@ -388,7 +411,7 @@ def mla_forward(p, x: torch.Tensor, positions: torch.Tensor,
     ckv = rms_norm(dense(x, p["w_dkv"]), p["kv_norm"])       # (B, S, r)
     kr = dense(x, p["w_kr"])                                 # (B, S, rdim)
 
-    ang = rope_angles(positions, rdim, cfg.rope_theta)
+    ang = rope_angles(positions, rdim, cfg.rope_theta, yarn)
     q_rope = apply_rope(q_rope, ang)
     kr = apply_rope(kr[:, :, None, :], ang)[:, :, 0, :]      # one shared head
     hq = q.shape[2]

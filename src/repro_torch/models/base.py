@@ -719,6 +719,28 @@ class StackedLM(nn.Module):
                 mod._parameters[name].copy_(x)
         return self
 
+    def adopt(self, tree: Tree):
+        """Take the tensors of ``tree`` as the parameters, without a copy
+        (a model built on ``"meta"`` then holds them): ``tree`` is laid
+        out as ``params`` holds them (``"layers"`` and ``"front"`` lists
+        of per-layer trees), each tensor at its parameter's shape and
+        dtype.  One device only."""
+        if self.tp:
+            raise NotImplementedError("adopt takes one device's tree")
+        for name, param in list(self.params.named_parameters()):
+            *path, leaf = name.split(".")
+            node, mod = tree, self.params
+            for k in path:
+                i = int(k) if k.isdigit() else k
+                node, mod = node[i], mod[i]
+            t = node[leaf]
+            if t.shape != param.shape or t.dtype != param.dtype:
+                raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype}, "
+                                 f"declared {tuple(param.shape)} "
+                                 f"{param.dtype}")
+            mod._parameters[leaf] = nn.Parameter(t, requires_grad=False)
+        return self
+
     @contextlib.contextmanager
     def bound(self, tree: Tree):
         """Run the model on ``tree`` (the reference's layout, ``"layers"``

@@ -5,6 +5,13 @@ One frozen dataclass drives every family (dense / moe / vlm / audio / ssm /
 hybrid); family-specific sub-configs are optional fields.  Exact published
 dimensions live in ``repro_torch.configs.<arch_id>``.
 
+The fields the reference lacks (``MoEConfig``'s ``capacity_factor=None``,
+``norm_topk_prob`` and ``router_f32``, and ``ModelConfig.rope_scaling``)
+default to the reference's mathematics, so every registry config still
+equals the reference's on its fields; a published model's own settings
+come from its config module's ``published()`` (DeepSeek-V2-Lite's
+dropless, un-renormalised, f32-router, YaRN forward).
+
 ``dtype`` / ``param_dtype`` keep the reference's strings (``"bfloat16"``,
 ``"float32"``), so a config compares equal field by field with the
 reference's; ``torch_dtype`` is the one place that resolves them.
@@ -42,10 +49,33 @@ class MoEConfig:
     top_k: int
     d_ff_expert: int
     n_shared: int = 0              # shared (always-on) experts
-    capacity_factor: float = 1.25
+    capacity_factor: float | None = 1.25   # None: dropless (inference)
     aux_loss_weight: float = 0.01
     first_dense_layers: int = 0    # leading layers that use a dense FFN
     d_ff_dense: int | None = None  # FFN width of those dense layers
+    norm_topk_prob: bool = True    # renormalise the top-k probabilities
+    router_f32: bool = False       # router logits from f32 operands
+
+
+@dataclasses.dataclass(frozen=True)
+class YaRNConfig:
+    """YaRN rope scaling (``rope_scaling`` of type ``"yarn"`` in a
+    Hugging Face config), as DeepSeek-V2 publishes it.  Only
+    ``mscale == mscale_all_dim`` is taken: cos and sin then keep their
+    scale of one, as in every published DeepSeek-V2."""
+    factor: float
+    original_max_position_embeddings: int
+    beta_fast: float
+    beta_slow: float
+    mscale: float
+    mscale_all_dim: float
+
+    def __post_init__(self):
+        if self.mscale != self.mscale_all_dim:
+            raise ValueError(
+                f"YaRN with mscale {self.mscale} != mscale_all_dim "
+                f"{self.mscale_all_dim} scales cos and sin, which the port "
+                f"does not implement")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,6 +126,7 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     rope_style: str = "rope"             # rope | mrope | none
     mrope_sections: tuple[int, int, int] = (16, 24, 24)
+    rope_scaling: YaRNConfig | None = None
     norm: str = "rms"                    # rms | layer
     tie_embeddings: bool = False
     logit_softcap: float | None = None

@@ -7,6 +7,24 @@ dropped beyond capacity into the drop bin ``E*C``, scatter-added into a
 (B, E*C, d) buffer, processed by batched expert matmuls and gathered back.
 Compute therefore tracks the active experts (x capacity factor).
 
+With ``capacity_factor=None`` (one device, inference) the routing is
+dropless (``_routed_dropless``): every (token, expert) pair the router
+picks is computed.  The pairs are sorted by expert, the tokens' rows
+gathered in that order, and the three expert GEMMs run over the routed
+rows grouped by expert (``_grouped_mm``: ``torch._grouped_mm`` with the
+groups' ends on the device on a card, so nothing is padded and the
+forward never waits on the host), then the outputs are put back in the
+pairs' order and weighed in f32, as DeepSeek-V2's ``moe_infer``.  The
+router's settings (``norm_topk_prob``, ``router_f32``) hold on both
+paths (``_router``).
+
+Spans ``moe.forward`` and ``moe.route`` and the counters ``moe.slots``
+(pairs routed), ``moe.rows`` (rows the expert GEMMs computed),
+``moe.mean_slots`` (the pairs over the experts), ``moe.max_slots`` (the
+heaviest expert's pairs) and ``moe.dropped`` (pairs past capacity)
+record in ``repro_torch.tracing`` while it records; the last two are
+summed on the device (``tracing.add_device``).
+
 On a mesh (``ctx``, a tensor-parallel model's ``ShardCtx``) the layers
 take their input whole over the sequence on every rank of the model axis
 and return it at ``("batch", "seq", None)``.  The MLP is column-parallel
@@ -26,6 +44,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
 from .base import ACTIVATIONS, NULL_CTX, P, ShardCtx, dense, model_split
 from .config import ModelConfig, MoEConfig
 
@@ -105,11 +124,22 @@ def moe_forward(p, x: torch.Tensor, cfg: ModelConfig, *,
     sequence.  On a mesh (the reference's ``ffn.py:89-118``): ``_routed_ep``
     where ``_ep_sharded``, else ``_routed``; the routed experts' and the
     shared experts' outputs are added as partial sums over the model axis
-    and reduced once to ``("batch", "seq", None)``."""
+    and reduced once to ``("batch", "seq", None)``.  Dropless
+    (``capacity_factor=None``) the whole batch is routed at once, on one
+    device."""
+    with tracing.span("moe.forward"):
+        return _moe_forward(p, x, cfg, ctx)
+
+
+def _moe_forward(p, x: torch.Tensor, cfg: ModelConfig, ctx: ShardCtx):
     B, S, d = x.shape
     G = MOE_GROUP_TOKENS
     routed = _routed_ep if _ep_sharded(cfg, ctx) else _routed
-    if S > G and S % G == 0:
+    if cfg.moe.capacity_factor is None:
+        if ctx.mesh is not None:
+            raise NotImplementedError("dropless routing runs on one device")
+        out, aux = _routed_dropless(p, x, cfg)
+    elif S > G and S % G == 0:
         out, aux = routed(p, x.reshape(B * (S // G), G, d), cfg, ctx)
         out = out.reshape(B, S, d)
     else:
@@ -132,8 +162,24 @@ def moe_forward(p, x: torch.Tensor, cfg: ModelConfig, *,
     return ctx.scatter_seq(out, partial), aux
 
 
+def _router(x: torch.Tensor, router: torch.Tensor, moe: MoEConfig):
+    """(probs (..., E) f32, top-k weights (..., K) f32, top-k experts):
+    the softmax of the router's logits (from f32 operands with
+    ``router_f32``, else the compute dtype's product), its greedy top-k,
+    renormalised with ``norm_topk_prob``."""
+    if moe.router_f32:
+        logits = x.float() @ router.float()
+    else:
+        logits = dense(x, router)
+    probs = torch.softmax(logits.float(), dim=-1)
+    top_p, top_e = torch.topk(probs, moe.top_k, dim=-1)
+    if moe.norm_topk_prob:
+        top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    return probs, top_p, top_e
+
+
 def _dispatch_plan(x: torch.Tensor, router: torch.Tensor, moe: MoEConfig):
-    """Shared routing math: top-k, capacity ranks, slot ids.
+    """Shared routing math: top-k (``_router``), capacity ranks, slot ids.
 
     Returns (probs (B,S,E) f32, top_p, top_e, keep, slot, C) with slot =
     e*C + rank, or E*C (the drop bin) past capacity.  An entry's rank is
@@ -143,10 +189,7 @@ def _dispatch_plan(x: torch.Tensor, router: torch.Tensor, moe: MoEConfig):
     E, K = moe.n_experts, moe.top_k
     C = _capacity(S, moe)
     T = S * K
-    logits = dense(x, router)
-    probs = torch.softmax(logits.float(), dim=-1)
-    top_p, top_e = torch.topk(probs, K, dim=-1)
-    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    probs, top_p, top_e = _router(x, router, moe)
     e_flat = top_e.reshape(B, T)
     order = torch.argsort(e_flat, dim=1, stable=True)
     e_sorted = torch.gather(e_flat, 1, order)
@@ -159,7 +202,77 @@ def _dispatch_plan(x: torch.Tensor, router: torch.Tensor, moe: MoEConfig):
     rank = torch.gather(rank_sorted, 1, inv).reshape(B, S, K)
     keep = rank < C
     slot = torch.where(keep, top_e * C + rank, E * C)
+    if tracing.recording():
+        _count(B * T, B * E * C, E, counts.sum(dim=0), (~keep).sum())
     return probs, top_p, top_e, keep, slot, C
+
+
+def _count(slots: int, rows: int, E: int, per_expert: torch.Tensor,
+           dropped) -> None:
+    """One MoE layer's routing counters (``tracing``): pairs routed, rows
+    the expert GEMMs computed, the pairs an expert on average, and on
+    the device the heaviest expert's pairs and the pairs dropped."""
+    tracing.add("moe.slots", slots)
+    tracing.add("moe.rows", rows)
+    tracing.add("moe.mean_slots", slots / E)
+    tracing.add_device("moe.max_slots", per_expert.max())
+    if isinstance(dropped, int):
+        tracing.add("moe.dropped", dropped)
+    else:
+        tracing.add_device("moe.dropped", dropped)
+
+
+def _grouped_mm(a: torch.Tensor, w: torch.Tensor,
+                ends: torch.Tensor) -> torch.Tensor:
+    """Rows ``a`` (n, k) grouped by expert, group e ending at row
+    ``ends[e]`` (int32, on the device), times ``w`` (E, k, f) -> (n, f)
+    in ``a``'s dtype, each product accumulated in f32 and rounded once.
+    On a card ``torch._grouped_mm`` (the groups' sizes never reach the
+    host); elsewhere a loop over the groups."""
+    w = w.to(a.dtype)
+    if a.is_cuda:
+        return torch._grouped_mm(a, w, offs=ends)
+    out = a.new_empty((a.shape[0], w.shape[-1]))
+    lo = 0
+    for e, hi in enumerate(ends.tolist()):
+        out[lo:hi] = a[lo:hi] @ w[e]
+        lo = hi
+    return out
+
+
+def _routed_dropless(p, x: torch.Tensor, cfg: ModelConfig
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every routed (token, expert) pair computed, on one device, for
+    inference: x (B, S, d) -> (the routed experts' weighted sum, a zero
+    aux loss).  The pairs, sorted by expert (stable), gather their
+    tokens' rows; the expert GEMMs run on the rows grouped by expert; the
+    outputs go back to the pairs' order and are weighed and summed over
+    the top-k in f32."""
+    moe = cfg.moe
+    if x.requires_grad or p["w_gate"].requires_grad:
+        raise NotImplementedError("dropless routing is for inference; "
+                                  "training takes a capacity_factor")
+    E, K = moe.n_experts, moe.top_k
+    B, S, d = x.shape
+    N = B * S
+    xt = x.reshape(N, d)
+    with tracing.span("moe.route"):
+        _, top_p, top_e = _router(xt, p["router"], moe)
+        flat = top_e.reshape(-1)
+        order = torch.argsort(flat, stable=True)
+        counts = torch.zeros(E, dtype=torch.int32, device=x.device)
+        counts.scatter_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
+        ends = torch.cumsum(counts, 0, dtype=torch.int32)
+        rows = xt.index_select(0, order // K)
+    if tracing.recording():
+        _count(N * K, N * K, E, counts, 0)
+    h = (ACTIVATIONS[cfg.act](_grouped_mm(rows, p["w_gate"], ends))
+         * _grouped_mm(rows, p["w_up"], ends))
+    ys = _grouped_mm(h, p["w_down"], ends)
+    y = torch.empty_like(ys).index_copy_(0, order, ys)
+    out = (y.view(N, K, d).float() * top_p[..., None]).sum(dim=1)
+    return (out.to(x.dtype).reshape(B, S, d),
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 def _experts(p, buf: torch.Tensor, act: str) -> torch.Tensor:

@@ -4,8 +4,19 @@ port of ``repro.models.rope``).
 M-RoPE splits the rotary half-dim into (temporal, height, width) sections,
 each rotated by its own position stream; plain text positions set all three
 streams equal, recovering standard RoPE exactly.
+
+YaRN (``ModelConfig.rope_scaling``, a ``YaRNConfig``) is DeepSeek-V2's
+``DeepseekV2YarnRotaryEmbedding``: the inverse frequencies blend the
+interpolated ones (``/ factor``) and the original ones over a linear ramp
+between the correction dimensions that ``beta_fast`` / ``beta_slow``
+rotations at ``original_max_position_embeddings`` give.  Cos and sin keep
+their scale of one (``YaRNConfig`` takes only ``mscale ==
+mscale_all_dim``).  The attention's softmax scale takes
+``yarn_get_mscale(factor, mscale_all_dim) ** 2`` (``attention.mla_forward``).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -18,10 +29,46 @@ def rope_freqs(head_dim: int, theta: float,
                                          device=device) / half))
 
 
+def yarn_get_mscale(scale: float, mscale: float) -> float:
+    """YaRN's attention-temperature factor (``yarn_get_mscale``)."""
+    if scale <= 1:
+        return 1.0
+    return 0.1 * mscale * math.log(scale) + 1.0
+
+
+def _yarn_correction_dim(rotations: float, dim: int, base: float,
+                         max_pos: int) -> float:
+    return (dim * math.log(max_pos / (rotations * 2 * math.pi))
+            / (2 * math.log(base)))
+
+
+def yarn_freqs(head_dim: int, theta: float, yarn,
+               device: torch.device | str | None = None) -> torch.Tensor:
+    """(head_dim//2,) f32 YaRN inverse frequencies of ``yarn`` (a
+    ``YaRNConfig``), as ``DeepseekV2YarnRotaryEmbedding`` computes them."""
+    extra = rope_freqs(head_dim, theta, device)
+    inter = 1.0 / (yarn.factor * theta ** (
+        torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+        / head_dim))
+    orig = yarn.original_max_position_embeddings
+    low = max(math.floor(_yarn_correction_dim(yarn.beta_fast, head_dim,
+                                              theta, orig)), 0)
+    high = min(math.ceil(_yarn_correction_dim(yarn.beta_slow, head_dim,
+                                              theta, orig)), head_dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = ((torch.arange(head_dim // 2, dtype=torch.float32, device=device)
+             - low) / (high - low)).clamp(0, 1)
+    keep = 1.0 - ramp           # 1 where the original frequency stays
+    return inter * (1 - keep) + extra * keep
+
+
 def rope_angles(positions: torch.Tensor, head_dim: int,
-                theta: float) -> torch.Tensor:
-    """positions (..., S) int -> angles (..., S, head_dim//2) f32."""
-    inv = rope_freqs(head_dim, theta, positions.device)
+                theta: float, scaling=None) -> torch.Tensor:
+    """positions (..., S) int -> angles (..., S, head_dim//2) f32; with
+    ``scaling`` (a ``YaRNConfig``) at YaRN's frequencies."""
+    inv = (rope_freqs(head_dim, theta, positions.device) if scaling is None
+           else yarn_freqs(head_dim, theta, scaling, positions.device))
     return positions.to(torch.float32)[..., None] * inv
 
 

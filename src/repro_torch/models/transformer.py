@@ -39,6 +39,7 @@ from typing import Any
 
 import torch
 
+from .. import tracing
 from .attention import attn_decls, attn_forward, init_attn_cache
 from .base import P, StackedLM, layer_norm, rms_norm, tree_map
 from .config import ModelConfig
@@ -177,7 +178,7 @@ class TransformerLM(StackedLM):
         reference's ``transformer.py:152``); ``gather_vocab`` assembles
         them."""
         cfg = self.cfg
-        x = _norm(self.params["final_norm"], x, cfg)
+        x = self.normed(x)
         if cfg.tie_embeddings:
             out = x @ self.params["embed"].to(x.dtype).T
         elif cfg.modality == "audio" and cfg.n_codebooks > 1:
@@ -186,6 +187,11 @@ class TransformerLM(StackedLM):
         else:
             out = x @ self.params["lm_head"].to(x.dtype)
         return out.to(torch.float32)
+
+    def normed(self, x: torch.Tensor) -> torch.Tensor:
+        """The final norm of ``hidden``'s states (what ``logits``
+        projects, and a classifier pools)."""
+        return _norm(self.params["final_norm"], x, self.cfg)
 
     # -- full forward ---------------------------------------------------------
     def _stack(self, tokens: torch.Tensor, positions: torch.Tensor,
@@ -213,11 +219,14 @@ class TransformerLM(StackedLM):
         loss): the stack ``forward`` and ``prefill`` run.  On a mesh the
         states are gathered whole over the sequence, and with ``batch``
         (the global batch of which ``tokens`` are this rank's rows) over
-        the rows too: what ``pool_features`` and the CoTM head read."""
-        x, aux = self._stack(tokens, positions, extra_embeds)
-        x = self.ctx.gather_seq(x, positions.shape[-1])
-        if batch is not None:
-            x = self.ctx.gather_rows(x, batch)
+        the rows too: what ``pool_features`` and the CoTM head read.
+        Span ``lm.hidden``, counter ``lm.tokens`` (``tracing``)."""
+        with tracing.span("lm.hidden"):
+            tracing.add("lm.tokens", tokens.shape[0] * tokens.shape[1])
+            x, aux = self._stack(tokens, positions, extra_embeds)
+            x = self.ctx.gather_seq(x, positions.shape[-1])
+            if batch is not None:
+                x = self.ctx.gather_rows(x, batch)
         return x, aux
 
     def forward(self, tokens: torch.Tensor, positions: torch.Tensor,

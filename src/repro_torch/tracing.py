@@ -27,6 +27,10 @@ twice and adds to the table under a lock.
   on a device trace of the same window.
 * ``nest(records)``: the records' begin and end marks, nested.
 * ``to_tracer(records)``: the records as a ``Tracer`` (Chrome JSON).
+* ``add_device(name, t)``: a counter whose value is a scalar on the
+  card, summed there while the table records; ``flush()`` reads every
+  such sum with one copy to the host and adds it to the table (the
+  caller flushes where its results come to the host anyway).
 * ``reset()``, ``enable()``, ``disable()``.
 
 No span opens a ``record_function`` range: a range with launches inside
@@ -290,6 +294,8 @@ _local = threading.local()
 # name -> [count, ns, self ns, parent]
 _totals: dict[str, list] = {}
 _records: collections.deque = collections.deque(maxlen=MAX_SPANS)
+# name -> a scalar tensor summed on its device since the last flush()
+_device: dict[str, Any] = {}
 _offset = [0, 0]    # [epoch ns - perf ns, perf ns when taken]
 
 
@@ -384,6 +390,29 @@ def add(name: str, n: int = 1, *, always: bool = False) -> None:
                 row[0] += n
 
 
+def add_device(name: str, t) -> None:
+    """Add the scalar tensor ``t`` to counter ``name`` on its device while
+    ``recording()``: nothing is read until ``flush()``."""
+    if _on or _profiler._is_profiler_enabled:
+        t = t.detach().double()
+        with _lock:
+            prev = _device.get(name)
+            _device[name] = t if prev is None else prev + t
+
+
+def flush() -> None:
+    """Read the counters ``add_device`` summed on the device (one copy to
+    the host) and add them to the table."""
+    with _lock:
+        names, vals = list(_device), list(_device.values())
+        _device.clear()
+    if not names:
+        return
+    import torch
+    for name, v in zip(names, torch.stack(vals).tolist()):
+        add(name, v, always=True)
+
+
 def totals() -> dict[str, dict]:
     """``{name: {"count", "seconds", "self_seconds", "parent"}}`` of every
     span and counter recorded since the last ``reset()``."""
@@ -405,6 +434,7 @@ def reset() -> None:
     with _lock:
         _totals.clear()
         _records.clear()
+        _device.clear()
         _take_offset()
 
 

@@ -18,6 +18,8 @@ from repro_torch import train_lm
 from repro_torch.launch import specs as tspecs
 from repro_torch.train import SimulatedFailure
 
+from _torch_lm_fields import reference_fields
+
 ARCH = "musicgen-large"
 
 
@@ -69,7 +71,7 @@ def test_hundred_m_variant(name):
     spec.loader.exec_module(ref)
     want = dataclasses.asdict(ref.hundred_m_variant(
         jconfigs.get_config(name)))
-    got = dataclasses.asdict(train_lm.hundred_m_variant(
+    got = reference_fields(train_lm.hundred_m_variant(
         tconfigs.get_config(name)))
     if name == "qwen2-vl-2b":
         assert got.pop("mrope_sections") == (8, 12, 12)
