@@ -249,6 +249,22 @@ Phases, each of which must pass or the script exits non-zero:
    operands against its plain version: CSA bits (through an identity
    class operand) and argmax exact, scores at rtol 1e-6; the phase's and
    each section's wall printed.
+19. the MLA prefill flash kernel (``kernels.flash_attention``,
+   ``csrc/flash_mla.cu``): (a) the main path, DeepSeek-V2-Lite whole at
+   its published settings (27 layers, bf16) through ``model.hidden`` at
+   the benchmark's ``dsv2lite.docs-bulk`` largest batch (8 x 4,096),
+   between one reset and one read of the launch counts and the tracing
+   table: ``flash_mla_prefill`` launched once a layer, ``attn.kernel_calls``
+   one a layer, no ``attn.plain_calls``, the states finite; (b) the
+   kernel at the cell's eight padded batch shapes (8 documents of
+   512-4,096 positions, 16 heads, q and k as their parts with one shared
+   rope key): against its plain version at f32 output, two launches
+   bitwise equal; then per shape the kernel's CUDA-event median, its
+   bound (the causal triangle's FLOPs at the bf16 peak or its bytes at
+   the HBM rate, whichever is larger), the plain version's time and
+   ``scaled_dot_product_attention`` on the whole operands as
+   ``library_ms`` (a yardstick the port never calls); a row of the kernel
+   table at the largest shape, with (a)'s launches.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
@@ -6707,6 +6723,143 @@ def paper_path(model: tuple, device, card: str) -> dict:
     return dict(launches=launches, seconds=wall, max_abs_err=err)
 
 
+# -- phase 19 --------------------------------------------------------------
+
+# The benchmark's dsv2lite.docs-bulk cell: 8 documents a batch, each batch
+# right-padded to these lengths (perfbench/traffic/docs-bulk.json), and
+# DeepSeek-V2-Lite's 16 heads.
+FLASH_BATCH, FLASH_HEADS = 8, 16
+FLASH_LENGTHS = (512, 768, 896, 1024, 1280, 1536, 2048, 4096)
+# tests/test_torch_flash_attention.py's card bounds (relative L2, largest
+# difference) at f32 output: the order of summation and one bf16 ulp of a
+# probability (exp2f against torch.exp).
+FLASH_REL_L2, FLASH_MAX_ABS = 2e-4, 4e-3
+BF16_PEAK_FLOPS, HBM_BYTES_PER_S = 989e12, 3.35e12
+
+
+def flash_main_path(device) -> int:
+    """Phase 19 (a): DeepSeek-V2-Lite whole through ``model.hidden`` at
+    the cell's largest batch; the launches and calls of MLA's prefill
+    attention counted from zero.  Returns ``flash_mla_prefill``'s
+    launches."""
+    from repro_torch import kernels, tracing
+    from repro_torch.configs.deepseek_v2_lite_16b import published
+    from repro_torch.models import build
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = published()
+    model = build(cfg, device=device).init(
+        torch.Generator(device).manual_seed(SEED + 19))
+    S = FLASH_LENGTHS[-1]
+    gen = torch.Generator(device).manual_seed(SEED + 190)
+    tokens = torch.randint(0, cfg.vocab, (FLASH_BATCH, S), device=device,
+                           generator=gen)
+    positions = torch.arange(S, device=device).expand(FLASH_BATCH, S)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    tracing.reset()
+    tracing.enable()
+    try:
+        with torch.no_grad():
+            x, _ = model.hidden(tokens, positions)
+        torch.cuda.synchronize()
+        tracing.flush()
+        calls = tracing.totals()
+    finally:
+        tracing.disable()
+        tracing.reset()
+    launches = kernels.launch_counts()["flash_mla_prefill"]
+    count = {n: calls.get(n, {"count": 0})["count"]
+             for n in ("attn.kernel_calls", "attn.plain_calls")}
+    if not torch.isfinite(x).all():
+        fail("phase 19 (a): DeepSeek-V2-Lite hidden states not finite")
+    if (launches, count["attn.kernel_calls"], count["attn.plain_calls"]) \
+            != (cfg.n_layers, cfg.n_layers, 0):
+        fail(f"phase 19 (a): MLA prefill on the main path launched "
+             f"flash_mla_prefill {launches} times, attn.kernel_calls "
+             f"{count['attn.kernel_calls']}, attn.plain_calls "
+             f"{count['attn.plain_calls']}; want {cfg.n_layers}, "
+             f"{cfg.n_layers}, 0 (one a layer)")
+    print(f"phase 19 (a) DeepSeek-V2-Lite, {cfg.n_layers} layers, "
+          f"{model.n_params():,} parameters, hidden at ({FLASH_BATCH}, {S}): "
+          f"flash_mla_prefill launched {launches} times, attn.kernel_calls "
+          f"{count['attn.kernel_calls']}, attn.plain_calls "
+          f"{count['attn.plain_calls']}; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del model, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def flash_path(device, card: str) -> dict:
+    """Phase 19: (a) the main path's launches (``flash_main_path``); (b)
+    ``flash_prefill`` against its plain version at the cell's batch
+    shapes, bitwise from launch to launch, and timed beside its bound, its
+    plain version and one PyTorch call.  Returns the kernel table's row
+    (at the largest shape) and the rows a shape."""
+    from repro_torch.kernels import flash_attention as flash
+    launches = flash_main_path(device)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    scale = 1.0 / math.sqrt(flash.D_NOPE + flash.D_ROPE)
+    B, H = FLASH_BATCH, FLASH_HEADS
+    t0 = time.perf_counter()
+    shapes, worst = [], 0.0
+    for S in FLASH_LENGTHS:
+        g = torch.Generator(device=device).manual_seed(S)
+        draw = lambda *shape: torch.randn(*shape, device=device,
+                                          generator=g).bfloat16()
+        q, kn, kr, v = (draw(B, S, H, 192), draw(B, S, H, 128),
+                        draw(B, S, 64), draw(B, S, H, 128))
+        args = ((q[..., :128], q[..., 128:].contiguous()), (kn, kr), v)
+        got = flash.flash_prefill(*args, scale=scale, out_dtype=torch.float32)
+        again = flash.flash_prefill(*args, scale=scale,
+                                    out_dtype=torch.float32)
+        want = flash.flash_prefill_ref(*args, scale=scale,
+                                       out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        exact(f"phase 19 S={S}: flash_prefill run to run", again, got)
+        rel = ((got - want).norm() / want.norm()).item()
+        err = (got - want).abs().max().item()
+        if not (rel < FLASH_REL_L2 and err < FLASH_MAX_ABS):
+            fail(f"phase 19 S={S}: flash_prefill against its plain version "
+                 f"rel L2 {rel:.3e} (bound {FLASH_REL_L2}), max abs "
+                 f"{err:.3e} (bound {FLASH_MAX_ABS})")
+        worst = max(worst, err)
+        kf = torch.cat([kn, kr[:, :, None, :].expand(B, S, H, 64)], -1)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, kf, v))
+        ms = cuda_ms(lambda: flash.flash_prefill(*args, scale=scale))
+        plain = cuda_ms(lambda: flash.flash_prefill_ref(*args, scale=scale),
+                        iters=3)
+        lib = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True, scale=scale))
+        flops, moved = flash.causal_work(S, H, B)
+        by_ops, by_bytes = flops / BF16_PEAK_FLOPS, moved / HBM_BYTES_PER_S
+        bound = max(by_ops, by_bytes) * 1e3
+        bound_by = "ops" if by_ops >= by_bytes else "bytes"
+        shapes.append(dict(S=S, ms=ms, bound_ms=bound, bound_by=bound_by,
+                           plain_ms=plain, library_ms=lib, rel_l2=rel,
+                           max_abs_err=err))
+        print(f"phase 19 (b) (B, S, H) = ({B}, {S}, {H}): kernel {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s, {moved / ms / 1e6:.1f} "
+              f"GB/s; {bound / ms:.1%} of its bound {bound:.4f} ms by "
+              f"{bound_by}), plain {plain:.2f} ms, library {lib:.4f} ms; "
+              f"against plain rel L2 {rel:.3e}, max abs {err:.3e}",
+              flush=True)
+    top = shapes[-1]
+    print(f"phase 19: flash_prefill done in {time.perf_counter() - t0:.1f} "
+          f"s; {card}")
+    row = dict(name="flash_prefill (MLA)", route="cuda",
+               source="src/repro_torch/kernels/csrc/flash_mla.cu",
+               replaces="none (the reference's attention is plain jnp)",
+               launches=launches, max_abs_err=worst, ms=top["ms"],
+               plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+               bound_by=top["bound_by"], library_ms=top["library_ms"])
+    return dict(row=row, shapes=shapes)
+
+
 def kernel_resources(source: str) -> list[str]:
     """Each kernel of ``source`` with its registers, shared memory and
     spills, from the build's ``nvcc --resource-usage`` report."""
@@ -6747,7 +6900,7 @@ def main() -> int:
           f"on {NUMERICS_DRAWS} f32 draws; the card's own f32 "
           + ", ".join(f"{k} differs on {n}" for k, n in off.items()))
     for source in ("crossbar_mvm.cu", "fused_impact.cu", "ta_feedback.cu",
-                   "digital_cotm.cu"):
+                   "digital_cotm.cu", "flash_mla.cu"):
         for line in kernel_resources(source):
             print(f"  {source} {line}")
 
@@ -6827,6 +6980,7 @@ def main() -> int:
         if r["name"] == "fused_impact":
             r["max_abs_err"] = max(r["max_abs_err"], paper["max_abs_err"])
     time_tail(device)
+    rows.append(flash_path(device, card)["row"])
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

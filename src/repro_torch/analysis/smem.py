@@ -27,10 +27,10 @@ import importlib
 
 # ``repro_torch.kernels`` re-exports same-named wrapper FUNCTIONS, so the
 # modules that hold the block constants are bound by module path.
-_class, _clause, _mvm, _fused, _feedback = (
+_class, _clause, _mvm, _fused, _feedback, _flash = (
     importlib.import_module(f"repro_torch.kernels.{m}") for m in (
         "class_sum", "clause_eval", "crossbar_mvm", "fused_impact",
-        "ta_feedback"))
+        "ta_feedback", "flash_attention"))
 
 #: The most shared memory one block may use on an H100 (227 KB, past
 #: 48 KB only as dynamic shared memory): the default budget.
@@ -144,13 +144,21 @@ def digital_working_sets(K: int) -> tuple[WorkingSet, ...]:
     return tuple(sets)
 
 
+def flash_working_set() -> WorkingSet:
+    """``flash_mla.cu``: the query tile and a two-stage ring of key and
+    value tiles, with the barriers, all dynamic; one block an SM."""
+    return WorkingSet("flash_mla_kernel", "flash_mla.cu", _flash.THREADS,
+                      0, _flash.SMEM_BYTES)
+
+
 def all_working_sets() -> tuple[WorkingSet, ...]:
-    """Every kernel of the four sources, each at its largest block (the
-    clause stage at its widest include tile)."""
+    """Every kernel of the sources, each at its largest block (the clause
+    stage at its widest include tile)."""
     widest = 32 * _clause.STAGE_WORDS
     return (*mvm_working_sets(), *fused_working_sets(packed=False),
             fused_working_sets(packed=True)[0],
-            ta_feedback_working_set(), *digital_working_sets(widest))
+            ta_feedback_working_set(), *digital_working_sets(widest),
+            flash_working_set())
 
 
 def planned_blocks() -> dict[str, int]:

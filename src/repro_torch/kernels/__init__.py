@@ -8,6 +8,8 @@ versions and the backend registry.
 * ``csrc/ta_feedback.cu``   — online-training Type I/II TA deltas
 * ``csrc/digital_cotm.cu``  — digital CoTM: ``clause_eval``, ``class_sum``
   and both fused (``fused_cotm``)
+* ``csrc/flash_mla.cu``     — causal flash attention for MLA prefill
+  (TMA, ``wgmma``, the online softmax in registers)
 * ``csrc/hopper_async.cuh`` — ``cp.async``, ``griddepcontrol`` and launch
   helpers
 * ``csrc/bit_pack.cuh``     — packing 0/1 bytes into words along the
@@ -16,7 +18,8 @@ versions and the backend registry.
   digital clause stage
 * ``crossbar_mvm.py`` / ``fused_impact.py`` / ``ta_feedback.py`` /
   ``clause_eval.py`` / ``class_sum.py`` / ``fused_cotm.py`` — the wrappers
-  (launch counts, operand checks, CPU tensors to the plain versions)
+  (launch counts, operand checks, CPU tensors to the plain versions);
+  ``flash_attention.py`` wraps ``flash_mla.cu`` beside its plain version
 * ``_build.py``  — ``nvcc`` build into ``build/torch_kernels/`` + ``ctypes``
 * ``ops.py``      — the public wrappers: ``impl=`` through the registry,
   and ``fused_impact(mesh=)`` to the sharded lowering

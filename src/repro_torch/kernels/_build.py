@@ -56,7 +56,7 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler",
                            "-fPIC", "--resource-usage")
 SOURCES = ("crossbar_mvm.cu", "fused_impact.cu", "ta_feedback.cu",
-           "digital_cotm.cu")
+           "digital_cotm.cu", "flash_mla.cu")
 # Every header beside the sources: each is part of every library's hash.
 HEADERS = tuple(sorted(p.name for p in CSRC.glob("*.cuh")))
 

@@ -13,6 +13,15 @@ rounds to bf16 and multiplies in f32: a product of two bf16 values is
 exact in f32, and ``import repro_torch`` turns TF32 off, so on the card
 these are IEEE f32 GEMMs.
 
+MLA prefill at the published head dims (128 + 64, v 128) on a card, with
+no operand requiring grad and not on the context-parallel leg, runs on
+the hand-written flash kernel instead (``kernels.flash_attention``:
+bf16 tensor cores, the same rounding points on 128-key tiles, the causal
+upper half skipped).  Every other call, on the CPU, under grad, GQA and
+zamba2's shared block, keeps ``chunked_attention``.  The counters
+``attn.kernel_calls`` and ``attn.plain_calls`` (``tracing``) count the
+two.
+
 MLA decode uses the "absorbed" formulation: the per-head up-projections
 are folded into the query/output so scores are taken directly against the
 (B, S, r) compressed KV cache.
@@ -40,6 +49,7 @@ import math
 import torch
 
 from .. import tracing
+from ..kernels import flash_attention as flash
 from ..sharding.layout import all_gather_axis, all_reduce_axis
 from .base import (NULL_CTX, P, ShardCtx, dense, dense_out, model_split,
                    rms_norm)
@@ -127,6 +137,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     nq / model query chunks through one pass over the key chunks, and the
     output is all-gathered back over the query grid.
     """
+    tracing.add("attn.plain_calls", 1)
     B, Sq, H, _ = q.shape
     Sk, Dv = k.shape[1], v.shape[-1]
     m = ctx.model_size
@@ -380,6 +391,23 @@ def mla_forward(p, x: torch.Tensor, positions: torch.Tensor,
                     fill_len=fill_len)
 
 
+def _takes_kernel(cfg: ModelConfig, ctx: ShardCtx, heads: bool,
+                  *ts: torch.Tensor) -> bool:
+    """Whether MLA's prefill attention runs on the flash kernel
+    (``kernels.flash_attention``): the published head dims (128 + 64,
+    v 128), its operands on the card, none requiring grad (training keeps
+    autograd's ``chunked_attention``), the model computing in bf16 or
+    f32, and the call whole or on this rank's heads, not
+    ``chunked_attention``'s context-parallel leg."""
+    m = cfg.mla
+    return ((m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim)
+            == (flash.D_NOPE, flash.D_ROPE, flash.D_V)
+            and all(t.is_cuda for t in ts)
+            and not any(t.requires_grad for t in ts)
+            and ts[0].dtype in (BF16, F32)
+            and (heads or ctx.model_size == 1))
+
+
 def _mla(p, x: torch.Tensor, positions: torch.Tensor,
          cfg: ModelConfig, *, ctx: ShardCtx = NULL_CTX,
          cache: dict | None = None,
@@ -419,13 +447,18 @@ def _mla(p, x: torch.Tensor, positions: torch.Tensor,
     if cache is None:
         k_nope = dense(ckv, p["w_uk"])                       # (B,S,H,nope)
         v = dense(ckv, p["w_uv"])
-        k = torch.cat([k_nope, kr[:, :, None, :].expand(B, S, hq, rdim)],
-                      dim=-1)
-        qf = torch.cat([q_nope, q_rope], dim=-1)
-        out = chunked_attention(qf, k, v, scale=scale,
-                                q_chunk=min(cfg.attn_chunk_q, S),
-                                k_chunk=min(cfg.attn_chunk_k, S),
-                                ctx=NULL_CTX if heads else ctx)
+        if _takes_kernel(cfg, ctx, heads, q, k_nope, kr, v):
+            out = flash.flash_prefill((q_nope.to(BF16), q_rope.to(BF16)),
+                                (k_nope.to(BF16), kr.to(BF16)), v.to(BF16),
+                                scale=scale, out_dtype=q.dtype)
+        else:
+            k = torch.cat([k_nope,
+                           kr[:, :, None, :].expand(B, S, hq, rdim)], dim=-1)
+            qf = torch.cat([q_nope, q_rope], dim=-1)
+            out = chunked_attention(qf, k, v, scale=scale,
+                                    q_chunk=min(cfg.attn_chunk_q, S),
+                                    k_chunk=min(cfg.attn_chunk_k, S),
+                                    ctx=NULL_CTX if heads else ctx)
         new_cache = None
         if fill_len is not None:
             new_cache = dict(

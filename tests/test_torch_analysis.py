@@ -293,7 +293,8 @@ def sample_tables():
         table = _build.parse_resources(chunk)
         src = {"mvm": "crossbar_mvm.cu", "imp": "fused_impact.cu",
                "pac": "fused_impact.cu", "ta_": "ta_feedback.cu",
-               "fus": "digital_cotm.cu", "cla": "digital_cotm.cu"}[
+               "fus": "digital_cotm.cu", "cla": "digital_cotm.cu",
+               "fla": "flash_mla.cu"}[
             next(iter(table))[:3]]
         by_source[src] = table
     return by_source
