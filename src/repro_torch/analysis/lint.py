@@ -30,8 +30,8 @@ in the reference's history:
     Backend registry conformance: every class handed to
     ``register_backend`` must implement or inherit the full primitive
     contract of the in-file ``Backend`` base (``kernels/backends.py``:
-    ``fused_impact``, ``*_metered``, ``*_packed``, ``*_coresident*``,
-    the staged compositions) with matching signatures — positional
+    ``fused_impact``, ``*_metered``, ``*_packed``, the staged
+    compositions) with matching signatures — positional
     parameter names equal, keyword-only names a superset.  A near-miss
     signature turns into a ``TypeError`` at serve time; this catches it
     at lint time.

@@ -91,25 +91,16 @@ def per_lane_read_energy(i_clause_lane: torch.Tensor,
             V_READ * i_class_lane * T_READ)
 
 
-def report_from_lane_energies(e_clause_lanes, e_class_lanes, *,
-                              program_energy_j: float, erase_energy_j: float,
-                              latency_s: float, ops_per_datapoint: float,
-                              datapoints: int,
-                              area_mm2: float | None = None,
-                              write_energy_j: float = 0.0) -> EnergyReport:
+def report_from_lane_energies(e_clause_lanes, e_class_lanes,
+                              **fields) -> EnergyReport:
     """Fold per-lane read energies (tensors or arrays) into a batch-level
-    ``EnergyReport``; the lane sums are float64 on the host, so request
-    attribution and the batch meter agree."""
+    ``EnergyReport`` with the rest of its ``fields``
+    (``IMPACTSystem.report_fields``); the lane sums are float64 on the
+    host, so request attribution and the batch meter agree."""
     e_cl = float(_host_f64(e_clause_lanes).sum())
     e_cs = float(_host_f64(e_class_lanes).sum())
-    return EnergyReport(
-        read_energy_j=e_cl + e_cs,
-        clause_energy_j=e_cl, class_energy_j=e_cs,
-        program_energy_j=program_energy_j, erase_energy_j=erase_energy_j,
-        latency_s=latency_s,
-        ops_crosspoint=ops_per_datapoint * datapoints,
-        datapoints=datapoints, area_mm2=area_mm2,
-        write_energy_j=write_energy_j)
+    return EnergyReport(read_energy_j=e_cl + e_cs, clause_energy_j=e_cl,
+                        class_energy_j=e_cs, **fields)
 
 
 def _host_f64(x) -> np.ndarray:

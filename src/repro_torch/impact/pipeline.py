@@ -112,6 +112,20 @@ class IMPACTSystem:
             n_clause_cols=self.n_clauses, n_class_cols=self.n_classes,
             clause_tiles_parallel=C)
 
+    def report_fields(self, datapoints: int) -> dict[str, Any]:
+        """The ``EnergyReport`` fields of a batch of ``datapoints`` that do
+        not depend on what was read: the encode energies, the sweep's
+        grid latency, the crosspoint operations and the occupied area.
+        ``InferenceSession.infer_with_report`` and ``step_report`` add the
+        read energies, each in its own arithmetic."""
+        return dict(
+            program_energy_j=self.encode_stats["program_energy_j"],
+            erase_energy_j=self.encode_stats["erase_energy_j"],
+            latency_s=self._grid_latency(),
+            ops_crosspoint=datapoints * (self.n_literals * self.n_clauses
+                                         + self.n_clauses * self.n_classes),
+            datapoints=datapoints, area_mm2=sum(self.area_mm2().values()))
+
     def step_report(self, e_clause_lanes, e_class_lanes,
                     datapoints: int) -> EnergyReport:
         """Fold one step's per-lane read energies into the paper's
@@ -121,13 +135,7 @@ class IMPACTSystem:
         with tracing.span("pipeline.step_report"):
             return energy_mod.report_from_lane_energies(
                 e_clause_lanes, e_class_lanes,
-                program_energy_j=self.encode_stats["program_energy_j"],
-                erase_energy_j=self.encode_stats["erase_energy_j"],
-                latency_s=self._grid_latency(),
-                ops_per_datapoint=(self.n_literals * self.n_clauses
-                                   + self.n_clauses * self.n_classes),
-                datapoints=datapoints,
-                area_mm2=sum(self.area_mm2().values()))
+                **self.report_fields(datapoints))
 
     def area_mm2(self) -> dict[str, float]:
         # Paper convention (Table 4): area of the *occupied* region.

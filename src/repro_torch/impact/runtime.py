@@ -2,7 +2,7 @@
 PyTorch port of ``repro.impact.runtime``).
 
 A frozen ``RuntimeSpec`` (backend name, topology, metering mode,
-precision, packing, slot capacity, device) is resolved ONCE by
+packing, slot capacity, device) is resolved ONCE by
 ``IMPACTSystem.compile(spec)`` into an ``InferenceSession``: the backend
 is looked up in the registry, the weight-side operands are copied into
 storage the session owns on the spec's device, and each ``(entry,
@@ -15,18 +15,21 @@ caller asks for) an entry runs eagerly.  At B = 0 there is nothing to
 launch, and the entry runs eagerly on a card too.  ``trace_count``
 counts the prepared entries, which serving must never grow.
 
-Routing follows the reference's ``_scores_expr`` / ``_metered_expr``:
+``InferenceSession.route(entry)`` is the one place a lowering is
+chosen; the serving body, the cost model and the audit all read it:
 
-* ``predict`` and ``metering="off"`` serve through ``fused_impact``
-  (``fused_impact_packed`` under ``packing="2bit"``);
-* ``metering="fused"`` bills from ``fused_impact_metered``'s in-kernel
-  meters in the same single pass (``fused_impact_packed_metered``, whose
-  meters bill the quantized currents, under ``packing="2bit"``);
-* ``metering="staged"`` (the default, as in the reference) runs the
-  per-shard ``impact_clause_bits`` / ``impact_class_scores``
-  compositions over ``crossbar_mvm`` (on the dequantized codes under
-  ``packing="2bit"``);
-* ``ta_feedback`` (the online trainer's update primitive) runs the
+* ``"fused"``: ``predict`` and ``metering="off"`` serve through
+  ``fused_impact`` (``fused_impact_packed`` under ``packing="2bit"``);
+* ``"fused_metered"``: ``metering="fused"`` bills from
+  ``fused_impact_metered``'s in-kernel meters in the same single pass
+  (``fused_impact_packed_metered``, whose meters bill the quantized
+  currents, under ``packing="2bit"``); on ``"cuda-metered"`` every fused
+  call, the unmetered ones keeping the scores only;
+* ``"staged"``: ``metering="staged"`` (the default, as in the
+  reference) and every co-resident entry run the per-shard
+  ``impact_clause_bits`` / ``impact_class_scores`` pair over
+  ``crossbar_mvm`` (on the dequantized codes under ``packing="2bit"``);
+* ``"ta_feedback"`` (the online trainer's update primitive) runs the
   backend's ``ta_feedback``.
 
 Invalid lanes predict the sentinel -1 and bill exactly 0.
@@ -61,11 +64,11 @@ and, on a card, the compiled kernels.
 Co-residency (``RuntimeSpec(coresident=plan)``, ``build_coresident``):
 several small single-tile systems packed block-diagonally onto one grid,
 served by one session whose entries take a per-lane ``model_ids`` (B,)
-tensor selecting each lane's tenant.  The sweeps run the backend's
-co-resident primitives, which gate each lane's fired bits to its own
-clause-column span before the class stage; predictions are tenant-local
-(the argmax over the lane's own class span, rebased to it), and the
-per-lane meters are tenant-pure.
+tensor selecting each lane's tenant.  Every entry runs the staged
+lowering with each lane's fired bits gated to its own clause-column span
+(``ref.coresident_lane_mask``) before the class stage; predictions are
+tenant-local (the argmax over the lane's own class span, rebased to it),
+and the per-lane meters are tenant-pure.
 
 A session holds the system's weight-side operands on its device, in
 storage of its own that its graphs read: the clause currents, or under
@@ -97,7 +100,6 @@ from .energy import EnergyReport
 from .yflash import I_CSA_THRESHOLD, T_READ, V_READ
 
 METERING_MODES = ("off", "staged", "fused")
-PRECISIONS = ("float32",)
 PACKINGS = ("none", "2bit")
 
 #: Canonical literal dtype of every session entry: callers may pass bool /
@@ -226,7 +228,6 @@ class RuntimeSpec:
     """
     backend: str = "cuda"
     metering: str = "staged"
-    precision: str = "float32"
     packing: str = "none"
     capacity: int | None = None
     batch_sizes: tuple[int, ...] = ()
@@ -246,9 +247,6 @@ class RuntimeSpec:
         if self.metering not in METERING_MODES:
             raise ValueError(f"metering must be one of {METERING_MODES}, "
                              f"got {self.metering!r}")
-        if self.precision not in PRECISIONS:
-            raise ValueError(f"precision must be one of {PRECISIONS}, "
-                             f"got {self.precision!r}")
         if self.packing not in PACKINGS:
             raise ValueError(f"packing must be one of {PACKINGS}, "
                              f"got {self.packing!r}")
@@ -747,19 +745,12 @@ class InferenceSession:
             mids = self._model_ids(model_ids, B)
             preds, i_cl_sum, i_cs_sum = self._call("infer_with_report",
                                                    lits, v, *mids)
-            sys_ = self.system
             e_clause = float(V_READ * i_cl_sum * T_READ)
             e_class = float(V_READ * i_cs_sum * T_READ)
-            n_dp = int(v.sum())
-            ops_xp = n_dp * (sys_.n_literals * sys_.n_clauses
-                             + sys_.n_clauses * sys_.n_classes)
             report = EnergyReport(
                 read_energy_j=e_clause + e_class,
                 clause_energy_j=e_clause, class_energy_j=e_class,
-                program_energy_j=sys_.encode_stats["program_energy_j"],
-                erase_energy_j=sys_.encode_stats["erase_energy_j"],
-                latency_s=sys_._grid_latency(), ops_crosspoint=ops_xp,
-                datapoints=n_dp, area_mm2=sum(sys_.area_mm2().values()))
+                **self.system.report_fields(int(v.sum())))
             return InferenceResult(predictions=preds, report=report)
 
     def ta_feedback(self, lit2, fired2, sel, match, hi, lo,
@@ -872,45 +863,7 @@ class InferenceSession:
         return [(clause, lambda viol, _: call.reduce_viol(viol)),
                 (klass, call.reduce_out), (finish, None)]
 
-    def _scores_expr(self, literals: torch.Tensor) -> torch.Tensor:
-        if self._packed is not None:
-            return self.backend.fused_impact_packed(
-                literals, self._packed, self._nonempty, self._class_i,
-                thresh=I_CSA_THRESHOLD, tr=self.system.clause_i.shape[2])
-        return self.backend.fused_impact(
-            literals, self._clause_i, self._nonempty, self._class_i,
-            thresh=I_CSA_THRESHOLD)
-
-    def _metered_expr(self, literals: torch.Tensor, valid: torch.Tensor):
-        """Metered core -> (scores (B, m), per-lane summed clause currents
-        (B,), per-lane summed class currents (B,)), zero on invalid lanes:
-        the fused meters, or the staged per-shard oracle.  A packed
-        session meters the quantized currents, the ones its cells draw."""
-        tr = self.system.clause_i.shape[2]
-        if self.spec.metering == "fused":
-            if self._packed is not None:
-                scores, i_cl, i_cs = self.backend.fused_impact_packed_metered(
-                    literals, self._packed, self._nonempty, self._class_i,
-                    thresh=I_CSA_THRESHOLD, tr=tr)
-            else:
-                scores, i_cl, i_cs = self.backend.fused_impact_metered(
-                    literals, self._clause_i, self._nonempty, self._class_i,
-                    thresh=I_CSA_THRESHOLD)
-            # Meters are per-lane, so masking after the fused pass is exact.
-            v = valid.to(scores.dtype)
-            return scores, i_cl * v, i_cs * v
-        clause_i = (self._clause_i if self._packed is None else
-                    packing.dequant_clause(*self._packed, tr))
-        fired, i_clause = self.backend.impact_clause_bits(
-            literals, clause_i, self._nonempty, thresh=I_CSA_THRESHOLD)
-        fired = fired & valid[:, None]
-        i_clause = i_clause * valid[:, None, None, None]
-        scores, i_class = self.backend.impact_class_scores(fired,
-                                                           self._class_i)
-        return (scores, i_clause.sum(dim=(1, 2, 3)),
-                i_class.sum(dim=(1, 2)))
-
-    # -- co-resident expressions --------------------------------------------
+    # -- co-residency -------------------------------------------------------
     def _co_lane_cols(self, model_ids: torch.Tensor) -> torch.Tensor:
         """(B, n) per-lane clause-column ownership mask
         (``ref.coresident_lane_mask``)."""
@@ -927,56 +880,6 @@ class InferenceSession:
         mask = (col >= spans[:, :1]) & (col < spans[:, 1:])
         masked = torch.where(mask, scores, -torch.inf)
         return torch.argmax(masked, dim=-1) - spans[:, 0]
-
-    def _co_scores_expr(self, literals: torch.Tensor,
-                        model_ids: torch.Tensor) -> torch.Tensor:
-        """Co-resident twin of ``_scores_expr``: the backend's co-resident
-        primitives (packed or not), which gate fired bits to each lane's
-        own clause-column span before the class stage."""
-        if self._packed is not None:
-            return self.backend.fused_impact_coresident_packed(
-                literals, self._packed, self._nonempty, self._class_i,
-                model_ids, self._clause_spans, thresh=I_CSA_THRESHOLD,
-                tr=self.system.clause_i.shape[2])
-        return self.backend.fused_impact_coresident(
-            literals, self._clause_i, self._nonempty, self._class_i,
-            model_ids, self._clause_spans, thresh=I_CSA_THRESHOLD)
-
-    def _co_metered_expr(self, literals: torch.Tensor, valid: torch.Tensor,
-                         model_ids: torch.Tensor):
-        """Metered co-resident core, routed as ``_metered_expr``: under
-        ``"fused"`` the backend's co-resident metered primitive, invalid
-        lanes masked after (exact: the meters are per-lane); under
-        ``"staged"`` the per-shard pair with the lane mask and the valid
-        mask on the fired bits before the class drive.  Valid lanes see
-        the same composition either way."""
-        tr = self.system.clause_i.shape[2]
-        if self.spec.metering == "fused":
-            if self._packed is not None:
-                scores, i_cl, i_cs = (
-                    self.backend.fused_impact_coresident_packed_metered(
-                        literals, self._packed, self._nonempty,
-                        self._class_i, model_ids, self._clause_spans,
-                        thresh=I_CSA_THRESHOLD, tr=tr))
-            else:
-                scores, i_cl, i_cs = (
-                    self.backend.fused_impact_coresident_metered(
-                        literals, self._clause_i, self._nonempty,
-                        self._class_i, model_ids, self._clause_spans,
-                        thresh=I_CSA_THRESHOLD))
-            v = valid.to(scores.dtype)
-            return scores, i_cl * v, i_cs * v
-        clause_i = (self._clause_i if self._packed is None else
-                    packing.dequant_clause(*self._packed, tr))
-        fired, i_clause = self.backend.impact_clause_bits(
-            literals, clause_i, self._nonempty, thresh=I_CSA_THRESHOLD)
-        # The CSA gating step of co-residency, then the valid lanes.
-        fired = fired & self._co_lane_cols(model_ids) & valid[:, None]
-        i_clause = i_clause * valid[:, None, None, None]
-        scores, i_class = self.backend.impact_class_scores(fired,
-                                                           self._class_i)
-        return (scores, i_clause.sum(dim=(1, 2, 3)),
-                i_class.sum(dim=(1, 2)))
 
     def _ta_feedback_fn(self, lit2, fired2, sel, match, hi, lo, include):
         return self.backend.ta_feedback(lit2, fired2, sel, match, hi, lo,
@@ -1000,10 +903,11 @@ class InferenceSession:
         return args[0], valid, mids
 
     def _serve(self, entry: str, *args):
-        """A serving entry's eager body: the crossbar core on the
-        session's routing, then ``_finish``; with a shard plan the staged
-        lowering, its collectives between the stages."""
-        if self.plan is not None:
+        """A serving entry's eager body: the crossbar core on the lowering
+        ``route(entry)`` names, then ``_finish``; on ``"sharded"`` the
+        sharded stages, their collectives between them."""
+        route = self.route(entry)
+        if route == "sharded":
             carry = ()
             for fn, collective in self._sharded_stages(entry,
                                                        args[0].shape[0]):
@@ -1013,13 +917,57 @@ class InferenceSession:
             return carry
         literals, valid, mids = self._split(entry, args)
         metered = entry != "predict" and self.meters_energy
-        if mids is not None:
-            core = (self._co_metered_expr(literals, valid, mids) if metered
-                    else self._co_scores_expr(literals, mids))
+        if route == "staged":
+            core = self._staged_core(literals, valid if metered else None,
+                                     mids)
+            return self._finish(entry, core, valid, mids)
+        bk, fused_metered = self.backend, route == "fused_metered"
+        if self._packed is not None:
+            fn = (bk.fused_impact_packed_metered if fused_metered
+                  else bk.fused_impact_packed)
+            core = fn(literals, self._packed, self._nonempty, self._class_i,
+                      thresh=I_CSA_THRESHOLD,
+                      tr=self.system.clause_i.shape[2])
         else:
-            core = (self._metered_expr(literals, valid) if metered
-                    else self._scores_expr(literals))
+            fn = bk.fused_impact_metered if fused_metered else bk.fused_impact
+            core = fn(literals, self._clause_i, self._nonempty,
+                      self._class_i, thresh=I_CSA_THRESHOLD)
+        if metered:
+            # Meters are per-lane, so masking after the fused pass is exact.
+            scores, i_cl, i_cs = core
+            v = valid.to(scores.dtype)
+            core = scores, i_cl * v, i_cs * v
+        elif fused_metered:
+            core = core[0]
         return self._finish(entry, core, valid, mids)
+
+    def _staged_core(self, literals: torch.Tensor,
+                     valid: torch.Tensor | None,
+                     model_ids: torch.Tensor | None):
+        """The staged lowering: the per-shard ``impact_clause_bits`` /
+        ``impact_class_scores`` pair over ``crossbar_mvm``, on the
+        dequantized codes when packed.  On a co-resident session
+        (``model_ids``) each lane's fired bits are gated to its own clause
+        columns, the CSA gating step of co-residency.  Without ``valid``
+        -> scores (B, m); with it (a metered entry) invalid lanes drive
+        and bill nothing -> (scores, per-lane summed clause currents (B,),
+        per-lane summed class currents (B,)).  A packed session meters the
+        quantized currents, the ones its cells draw."""
+        clause_i = (self._clause_i if self._packed is None else
+                    packing.dequant_clause(*self._packed,
+                                           self.system.clause_i.shape[2]))
+        fired, i_clause = self.backend.impact_clause_bits(
+            literals, clause_i, self._nonempty, thresh=I_CSA_THRESHOLD)
+        if model_ids is not None:
+            fired = fired & self._co_lane_cols(model_ids)
+        if valid is None:
+            return self.backend.impact_class_scores(fired, self._class_i)[0]
+        fired = fired & valid[:, None]
+        i_clause = i_clause * valid[:, None, None, None]
+        scores, i_class = self.backend.impact_class_scores(fired,
+                                                           self._class_i)
+        return (scores, i_clause.sum(dim=(1, 2, 3)),
+                i_class.sum(dim=(1, 2)))
 
     def _finish(self, entry: str, core, valid, mids):
         """A serving entry's outputs from its crossbar core (scores, or

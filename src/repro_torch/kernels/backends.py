@@ -26,16 +26,15 @@ unpack the codes on chip.
 The staged analog compositions (``impact_clause_bits`` /
 ``impact_class_scores``, the Fig. 14 per-shard unroll over
 ``crossbar_mvm``) and the default ``fused_impact_metered`` live on the
-``Backend`` base, as in the reference.  So do the four co-resident
-primitives (``fused_impact_coresident`` and its metered / packed twins):
-compositions over the staged pair with the per-lane tenant mask
-(``ref.coresident_lane_mask``) between the clause and class stages, so
-every backend serves a block-diagonal multi-tenant grid, the ``"cuda"``
-backends through their ``crossbar_mvm`` kernel.  The kernels mask ragged edges
-themselves, so no backend pads operands before a launch.  Rows that the
-reference pads with zero drive (literal rows past K float, clause rows
-past the clause tile) are left out of the compositions' launches
-instead, which adds the same exact zeros.
+``Backend`` base, as in the reference.  A co-resident session gates the
+staged pair's fired bits with the per-lane tenant mask
+(``ref.coresident_lane_mask``) itself, so every backend serves a
+block-diagonal multi-tenant grid, the ``"cuda"`` backends through their
+``crossbar_mvm`` kernel.  The kernels mask ragged edges themselves, so
+no backend pads operands before a launch.  Rows that the reference pads
+with zero drive (literal rows past K float, clause rows past the clause
+tile) are left out of the compositions' launches instead, which adds the
+same exact zeros.
 """
 from __future__ import annotations
 
@@ -129,61 +128,6 @@ class Backend:
         clause_i = packing.dequant_clause(packed.bits, packed.levels, tr)
         return self.fused_impact_metered(literals, clause_i, nonempty,
                                          class_i, thresh=thresh)
-
-    # -- crossbar co-residency (block-diagonal multi-tenant grids) ---------
-    def fused_impact_coresident(self, literals, clause_i, nonempty, class_i,
-                                model_ids, clause_spans, *,
-                                thresh: float) -> torch.Tensor:
-        """``fused_impact`` on a block-diagonal co-resident grid with a
-        per-lane tenant mask: ``model_ids`` (B,) int indexes
-        ``clause_spans`` (T, 2) int32 ``[lo, hi)`` clause-column spans on
-        the operands' device.  The mask gates each lane's fired bits to
-        its own tenant's columns before the class stage (foreign columns
-        draw 0 A, which the CSA would read as fired), so cross-tenant
-        leakage is exactly zero (``ref.coresident_lane_mask``).  The
-        staged pair, then the mask, then the class stage."""
-        fired, _ = self.impact_clause_bits(literals, clause_i, nonempty,
-                                           thresh=thresh)
-        fired = fired & ref.coresident_lane_mask(model_ids, clause_spans,
-                                                 fired.shape[1])
-        scores, _ = self.impact_class_scores(fired, class_i)
-        return scores
-
-    def fused_impact_coresident_metered(
-            self, literals, clause_i, nonempty, class_i, model_ids,
-            clause_spans, *, thresh: float,
-            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Metered co-resident sweep, the triple of
-        ``fused_impact_metered``; both per-lane meters are tenant-pure."""
-        fired, i_col = self.impact_clause_bits(literals, clause_i, nonempty,
-                                               thresh=thresh)
-        fired = fired & ref.coresident_lane_mask(model_ids, clause_spans,
-                                                 fired.shape[1])
-        scores, i_cls = self.impact_class_scores(fired, class_i)
-        return scores, i_col.sum(dim=(1, 2, 3)), i_cls.sum(dim=(1, 2))
-
-    def fused_impact_coresident_packed(self, literals,
-                                       packed: packing.PackedClause,
-                                       nonempty, class_i, model_ids,
-                                       clause_spans, *, thresh: float,
-                                       tr: int) -> torch.Tensor:
-        """Co-resident sweep on a 2-bit packed clause operand: dequantize
-        and delegate."""
-        clause_i = packing.dequant_clause(packed.bits, packed.levels, tr)
-        return self.fused_impact_coresident(
-            literals, clause_i, nonempty, class_i, model_ids, clause_spans,
-            thresh=thresh)
-
-    def fused_impact_coresident_packed_metered(
-            self, literals, packed: packing.PackedClause, nonempty, class_i,
-            model_ids, clause_spans, *, thresh: float, tr: int,
-            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Metered packed co-resident sweep: the meters bill the quantized
-        currents, as ``fused_impact_packed_metered``'s do."""
-        clause_i = packing.dequant_clause(packed.bits, packed.levels, tr)
-        return self.fused_impact_coresident_metered(
-            literals, clause_i, nonempty, class_i, model_ids, clause_spans,
-            thresh=thresh)
 
     # -- online training ----------------------------------------------------
     def ta_feedback(self, lit2, fired2, sel, match, hi, lo,
@@ -375,19 +319,6 @@ class TorchBackend(Backend):
     def impact_class_scores(self, clauses, class_i):
         return ref.impact_class_scores_ref(clauses, class_i)
 
-    def fused_impact_coresident(self, literals, clause_i, nonempty, class_i,
-                                model_ids, clause_spans, *, thresh):
-        return ref.fused_impact_coresident_ref(
-            literals, clause_i, nonempty, class_i, model_ids, clause_spans,
-            thresh=thresh)
-
-    def fused_impact_coresident_metered(self, literals, clause_i, nonempty,
-                                        class_i, model_ids, clause_spans, *,
-                                        thresh):
-        return ref.fused_impact_coresident_metered_ref(
-            literals, clause_i, nonempty, class_i, model_ids, clause_spans,
-            thresh=thresh)
-
 
 # -- registry ---------------------------------------------------------------
 
@@ -400,9 +331,6 @@ REQUIRED_PRIMITIVES: tuple[str, ...] = (
     "fused_impact", "fused_impact_metered", "impact_clause_bits",
     "impact_class_scores", "ta_feedback", "pack_clause_operand",
     "fused_impact_packed", "fused_impact_packed_metered",
-    "fused_impact_coresident", "fused_impact_coresident_metered",
-    "fused_impact_coresident_packed",
-    "fused_impact_coresident_packed_metered",
 )
 
 

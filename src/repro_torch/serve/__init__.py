@@ -9,7 +9,7 @@ from .engine import (Backpressure, BatchingQueue, Engine, Request,
 from .impact_engine import (BatchStats, IMPACTEngine, RequestRecord,
                             aggregate_reports, poisson_arrivals,
                             replay_trace)
-from .tracing import REQUEST_PHASES, Tracer, validate_events
+from ..tracing import REQUEST_PHASES, Tracer, validate_events
 from .zoo import ModelZoo, SLOClass, TenantState, replay_zoo_trace
 
 __all__ = ["Engine", "ServeConfig", "BatchingQueue", "Request", "SlotTable", "Backpressure",

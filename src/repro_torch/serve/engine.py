@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from ..models.base import leaves
-from .tracing import PID_REQUESTS, Tracer
+from ..tracing import PID_REQUESTS, Tracer
 
 
 class Backpressure(RuntimeError):
@@ -208,9 +208,9 @@ def _scatter_cache(cache: dict, cache_axes: dict, new_cache: dict,
 
 class Engine:
     """LM serving engine over a port model (``models.build``).  ``trace``
-    (a ``serve.tracing.Tracer``) records the decode timeline as Chrome-
-    tracing spans: ``prefill`` / ``decode`` regions on the scheduler track
-    and one ``request`` span (arrival -> completion, slot id as an arg)
+    (a ``repro_torch.tracing.Tracer``) records the decode timeline as
+    Chrome-tracing spans: ``prefill`` / ``decode`` regions on the scheduler
+    track and one ``request`` span (arrival -> completion, slot id as an arg)
     per request in ``serve_continuous``, the span vocabulary of the IMPACT
     crossbar engine."""
 

@@ -49,7 +49,7 @@ from ..impact.runtime import InferenceSession, RuntimeSpec
 from .clock import replay_clock
 from .engine import Backpressure, BatchingQueue, Request, SlotTable
 from .engine import latency_percentiles
-from .tracing import Tracer
+from ..tracing import Tracer
 
 DEFAULT_BUCKETS = (8, 32, 128, 512)
 
@@ -118,8 +118,8 @@ class IMPACTEngine:
     bare ``IMPACTSystem``, which compiles the default spec at
     ``max_batch`` (128 when unset) on the system's own device.
 
-    ``trace`` (a ``serve.tracing.Tracer``) records the scheduler timeline
-    as Chrome-tracing spans, re-clocked onto the engine's clock.
+    ``trace`` (a ``repro_torch.tracing.Tracer``) records the scheduler
+    timeline as Chrome-tracing spans, re-clocked onto the engine's clock.
     """
 
     def __init__(self, runtime: "InferenceSession | IMPACTSystem", *,

@@ -41,7 +41,7 @@ from .clock import replay_clock
 from .engine import Backpressure, BatchingQueue, Request, SlotTable, \
     latency_percentiles
 from .impact_engine import BatchStats, RequestRecord, aggregate_reports
-from .tracing import PID_REQUESTS, PID_TENANT_BASE, Tracer
+from ..tracing import PID_REQUESTS, PID_TENANT_BASE, Tracer
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,8 +1,8 @@
 """The port's crossbar co-residency (``build_coresident``,
 ``CoResidentPlan``, ``RuntimeSpec(coresident=...)`` sessions, the
-co-resident oracles and backend primitives) held against the JAX
-reference on the same numpy inputs, and the ``"cuda-metered"`` backend and
-``unregister_backend`` of the registry.
+co-resident oracles and the staged composition the sessions serve) held
+against the JAX reference on the same numpy inputs, and the
+``"cuda-metered"`` backend and ``unregister_backend`` of the registry.
 
 The members are the reference's own small single-tile systems
 (``test_fused_impact._make_system``), carried across as arrays.  The JAX
@@ -238,29 +238,32 @@ def test_coresident_refs_match_jax(grid):
 
 @pytest.mark.parametrize("backend", BACKENDS)
 def test_coresident_primitives_match_reference(grid, backend):
-    """The four co-resident primitives of each backend against the JAX
-    oracles: the packed twins on the port's own packed operand against
+    """The staged composition a co-resident session serves on each backend
+    (its ``impact_clause_bits`` / ``impact_class_scores`` pair, the fired
+    bits gated by ``ref.coresident_lane_mask``) against the JAX oracles:
+    on the f32 operand, and on the session's own packed operand against
     the oracle on its dequantized currents."""
-    bk = backends.get_backend(backend)
     t, j = _port_core(grid), _jax_core(grid)
-    scores = bk.fused_impact_coresident(*t, thresh=TH)
-    _close(scores, jref.fused_impact_coresident_ref(*j, thresh=TH), 1e-6)
-    metered = bk.fused_impact_coresident_metered(*t, thresh=TH)
-    want = jref.fused_impact_coresident_metered_ref(*j, thresh=TH)
-    for g, w, rtol in zip(metered, want, (1e-6, 1e-3, 1e-5)):
-        _close(g, w, rtol)
     tr = grid["tcomb"].clause_i.shape[2]
-    packed = bk.pack_clause_operand(t[1])
-    deq = jnp.asarray(packing.dequant_clause(*packed, tr).numpy())
-    jq = (j[0], deq, *j[2:])
-    _close(bk.fused_impact_coresident_packed(
-        t[0], packed, *t[2:], thresh=TH, tr=tr),
-        jref.fused_impact_coresident_ref(*jq, thresh=TH), 1e-6)
-    got = bk.fused_impact_coresident_packed_metered(
-        t[0], packed, *t[2:], thresh=TH, tr=tr)
-    want = jref.fused_impact_coresident_metered_ref(*jq, thresh=TH)
-    for g, w, rtol in zip(got, want, (1e-6, 1e-3, 1e-5)):
-        _close(g, w, rtol)
+    for p in PACKINGS:
+        sess = grid["tcomb"].compile(RuntimeSpec(
+            backend=backend, packing=p, device="cpu",
+            coresident=grid["tplan"]))
+        jc = j
+        if p == "2bit":
+            deq = packing.dequant_clause(*sess._packed, tr)
+            jc = (j[0], jnp.asarray(deq.numpy()), *j[2:])
+        assert torch.equal(sess._co_lane_cols(t[4]), ref.coresident_lane_mask(
+            t[4], t[5], grid["tcomb"].n_clauses))
+        scores = sess._staged_core(t[0], None, t[4])
+        _close(scores, jref.fused_impact_coresident_ref(*jc, thresh=TH),
+               1e-6)
+        metered = sess._staged_core(
+            t[0], torch.ones(t[0].shape[0], dtype=torch.bool), t[4])
+        assert torch.equal(metered[0], scores)
+        want = jref.fused_impact_coresident_metered_ref(*jc, thresh=TH)
+        for g, w, rtol in zip(metered, want, (1e-6, 1e-3, 1e-5)):
+            _close(g, w, rtol)
 
 
 # -- sessions -------------------------------------------------------------------
@@ -445,20 +448,32 @@ def test_coresident_lane_bills_match_standalone_sessions(grid):
 
 # -- registry: "cuda-metered" and unregister_backend ---------------------------
 
+@pytest.mark.parametrize("packing_", PACKINGS)
 @pytest.mark.parametrize("metering", METERING)
-def test_cuda_metered_backend_serves_like_cuda_and_jax(grid, metering):
+def test_cuda_metered_backend_serves_like_cuda_and_jax(grid, metering,
+                                                       packing_):
     """``"cuda-metered"`` predicts what ``"cuda"`` and the reference's
     ``"xla"`` session predict (its ``fused_impact`` is the metered
-    kernel's scores), with the same scores and lane bills."""
+    kernel's scores), with the same scores and lane bills; packed or not,
+    each entry launches the kernels ``route()`` prices (every fused call
+    the metered kernel)."""
     jsys, tsys = grid["js"][2], grid["ts"][2]
     rng = np.random.default_rng(5)
     lits = rng.integers(0, 2, (LANES, tsys.n_literals)).astype(np.int8)
     valid = np.arange(LANES) < LANES - 2
     cm = tsys.compile(RuntimeSpec(backend="cuda-metered", metering=metering,
-                                  device="cpu"))
+                                  packing=packing_, device="cpu"))
     cu = tsys.compile(RuntimeSpec(backend="cuda", metering=metering,
-                                  device="cpu"))
-    js = jsys.compile(JSpec(backend="xla", metering=metering))
+                                  packing=packing_, device="cpu"))
+    js = jsys.compile(JSpec(backend="xla", metering=metering,
+                            packing=packing_))
+    for entry in ("predict", "infer_step"):
+        priced = [i.kernel for i in cm.work_items(entry, LANES)
+                  if i.kernel != "dequant_clause"]
+        traced = [ln.split("(")[0].split()[1]
+                  for ln in cm.ir_text(entry, LANES).splitlines()
+                  if ln.startswith("kernel ")]
+        assert priced == traced, (entry, priced, traced)
     got, want = cm.predict(lits), cu.predict(lits)
     assert torch.equal(got.predictions, want.predictions)
     assert torch.equal(got.scores, want.scores)
@@ -491,11 +506,10 @@ def test_unregister_backend_round_trip():
     with pytest.raises(ValueError, match="not registered"):
         backends.unregister_backend("torch-probe")
 
-    class NoCoResident(backends.TorchBackend):
-        name = "no-coresident"
-        fused_impact_coresident_packed_metered = None
+    class NoPackedMetered(backends.TorchBackend):
+        name = "no-packed-metered"
+        fused_impact_packed_metered = None
 
-    with pytest.raises(TypeError,
-                       match="fused_impact_coresident_packed_metered"):
-        backends.register_backend(NoCoResident())
-    assert "no-coresident" not in backends.available_backends()
+    with pytest.raises(TypeError, match="fused_impact_packed_metered"):
+        backends.register_backend(NoPackedMetered())
+    assert "no-packed-metered" not in backends.available_backends()

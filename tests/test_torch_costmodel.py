@@ -63,9 +63,9 @@ def _spec(**kw):
     return RuntimeSpec(device="cpu", **kw)
 
 
-def _coresident(small_system):
+def _coresident(small_system, metering="fused", **kw):
     combined, plan = build_coresident([small_system, small_system])
-    return combined.compile(_spec(coresident=plan, metering="fused"))
+    return combined.compile(_spec(coresident=plan, metering=metering, **kw))
 
 
 @pytest.mark.parametrize("backend", BACKENDS)
@@ -202,13 +202,20 @@ def test_staged_and_fused_flops_are_their_products(small_system):
     assert n_ne == int(small_system.nonempty.sum())
 
 
+@pytest.mark.parametrize("coresident", [False, True])
 @pytest.mark.parametrize("metering", METERING)
 @pytest.mark.parametrize("packing", ["none", "2bit"])
-def test_cost_routes_match_the_trace(small_system, metering, packing):
+def test_cost_routes_match_the_trace(small_system, metering, packing,
+                                     coresident):
     """The primitives ``cost_analysis`` prices are the kernels the entry's
-    trace launches, in order (the staged dequantize is aten work)."""
-    sess = small_system.compile(_spec(metering=metering, packing=packing))
-    for entry in ("predict", "infer_step"):
+    trace launches, in order (the staged dequantize is aten work), on
+    every route ``route()`` answers: a co-resident session's entries too."""
+    sess = (_coresident(small_system, metering, packing=packing) if coresident
+            else small_system.compile(_spec(metering=metering,
+                                            packing=packing)))
+    entries = ("predict", "infer_step") + (
+        ("infer_with_report",) if sess.meters_energy else ())
+    for entry in entries:
         priced = [i.kernel for i in sess.work_items(entry, 8)
                   if i.kernel != "dequant_clause"]
         traced = [ln.split("(")[0].split()[1]

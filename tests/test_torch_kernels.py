@@ -207,12 +207,13 @@ def test_registry_contract():
         assert bk.name == name
         for p in backends.REQUIRED_PRIMITIVES:
             assert callable(getattr(bk, p)), (name, p)
-    assert {"pack_clause_operand", "fused_impact_packed",
-            "fused_impact_packed_metered", "fused_impact_coresident",
-            "fused_impact_coresident_metered",
-            "fused_impact_coresident_packed",
-            "fused_impact_coresident_packed_metered",
-            } <= set(backends.REQUIRED_PRIMITIVES)
+    assert backends.REQUIRED_PRIMITIVES == (
+        "clause_eval", "class_sum", "fused_cotm", "crossbar_mvm",
+        "fused_impact", "fused_impact_metered", "impact_clause_bits",
+        "impact_class_scores", "ta_feedback", "pack_clause_operand",
+        "fused_impact_packed", "fused_impact_packed_metered")
+    assert not any("coresident" in p for b in backends.available_backends()
+                   for p in dir(backends.get_backend(b)))
     with pytest.raises(ValueError):
         backends.get_backend("pallas")
     with pytest.raises(ValueError):

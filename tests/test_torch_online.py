@@ -40,7 +40,7 @@ from repro_torch.impact import (IMPACTConfig, RuntimeSpec, build_coresident,
                                 build_system)
 from repro_torch.impact.runtime import InferenceSession
 from repro_torch.serve import IMPACTEngine
-from repro_torch.serve.tracing import Tracer, validate_events
+from repro_torch.tracing import Tracer, validate_events
 from repro_torch.train import OnlineTrainer
 
 KW = dict(n_literals=64, n_clauses=40, n_classes=4, n_states=64,

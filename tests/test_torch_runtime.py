@@ -177,7 +177,6 @@ def test_coresident_specs_compile(packing):
 @pytest.mark.parametrize("kwargs,exc", [
     (dict(topology=object()), TypeError),
     (dict(metering="always"), ValueError),
-    (dict(precision="bfloat16"), ValueError),
     (dict(packing="4bit"), ValueError),
     (dict(capacity=0), ValueError),
     (dict(batch_sizes=(0,)), ValueError),

@@ -1,6 +1,6 @@
 """The port's tracing module: the span table inside the session, graph and
 billing code (``repro_torch.tracing``), its gate, its clock and its
-export, and ``serve.tracing`` as a re-export.
+export.
 
 On the CPU a session's graphs go through the recorder of
 ``tests/_torch_graph_recorder.py``, so ``GraphedEntry``'s copy in,
@@ -332,17 +332,6 @@ def test_idle_by_span_splits_gaps_over_the_innermost_span():
                                   "graphs.replay": 10e-9, OUTSIDE: 10e-9})
     assert list(idle)[0] == "runtime.infer_step"
     assert idle_by_span(events, []) == {}
-
-
-def test_serve_tracing_reexports_the_module():
-    import repro_torch.serve as serve
-    from repro_torch.serve import tracing as serve_tracing
-    for name in ("Tracer", "PID_ENGINE", "PID_REQUESTS", "PID_TENANT_BASE",
-                 "REQUEST_PHASES", "validate_events"):
-        assert getattr(serve_tracing, name) is getattr(tracing, name), name
-    assert serve.Tracer is tracing.Tracer
-    assert (tracing.PID_ENGINE, tracing.PID_REQUESTS,
-            tracing.PID_TENANT_BASE) == (0, 1, 2)
 
 
 @pytest.mark.card

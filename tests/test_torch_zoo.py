@@ -25,7 +25,7 @@ from repro_torch.impact import RuntimeSpec, build_coresident
 from repro_torch.serve import (Backpressure, IMPACTEngine, ModelZoo,
                                SLOClass, Tracer, poisson_arrivals,
                                replay_zoo_trace, validate_events)
-from repro_torch.serve.tracing import PID_REQUESTS, PID_TENANT_BASE
+from repro_torch.tracing import PID_REQUESTS, PID_TENANT_BASE
 
 from test_torch_coresident import members
 
