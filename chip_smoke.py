@@ -20,9 +20,14 @@ Phases, each of which must pass or the script exits non-zero:
    four fused kernels also at 1000 and 300 lanes, where the tail gives a
    lane several warps or a block several lanes, and at the benchmark's
    16,384 lanes in its MNIST and CIFAR-2 layouts (the tail's device time
-   a call there and at 128 lanes is printed last, ``time_tail``); the
-   packed twins also on codes
-   one and four bytes past an aligned base (plain loads, 4-byte copies);
+   a call there and at 128 lanes is printed last, ``time_tail``, after
+   pass 1's on each fused benchmark cell's first pool batch,
+   ``time_pass1``); the paired pass 1 at the benchmark's layouts, ragged
+   lane counts and a plain-load shape on paired, unpaired and
+   one-unpaired-lane literals, CSA bits exact, and the R = 2 head
+   layout on the full pass (``check_paired``); the packed twins also on
+   codes one and four bytes past an aligned base (plain loads, 4-byte
+   copies);
    ``class_sum`` also on signed int8 clauses, past 16 classes, at one
    clause, on clauses one byte off and with no lane, class or clause,
    bit for bit equal from launch to launch;
@@ -851,6 +856,149 @@ def time_tail(device, calls: int = TAIL_TIMED_CALLS) -> None:
             torch.cuda.synchronize()
         print_fused_passes(f"B={shape[0]} K={shape[1]} "
                            f"C*tc={shape[6] * shape[7]}", *pass_times(prof))
+
+
+# The paired pass 1 (``fused_impact.pairs``: f32 cells, K even, K <= tr):
+# the benchmark's MNIST and CIFAR-2 layouts at the serving capacity,
+# ragged lane counts in the MNIST layout, K/2 = 150 (plain literal loads)
+# with tc = 30 (4-byte cell copies); then the DeepSeek-V2-Lite head's two
+# row shards (K = 4096 > tr), which run the full pass.
+PAIRED_SHAPES = [(CAPACITY,) + BULK_SHAPES[0][1:],
+                 (CAPACITY,) + BULK_SHAPES[1][1:],
+                 (1,) + BULK_SHAPES[0][1:], (65,) + BULK_SHAPES[0][1:],
+                 (BULK_BATCH + 1,) + BULK_SHAPES[0][1:],
+                 (37, 300, 77, 3, 1, 300, 3, 30, 5, 16),
+                 (CAPACITY, 4096, 500, 10, 2, 2048, 1, 512, 1, 2048)]
+
+
+def paired_literals(B: int, K_: int, rng, device,
+                    unpaired_lanes=()) -> torch.Tensor:
+    """Literals (B, K) in the system's ``[bits, ~bits]`` layout, except
+    ``unpaired_lanes``, which hold independent fair {0, 1} draws."""
+    bits = rng.random((B, K_ // 2)) < 0.5
+    lit = np.concatenate([bits, ~bits], axis=1)
+    for b in unpaired_lanes:
+        lit[b] = rng.random(K_) < 0.5
+    return torch.as_tensor(lit, device=device).to(torch.int8)
+
+
+def check_paired(device) -> dict[str, float]:
+    """``fused_impact`` and ``fused_impact_metered`` at ``PAIRED_SHAPES``
+    on paired literals, on fair {0, 1} draws (no pair holds by design:
+    every stage runs the second loop) and on paired literals with one
+    unpaired lane, against their plain versions as ``check_fused`` holds
+    them (argmax exact, run to run bit for bit); the CSA bits exact
+    through an identity class operand.  On the card each shape must take
+    the pass it is meant to, by ``describe`` and by the program counters
+    ``impact.paired_launches`` / ``impact.full_launches``.  Returns the
+    max absolute error per kernel."""
+    from repro_torch import tracing
+    from repro_torch.impact.yflash import I_CSA_THRESHOLD as TH
+    from repro_torch.kernels import backends
+    from repro_torch.kernels.fused_impact import (FULL_LAUNCHES,
+                                                  PAIRED_LAUNCHES, describe,
+                                                  fused_impact, pairs)
+    torch_bk = backends.get_backend("torch")
+    errs = dict(fused_impact=0.0, fused_impact_metered=0.0)
+    rng = np.random.default_rng(90)
+    for i, shape in enumerate(PAIRED_SHAPES):
+        B, K_, n, _, R, tr, _, _, S, sr = shape
+        s = synthetic_system(shape, device, seed=90 + i)
+        kinds = {"paired": paired_literals(B, K_, rng, device),
+                 "unpaired": s["literals"]}
+        if B > 1:
+            kinds["one unpaired lane"] = paired_literals(
+                B, K_, rng, device, unpaired_lanes=(B // 2,))
+        want_paired = pairs(K_, tr)
+        for kind, lit in kinds.items():
+            args = (lit, s["clause_i"], s["nonempty"], s["class_i"])
+            label = f"{shape} {kind}"
+            tracing.reset()
+            tracing.enable()
+            try:
+                e, e_m = check_fused(label, args, TH)
+            finally:
+                tracing.disable()
+            counts = {k: v["count"] for k, v in tracing.totals().items()}
+            tracing.reset()
+            errs["fused_impact"] = max(errs["fused_impact"], e)
+            errs["fused_impact_metered"] = max(errs["fused_impact_metered"],
+                                               e_m)
+            # Scores through an identity class operand are the CSA bits.
+            got = fused_impact(lit, s["clause_i"], s["nonempty"],
+                               identity_class(S, sr, n, device), thresh=TH)
+            f_p, i_p = torch_bk.impact_clause_bits(lit, s["clause_i"],
+                                                   s["nonempty"], thresh=TH)
+            csa_bits_exact(f"paired pass CSA bits {label}", got > 0.5,
+                           f_p[:, :n], i_p, TH)
+            if lit.is_cuda:
+                path = describe(lit, s["clause_i"])
+                if ("paired pass" in path) != want_paired:
+                    fail(f"paired pass {label}: {path}")
+                # check_fused launches each of its two kernels twice.
+                want = {PAIRED_LAUNCHES: 4 * want_paired,
+                        FULL_LAUNCHES: 4 * (not want_paired)}
+                got_counts = {k: counts.get(k, 0) for k in want}
+                if got_counts != want:
+                    fail(f"paired pass {label}: pass-1 counters "
+                         f"{got_counts}, want {want}")
+                print(f"fused_impact {label}: {path}; max abs err "
+                      f"{e:.3e} / {e_m:.3e} (metered)")
+    torch.cuda.synchronize()
+    return errs
+
+
+# The benchmark's fused cells (perfbench/configs, perfbench/traffic): the
+# first batch of the pool each draws from this seed.
+PASS1_CELLS = ("cotm-mnist", "cotm-cifar2")
+PASS1_TRAFFIC = "bulk-fused"
+PASS1_SEED = 2718281828
+PASS1_TIMED_CALLS = 20
+
+
+def time_pass1(device, calls: int = PASS1_TIMED_CALLS,
+               seed: int = PASS1_SEED) -> None:
+    """``fused_impact_metered`` on the first pool batch (16,384 lanes) of
+    each benchmark cell of ``PASS1_CELLS``, deployed and drawn as the
+    cell does from ``seed`` (``perfbench.families.cotm``), ``calls``
+    calls in one ``torch.profiler`` window a cell: pass 1's and the
+    tail's device time a call, printed.  It calls only the wrapper, so
+    it times an older checkout's kernels as well, with that checkout's
+    ``src`` first on the path."""
+    from perfbench.families import cotm
+    from repro_torch.analysis.profile_window import device_profile
+    from repro_torch.impact.yflash import I_CSA_THRESHOLD as TH
+    from repro_torch.impact.yflash import read_current
+    from repro_torch.kernels.fused_impact import fused_impact_metered
+    with open(os.path.join(ROOT, "perfbench", "traffic",
+                           f"{PASS1_TRAFFIC}.json")) as f:
+        traffic = dict(json.load(f), pool_batches=1)
+    for name in PASS1_CELLS:
+        with open(os.path.join(ROOT, "perfbench", "configs",
+                               f"{name}.json")) as f:
+            cfg = json.load(f)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        dep = cotm.deploy(cfg, gen)
+        lit = cotm.pool(dep, traffic, gen)[0]
+        args = (lit, read_current(dep.clause_g).contiguous(), dep.nonempty,
+                read_current(dep.class_g).contiguous())
+        fused_impact_metered(*args, thresh=TH)
+        torch.cuda.synchronize()
+        # After the long profiled windows of earlier phases a window was
+        # seen to record none of its kernels: profile again, up to twice.
+        for attempt in range(3):
+            with device_profile() as prof:
+                for _ in range(calls):
+                    fused_impact_metered(*args, thresh=TH)
+                torch.cuda.synchronize()
+            kern, n_calls = pass_times(prof)
+            if calls in (n for k, n in n_calls.items() if "_tiles" in k):
+                break
+            print(f"  {name}: the profiled window holds "
+                  f"{sum(n_calls.values())} kernels, not {calls} of pass "
+                  f"1 (window {attempt + 1} of 3)")
+        print_fused_passes(f"{name} first pool batch B={lit.shape[0]}",
+                           kern, n_calls)
 
 
 def digital_operands(shape, device, seed=0):
@@ -6909,6 +7057,8 @@ def main() -> int:
     errs.update(check_packed_kernels(device))
     for k, v in check_tail_lanes(device).items():
         errs[k] = max(errs[k], v)
+    for k, v in check_paired(device).items():
+        errs[k] = max(errs[k], v)
     errs.update(check_training_kernels(device))
     errs["class_sum"] = max(errs["class_sum"], check_class_sum(device))
     print(f"phase kernels: all kernels match their plain versions "
@@ -6979,6 +7129,7 @@ def main() -> int:
             r["launches"] += paper["launches"][sym]
         if r["name"] == "fused_impact":
             r["max_abs_err"] = max(r["max_abs_err"], paper["max_abs_err"])
+    time_pass1(device)
     time_tail(device)
     rows.append(flash_path(device, card)["row"])
     print(card)

@@ -22,8 +22,11 @@ shapes, as ``aten.argmax.default(f32[8,10]) -> i64[8]``.  The checks:
   variants, ``fused_impact.cu``) sums each lane's class scores, and
   metered its clause and class meters, in f64 in a fixed order and
   rounds once to f32, so that the scores and meters are the same from
-  run to run and hold the reference's f32 tolerances; its inputs and
-  outputs are f32.  Any other kernel with f64 arithmetic is an error.
+  run to run and hold the reference's f32 tolerances; the paired
+  ``impact_tiles`` sums each column's negation rows in f64 in a fixed
+  order and rounds once, a term every lane's current shares; their
+  inputs and outputs are f32.  Any other kernel with f64 arithmetic is
+  an error.
 * **Host isolation** (error): no device-to-host transfer inside an entry
   (``aten._local_scalar_dense``, which ``.item()`` and ``int()`` /
   ``float()`` of a tensor run, or a copy from the card to the host,
@@ -65,7 +68,7 @@ from . import smem
 
 #: Kernels (their names in the CUDA sources) that declare an f64
 #: reduction: the only ones whose SASS may hold f64 arithmetic.
-F64_REDUCTIONS = ("impact_tail",)
+F64_REDUCTIONS = ("impact_tail", "impact_tiles")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -93,15 +93,19 @@ def mvm_working_sets() -> tuple[WorkingSet, ...]:
 
 def fused_working_sets(*, packed: bool) -> tuple[WorkingSet, WorkingSet]:
     """``fused_impact.cu``: pass 1 (a ring of f32 drive and cell stages
-    and the int8 literals as copied; packed, also the codes as copied)
-    and the tail (the fired bits of its lanes, the nonempty bits of the
-    columns they share, one f64 clause meter a warp, which the unmetered
+    and the int8 literals as copied; the f32 variants share the name, so
+    the estimate is the paired ring's, whose stages hold both rows and
+    both literals of each pair; packed, the full ring and the codes as
+    copied) and the tail (the fired bits of its lanes, the nonempty bits
+    of the columns they share, one f64 clause meter a warp, which the unmetered
     variants leave out, and each warp's f64 class sums of one pass of
     classes and u16 list of fired columns: all variants share the name,
     so the estimate covers the largest), whose launch bounds cap its
     registers for ``TAIL_BLOCKS_PER_SM`` blocks an SM."""
     b, n, k = _fused.F32_TILE
-    tile = _fused.STAGES * (_F32 * b * (k + 4) + _F32 * k * n + b * k)
+    pairs = 1 if packed else 2
+    tile = _fused.STAGES * (_F32 * b * (k + 4)
+                            + pairs * (_F32 * k * n + b * k))
     if packed:
         tile += _fused.STAGES * k // 4 * n
     warps = _fused.TAIL_THREADS // 32

@@ -29,7 +29,8 @@ launches go to a ``record_launches`` record instead of ``launches``, and
 every replay adds the capture's record with ``add_launches``:
 ``launch_counts()`` counts the kernel launches of each call, graphed or
 eager, and none of the preparation.  A ``launch_hook`` sees the wrapper
-calls of the preparation only, never a replay.
+calls of the preparation only, never a replay.  ``tally(name)`` counts a
+program counter of ``repro_torch.tracing`` with a launch the same way.
 
 What was compiled can be read back: ``resource_table`` parses the
 ``--resource-usage`` report into each kernel's registers, shared memory
@@ -49,6 +50,8 @@ import subprocess
 import time
 from dataclasses import dataclass
 from pathlib import Path
+
+from .. import tracing
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
@@ -313,16 +316,30 @@ def record_launches():
         _RECORDS.remove(record)
 
 
+def tally(name: str) -> None:
+    """Add one to the program counter ``name`` (``repro_torch.tracing``)
+    as a launch is counted: into the innermost ``record_launches`` record,
+    which ``add_launches`` counts again at each replay, or at once."""
+    if _RECORDS:
+        _RECORDS[-1][name] += 1
+    else:
+        tracing.add(name)
+
+
 def add_launches(record: collections.Counter) -> None:
-    """Count the launches of a ``record_launches`` record once more: one
-    replay of the graph it was recorded at."""
+    """Count the launches (and ``tally`` counters) of a
+    ``record_launches`` record once more: one replay of the graph it was
+    recorded at."""
     for kernel, n in record.items():
-        kernel.launches += n
+        if isinstance(kernel, str):
+            tracing.add(kernel, n)
+        else:
+            kernel.launches += n
 
 
 def record_symbols(record: collections.Counter) -> dict[str, int]:
-    """A ``record_launches`` record by C symbol."""
-    return {k.symbol: n for k, n in record.items()}
+    """A ``record_launches`` record's launches by C symbol."""
+    return {k.symbol: n for k, n in record.items() if not isinstance(k, str)}
 
 
 def launch_counts() -> dict[str, int]:

@@ -35,7 +35,9 @@
 // (200,704 B of live codes when packed) and 0.2 MB of literals, so the
 // f32 FMA rate bounds it (3.1 us at 67 TFLOP/s), not memory.  The
 // contract is IEEE f32 (scores at rtol 1e-6, CSA bits exact), so every
-// product is one FFMA on the CUDA cores; no tensor cores, no TF32.
+// product is one FFMA on the CUDA cores; no tensor cores, no TF32.  The
+// system's literals are [bits, ~bits], so only K/2 rows are driven: the
+// paired pass 1 does one FFMA a pair of rows (half the GFLOP above).
 //
 // Design, two launches on one stream; the wrapper plans both on the host
 // (`fused_impact.py`, `plan`) and this file checks the plan:
@@ -59,9 +61,15 @@
 //    literals 16 bytes, or plain loads where the base, K or shard r's
 //    start r*tr is not a multiple of 16.  Launched as a programmatic
 //    dependent.
-//    - f32 cells, `impact_tiles<LIT, VC>`: clause currents by 16-byte
-//      (`.cg`) or 4-byte copies (14 chunks of 112 rows, 224 blocks at the
-//      paper shape, planned for two blocks an SM).
+//    - f32 cells, `impact_tiles<LIT, VC, false>`: clause currents by
+//      16-byte (`.cg`) or 4-byte copies, every live row of a shard.
+//    - f32 cells, K even and K <= tr, `impact_tiles<LIT, VC, true>`: the
+//      paired pass (`run_pairs`, below): a stage is 16 pairs of rows
+//      (f, K/2 + f), one FFMA a pair over D = G[f] - G[K/2 + f], a second
+//      loop only on stages where some lane's pair does not hold, and the
+//      chunk's sum of the G[K/2 + f] rows, in f64, added once a column
+//      (13 chunks of 64 pairs, 208 blocks at the paper shape, planned for
+//      two blocks an SM; literals by 16-byte copies where K/2 % 16 == 0).
 //    - packed cells, `packed_tiles<LIT, CW>`: a stage's cells are 256 code
 //      bytes (4 packed rows x 64 columns), copied 4 bytes at a time by 64
 //      threads (two whole warps) where the base and tc allow (CW = 4),
@@ -72,7 +80,7 @@
 //      same FFMAs as the f32 one.  16-byte code copies were measured
 //      slower: 16 copying threads, half a warp, then decode 64 cells each
 //      while the block waits at the barrier (PERF.md).  Planned as
-//      the f32 pass (14 chunks of 112 rows, 224 blocks at the paper
+//      the full f32 pass (14 chunks of 112 rows, 224 blocks at the paper
 //      shape), which measured best.
 // 2. `impact_tail<METERED, VW>`, one launch for CSA, class stage and lane
 //    sums, shared by all four entries (it never sees the clause operand's
@@ -335,6 +343,63 @@ struct CodeCells {
   }
 };
 
+// The FFMAs of one stage: acc[i][j] += a[ty + 16 i][k] * b[k][4 tx + j]
+// over its BK rows, `a` lane-major (BM, APAD) and `b` (BK, BN) in shared
+// memory; 8 float4 reads a thread for 64 FFMAs.
+__device__ __forceinline__ void mma_stage(float (&acc)[TM][TN],
+                                          float (*a)[APAD], float (*b)[BN],
+                                          int tx, int ty) {
+#pragma unroll
+  for (int kq = 0; kq < BK; kq += 4) {
+    float4 av[TM];
+    // Lanes ty, ty + 16, ...: a warp's two lane groups read rows one
+    // 80-byte row apart, on other banks.
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+      av[i] = *reinterpret_cast<const float4*>(&a[ty + i * (BM / TM)][kq]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 w = *reinterpret_cast<const float4*>(&b[kq + kk][tx * TN]);
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float d = kk == 0 ? av[i].x : kk == 1 ? av[i].y
+                      : kk == 2 ? av[i].z : av[i].w;
+        acc[i][0] = fmaf(d, w.x, acc[i][0]);
+        acc[i][1] = fmaf(d, w.y, acc[i][1]);
+        acc[i][2] = fmaf(d, w.z, acc[i][2]);
+        acc[i][3] = fmaf(d, w.w, acc[i][3]);
+      }
+    }
+  }
+}
+
+// A thread's partial column currents: lanes b0 + ty + 16 i (below B) x
+// columns n0 + 4 tx + j (below tc) of column tile c, into plane
+// blockIdx.z of part (R * splits, B, C*tc).
+__device__ __forceinline__ void store_tile(const float (&acc)[TM][TN],
+                                           float* __restrict__ part, int B,
+                                           int C, int tc, int c, int n0,
+                                           int b0, int tx, int ty) {
+  const int N = C * tc;
+  float* out = part + (size_t)blockIdx.z * B * N + (size_t)c * tc;
+  const int n = n0 + tx * TN;
+  const bool vec_out = (tc & 3) == 0 && n + TN <= tc;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int b = b0 + ty + i * (BM / TM);
+    if (b >= B) continue;
+    float* row = out + (size_t)b * N;
+    if (vec_out) {
+      *reinterpret_cast<float4*>(row + n) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+        if (n + j < tc) row[n + j] = acc[i][j];
+    }
+  }
+}
+
 // Block (column tile, lane tile, r * splits + split) -> partial column
 // currents part[r * splits + split] (B, C*tc).  A chunk past a shard's
 // live rows runs no stage and writes zeros.  `cells` is the whole clause
@@ -391,63 +456,288 @@ __device__ __forceinline__ void run_tiles(Smem& s,
     }
     cp_async_commit();
 
-#pragma unroll
-    for (int kq = 0; kq < BK; kq += 4) {
-      float4 a[TM];
-      // Lanes ty, ty + 16, ...: a warp's two lane groups read rows one
-      // 80-byte row apart, on other banks.
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-        a[i] = *reinterpret_cast<const float4*>(
-            &s.a[buf][ty + i * (BM / TM)][kq]);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const float4 w =
-            *reinterpret_cast<const float4*>(&s.b[buf][kq + kk][tx * TN]);
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          const float d = kk == 0 ? a[i].x : kk == 1 ? a[i].y
-                        : kk == 2 ? a[i].z : a[i].w;
-          acc[i][0] = fmaf(d, w.x, acc[i][0]);
-          acc[i][1] = fmaf(d, w.y, acc[i][1]);
-          acc[i][2] = fmaf(d, w.z, acc[i][2]);
-          acc[i][3] = fmaf(d, w.w, acc[i][3]);
-        }
-      }
-    }
+    mma_stage(acc, s.a[buf], s.b[buf], tx, ty);
   }
   cp_async_wait<0>();
+  store_tile(acc, part, B, C, tc, c, n0, b0, tx, ty);
+}
 
-  const int N = C * tc;
-  float* out = part + (size_t)blockIdx.z * B * N + (size_t)c * tc;
-  const int n = n0 + tx * TN;
-  const bool vec_out = (tc & 3) == 0 && n + TN <= tc;
+// -- pass 1, paired: impact_tiles<LIT, VC, true> ----------------------------
+//
+// K = 2F <= tr, so shard 0 holds every pair of rows (f, F + f).  With
+// t = 1 - lit[f], the drive of row f, and e = 1 - lit[f] - lit[F + f],
+// column j's current is
+//   i_j = sum_f t G[f, j] + (1 - lit[F + f]) G[F + f, j]
+//       = c_j + sum_f t D[f, j] + sum_f e G[F + f, j],
+//   c_j = sum_f G[F + f, j],   D[f, j] = G[f, j] - G[F + f, j],
+// for any int8 literals, and e = 0 wherever the pair holds ([bits, ~bits]).
+// A stage brings 16 pairs: both rows of the cells and both literal bytes
+// of each lane, today's bytes in half the stages.  The thread that copied
+// a lane's literals writes t, the thread that copied four columns of both
+// rows writes D over G[f] and adds G[F + f] to its f64 column sums, both
+// before the barrier, which also ORs "a live lane of the tile has e != 0
+// here".  Then the FFMAs run over (t, D): one a pair.  Only a flagged
+// stage writes e over t (between two more barriers) and runs them again
+// over (e, G[F + f]); lanes past B and pairs past the chunk count as
+// paired.  At the end each block adds c_j of its chunk's rows, summed in
+// f64 in a fixed order (each copier's rows in stage order, then the 16
+// copiers of a column in row order) and rounded once, to every lane's
+// partial: no float atomics, the same sums on every run.
+
+struct PairSmem {
+  struct Ring {
+    float a[STAGES][BM][APAD];          // t = 1 - lit[f] (flagged: then e)
+    float b[STAGES][2][BK][BN];         // D = G[f] - G[F + f]; G[F + f]
+    int8_t lit[STAGES][2][BM][BK];      // lit[f]; lit[F + f], lane-major
+  };
+  union {
+    Ring ring;
+    double col[BK][BN];                 // after the ring: the f64 sums
+  };
+};
+
+// The literals of one paired stage (pairs [f0, f0 + BK) below f_end) of
+// each lane of the tile into `buf`: lit[f] and lit[F + f] of lits (B, K).
+// LIT = 16: the BM threads below BM copy a lane's 16 + 16 bytes with two
+// 16-byte copies (F % 16 == 0, so a copy in range is whole); LIT = 1:
+// every thread loads 4 + 4 bytes of one lane and writes them, and their t,
+// into the stage itself.
+template <int LIT>
+__device__ __forceinline__ void load_pair_lits(PairSmem& s, int buf,
+                                               const int8_t* __restrict__ lit,
+                                               int B, int K, int b0, int f0,
+                                               int f_end) {
+  const int tid = threadIdx.x, F = K / 2;
+  if (LIT == 16) {
+    if (tid < BM) {
+      const int b = b0 + tid;
+      const bool in = b < B && f0 < f_end;
+      const int8_t* row = in ? lit + (size_t)b * K + f0 : lit;
+      cp_async16(&s.ring.lit[buf][0][tid][0], row, in ? 16 : 0);
+      cp_async16(&s.ring.lit[buf][1][tid][0], in ? row + F : lit, in ? 16 : 0);
+    }
+  } else {
+    const int bb = tid / (BK / 4), kk = (tid % (BK / 4)) * 4;
+    const int b = b0 + bb, f = f0 + kk;
+    int lo = 0, hi = 0;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int b = b0 + ty + i * (BM / TM);
-    if (b >= B) continue;
-    float* row = out + (size_t)b * N;
-    if (vec_out) {
-      *reinterpret_cast<float4*>(row + n) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    for (int j = 0; j < 4; ++j)
+      if (b < B && f + j < f_end) {
+        const int8_t* at = lit + (size_t)b * K + f + j;
+        lo |= (static_cast<int>(at[0]) & 0xff) << (8 * j);
+        hi |= (static_cast<int>(at[F]) & 0xff) << (8 * j);
+      }
+    *reinterpret_cast<int*>(&s.ring.lit[buf][0][bb][kk]) = lo;
+    *reinterpret_cast<int*>(&s.ring.lit[buf][1][bb][kk]) = hi;
+    *reinterpret_cast<float4*>(&s.ring.a[buf][bb][kk]) =
+        drive4(lo, b < B, f, f_end);
+  }
+}
+
+// e = 1 - lit[f] - lit[F + f] of the four pairs packed in `lo` and `hi`
+// (pairs f..f+3 of a lane), 0 where the lane or the pair is not live.
+__device__ __forceinline__ float4 excess4(int lo, int hi, bool lane_in, int f,
+                                          int f_end) {
+  float e[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int x = static_cast<int8_t>((lo >> (8 * j)) & 0xff) +
+                  static_cast<int8_t>((hi >> (8 * j)) & 0xff);
+    e[j] = lane_in && f + j < f_end ? static_cast<float>(1 - x) : 0.f;
+  }
+  return make_float4(e[0], e[1], e[2], e[3]);
+}
+
+// Whether a live one of those pairs does not hold (its e != 0), in
+// integers.
+__device__ __forceinline__ bool unpaired4(int lo, int hi, bool lane_in, int f,
+                                          int f_end) {
+  bool any = false;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int x = static_cast<int8_t>((lo >> (8 * j)) & 0xff) +
+                  static_cast<int8_t>((hi >> (8 * j)) & 0xff);
+    any |= f + j < f_end && x != 1;
+  }
+  return lane_in && any;
+}
+
+// The words of literals this thread copied or loaded into `buf` (the map
+// of load_pair_lits: LIT = 16, the 16 pairs of lane tid < BM; LIT = 1,
+// pairs kk..kk+3 of lane tid / 4).  EXCESS: writes their e over the
+// stage's drive; else writes their t (LIT = 16: LIT = 1 wrote it at the
+// load) and returns whether a live pair among them has e != 0.
+template <int LIT, bool EXCESS>
+__device__ __forceinline__ bool publish_pair_lits(PairSmem& s, int buf, int B,
+                                                  int b0, int f0,
+                                                  int f_end) {
+  const int tid = threadIdx.x;
+  if (LIT == 16 && tid >= BM) return false;
+  constexpr int WORDS = LIT == 16 ? BK / 4 : 1;
+  const int bb = LIT == 16 ? tid : tid / (BK / 4);
+  const int kk = LIT == 16 ? 0 : (tid % (BK / 4)) * 4;
+  const bool in = b0 + bb < B;
+  bool unpaired = false;
+#pragma unroll
+  for (int q = 0; q < WORDS; ++q) {
+    const int k = kk + 4 * q, f = f0 + k;
+    const int lo = *reinterpret_cast<const int*>(&s.ring.lit[buf][0][bb][k]);
+    const int hi = *reinterpret_cast<const int*>(&s.ring.lit[buf][1][bb][k]);
+    float4* a = reinterpret_cast<float4*>(&s.ring.a[buf][bb][k]);
+    if (EXCESS) {
+      *a = excess4(lo, hi, in, f, f_end);
     } else {
+      unpaired |= unpaired4(lo, hi, in, f, f_end);
+      if (LIT == 16) *a = drive4(lo, in, f, f_end);
+    }
+  }
+  return unpaired;
+}
+
+// The cells of one paired stage: rows f and F + f of `g` (shard 0's
+// (tr, tc) tile of column tile c) for pairs [f0, f0 + BK) below f_end,
+// columns [n0, n0 + BN) below tc, into b[buf][0] and b[buf][1].  Thread
+// (kk, nn) = (tid / 16, 4 (tid % 16)) copies its four columns of both
+// rows: a 16-byte copy each (VC) or four 4-byte ones.
+template <bool VC>
+__device__ __forceinline__ void load_pair_cells(PairSmem& s, int buf,
+                                                const float* __restrict__ g,
+                                                int F, int tc, int n0, int f0,
+                                                int f_end) {
+  const int kk = threadIdx.x / (BN / TN), nn = (threadIdx.x % (BN / TN)) * TN;
+  const int f = f0 + kk, n = n0 + nn;
+  const float* lo = g + (size_t)f * tc + n;
+  const float* hi = lo + (size_t)F * tc;
+  if (VC) {
+    const bool in = f < f_end && n < tc;
+    cp_async16(&s.ring.b[buf][0][kk][nn], in ? lo : g, in ? 16 : 0);
+    cp_async16(&s.ring.b[buf][1][kk][nn], in ? hi : g, in ? 16 : 0);
+  } else {
 #pragma unroll
-      for (int j = 0; j < TN; ++j)
-        if (n + j < tc) row[n + j] = acc[i][j];
+    for (int j = 0; j < TN; ++j) {
+      const bool in = f < f_end && n + j < tc;
+      cp_async4(&s.ring.b[buf][0][kk][nn + j], in ? lo + j : g, in ? 4 : 0);
+      cp_async4(&s.ring.b[buf][1][kk][nn + j], in ? hi + j : g, in ? 4 : 0);
     }
   }
 }
 
+// D = G[f] - G[F + f] over this thread's own copies, written over G[f];
+// G[F + f] added to its f64 sums of its four columns.
+__device__ __forceinline__ void publish_pair_cells(PairSmem& s, int buf,
+                                                   double (&sum)[TN]) {
+  const int kk = threadIdx.x / (BN / TN), nn = (threadIdx.x % (BN / TN)) * TN;
+  float4* lo = reinterpret_cast<float4*>(&s.ring.b[buf][0][kk][nn]);
+  const float4 hi =
+      *reinterpret_cast<const float4*>(&s.ring.b[buf][1][kk][nn]);
+  const float4 g = *lo;
+  *lo = make_float4(g.x - hi.x, g.y - hi.y, g.z - hi.z, g.w - hi.w);
+  sum[0] += hi.x;
+  sum[1] += hi.y;
+  sum[2] += hi.z;
+  sum[3] += hi.w;
+}
+
+// Block (column tile, lane tile, r * splits + split) -> partial column
+// currents part[r * splits + split] (B, C*tc) over the chunk's pairs;
+// the blocks of shards r > 0 have none and write zeros.
 template <int LIT, bool VC>
+__device__ __forceinline__ void run_pairs(PairSmem& s,
+                                          const int8_t* __restrict__ lits,
+                                          const float* __restrict__ clause_i,
+                                          float* __restrict__ part, int B,
+                                          int K, int C, int tr, int tc,
+                                          int tiles_c, int splits,
+                                          int chunk) {
+  const int tid = threadIdx.x;
+  const int tx = tid % TX, ty = tid / TX;
+  const int c = blockIdx.x / tiles_c;
+  const int n0 = (blockIdx.x % tiles_c) * BN;
+  const int b0 = blockIdx.y * BM;
+  const int r = blockIdx.z / splits, F = K / 2;
+  const int f_begin = (blockIdx.z % splits) * chunk;
+  const int f_end = r == 0 ? min(F, f_begin + chunk) : f_begin;
+  const int n_stages = f_end > f_begin ? (f_end - f_begin + BK - 1) / BK : 0;
+  const float* g = clause_i + (size_t)c * tr * tc;
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  double sum[TN] = {0.0, 0.0, 0.0, 0.0};
+
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < n_stages) {
+      load_pair_lits<LIT>(s, st, lits, B, K, b0, f_begin + st * BK, f_end);
+      load_pair_cells<VC>(s, st, g, F, tc, n0, f_begin + st * BK, f_end);
+    }
+    cp_async_commit();
+  }
+
+  for (int st = 0; st < n_stages; ++st) {
+    const int buf = st % STAGES;
+    const int f0 = f_begin + st * BK;
+    cp_async_wait<STAGES - 2>();          // this thread's stage st landed
+    const bool mine = publish_pair_lits<LIT, false>(s, buf, B, b0, f0, f_end);
+    publish_pair_cells(s, buf, sum);
+    const bool unpaired = __syncthreads_or(mine);   // ... and every thread's
+    const int next = st + STAGES - 1;
+    if (next < n_stages) {
+      load_pair_lits<LIT>(s, next % STAGES, lits, B, K, b0,
+                          f_begin + next * BK, f_end);
+      load_pair_cells<VC>(s, next % STAGES, g, F, tc, n0, f_begin + next * BK,
+                          f_end);
+    }
+    cp_async_commit();
+
+    mma_stage(acc, s.ring.a[buf], s.ring.b[buf][0], tx, ty);
+    if (unpaired) {                       // uniform over the block
+      __syncthreads();                    // every thread is past t
+      publish_pair_lits<LIT, true>(s, buf, B, b0, f0, f_end);
+      __syncthreads();
+      mma_stage(acc, s.ring.a[buf], s.ring.b[buf][1], tx, ty);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();                        // the ring is free
+  {
+    const int kk = tid / (BN / TN), nn = (tid % (BN / TN)) * TN;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) s.col[kk][nn + j] = sum[j];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < TN; ++j) {
+    double cj = 0.0;
+#pragma unroll
+    for (int k = 0; k < BK; ++k) cj += s.col[k][tx * TN + j];
+    const float cf = static_cast<float>(cj);
+#pragma unroll
+    for (int i = 0; i < TM; ++i) acc[i][j] += cf;
+  }
+  store_tile(acc, part, B, C, tc, c, n0, b0, tx, ty);
+}
+
+// PAIRED: the paired pass (run_pairs, K = 2F <= tr), else every live row.
+template <int LIT, bool VC, bool PAIRED>
 __global__ void __launch_bounds__(THREADS)
 impact_tiles(const int8_t* __restrict__ lits,
              const float* __restrict__ clause_i, float* __restrict__ part,
              int B, int K, int C, int tr, int tc, int tiles_c, int splits,
              int chunk) {
-  __shared__ __align__(16) TileSmem s;
-  grid_dependency_wait();
-  run_tiles<LIT>(s, lits, F32Cells<VC>{clause_i}, part, B, K, C, tr, tc,
-                 tiles_c, splits, chunk);
+  if constexpr (PAIRED) {
+    __shared__ __align__(16) PairSmem s;
+    grid_dependency_wait();
+    run_pairs<LIT, VC>(s, lits, clause_i, part, B, K, C, tr, tc, tiles_c,
+                       splits, chunk);
+  } else {
+    __shared__ __align__(16) TileSmem s;
+    grid_dependency_wait();
+    run_tiles<LIT>(s, lits, F32Cells<VC>{clause_i}, part, B, K, C, tr, tc,
+                   tiles_c, splits, chunk);
+  }
 }
 
 // levels (2,) f32 [i_lcs, i_hcs], read once a block.
@@ -716,15 +1006,17 @@ struct TailPlan {
 };
 
 // The checks every entry makes: shapes, a split of the fullest shard's
-// `live` rows into `splits` chunks of `chunk` rows (whole stages of
-// `stage` rows, none empty) and the tail's plan -> 0, or BAD.
+// `live` rows (paired: the K / 2 pairs, K even and at most tr) into
+// `splits` chunks of `chunk` rows (whole stages of `stage` rows, none
+// empty) and the tail's plan -> 0, or BAD.
 int check_plan(int B, int K, int R, int C, int tr, int tc, int Nc, int M,
-               int stage, int splits, int chunk, TailPlan tail,
+               int stage, bool paired, int splits, int chunk, TailPlan tail,
                const float* part, int tiles_c, int tile_b) {
   if (B < 0 || K < 0 || R < 1 || C < 0 || tr < 0 || tc < 0 || Nc < 0 ||
-      M < 0 || (long long)R * tr < K)
+      M < 0 || (long long)R * tr < K ||
+      (paired && (K == 0 || K % 2 != 0 || K > tr)))
     return BAD;
-  const long long live = tr < K ? tr : K;
+  const long long live = paired ? K / 2 : (tr < K ? tr : K);
   if (chunk <= 0 || chunk % stage != 0 || splits < 1 ||
       (long long)splits * chunk < live ||
       (long long)(splits - 1) * chunk >= (live > 0 ? live : 1))
@@ -769,11 +1061,14 @@ cudaError_t launch_pass1(void (*kernel)(Params...), int B, int R, int C,
 }
 
 // Literal copies of lit_width bytes (16 or 1) can run: the base, K and,
-// with several shards, tr are multiples of 16 for 16-byte copies.
-bool literals_ok(const int8_t* lits, int lit_width, int K, int R, int tr) {
+// with several shards, tr are multiples of 16 for 16-byte copies; paired,
+// the base and K / 2.
+bool literals_ok(const int8_t* lits, int lit_width, int K, int R, int tr,
+                 bool paired) {
   const auto at = reinterpret_cast<std::uintptr_t>(lits);
-  return lit_width == 1 || (lit_width == 16 && at % 16 == 0 &&
-                            K % 16 == 0 && (R == 1 || tr % 16 == 0));
+  const bool strides = paired ? (K / 2) % 16 == 0
+                              : K % 16 == 0 && (R == 1 || tr % 16 == 0);
+  return lit_width == 1 || (lit_width == 16 && at % 16 == 0 && strides);
 }
 
 // Pass 1 (`pass1`, a callable that launches it) then the tail, after the
@@ -782,10 +1077,10 @@ template <bool METERED, class Pass1>
 int run(Pass1 pass1, const uint8_t* nonempty, const float* class_i,
         float* part, float* scores, float* meter_clause, float* meter_class,
         int B, int K, int R, int C, int tr, int tc, int Nc, int M,
-        float thresh, int splits, int chunk, TailPlan tail,
+        float thresh, bool paired, int splits, int chunk, TailPlan tail,
         cudaStream_t stream) {
-  if (check_plan(B, K, R, C, tr, tc, Nc, M, BK, splits, chunk, tail, part,
-                 (tc + BN - 1) / BN, BM) != 0)
+  if (check_plan(B, K, R, C, tr, tc, Nc, M, BK, paired, splits, chunk, tail,
+                 part, (tc + BN - 1) / BN, BM) != 0)
     return BAD;
   if (B == 0) return static_cast<int>(cudaGetLastError());
   const int N = C * tc;
@@ -804,22 +1099,28 @@ int run_f32(const int8_t* lits, const float* clause_i,
             const uint8_t* nonempty, const float* class_i, float* part,
             float* scores, float* meter_clause, float* meter_class, int B,
             int K, int R, int C, int tr, int tc, int Nc, int M, float thresh,
-            int lit_width, int vec_c, int splits, int chunk, TailPlan tail,
-            cudaStream_t stream) {
-  if (!literals_ok(lits, lit_width, K, R, tr) ||
+            int lit_width, int vec_c, int paired, int splits, int chunk,
+            TailPlan tail, cudaStream_t stream) {
+  if (!literals_ok(lits, lit_width, K, R, tr, paired) ||
       (vec_c && (tc % 4 != 0 || !aligned16(clause_i))))
     return BAD;
   const auto pass1 = [=]() {
-#define TILES(L, V)                                                        \
-  launch_pass1(impact_tiles<L, V>, B, R, C, tc, splits, chunk, stream,    \
+#define TILES(L, V, P)                                                     \
+  launch_pass1(impact_tiles<L, V, P>, B, R, C, tc, splits, chunk, stream, \
                lits, clause_i, part, B, K, C, tr, tc)
-    if (lit_width == 16) return vec_c ? TILES(16, true) : TILES(16, false);
-    return vec_c ? TILES(1, true) : TILES(1, false);
+    if (paired) {
+      if (lit_width == 16)
+        return vec_c ? TILES(16, true, true) : TILES(16, false, true);
+      return vec_c ? TILES(1, true, true) : TILES(1, false, true);
+    }
+    if (lit_width == 16)
+      return vec_c ? TILES(16, true, false) : TILES(16, false, false);
+    return vec_c ? TILES(1, true, false) : TILES(1, false, false);
 #undef TILES
   };
   return run<METERED>(pass1, nonempty, class_i, part, scores, meter_clause,
-                      meter_class, B, K, R, C, tr, tc, Nc, M, thresh, splits,
-                      chunk, tail, stream);
+                      meter_class, B, K, R, C, tr, tc, Nc, M, thresh,
+                      paired != 0, splits, chunk, tail, stream);
 }
 
 template <bool METERED>
@@ -833,7 +1134,8 @@ int run_packed(const int8_t* lits, const uint8_t* bits, const float* levels,
       code_width == 1 ||
       (code_width == 4 && reinterpret_cast<std::uintptr_t>(bits) % 4 == 0 &&
        tc % 4 == 0);
-  if (!literals_ok(lits, lit_width, K, R, tr) || !codes_ok) return BAD;
+  if (!literals_ok(lits, lit_width, K, R, tr, false) || !codes_ok)
+    return BAD;
   const auto pass1 = [=]() {
 #define TILES(L, W)                                                        \
   launch_pass1(packed_tiles<L, W>, B, R, C, tc, splits, chunk, stream,    \
@@ -844,8 +1146,8 @@ int run_packed(const int8_t* lits, const uint8_t* bits, const float* levels,
 #undef TILES
   };
   return run<METERED>(pass1, nonempty, class_i, part, scores, meter_clause,
-                      meter_class, B, K, R, C, tr, tc, Nc, M, thresh, splits,
-                      chunk, tail, stream);
+                      meter_class, B, K, R, C, tr, tc, Nc, M, thresh, false,
+                      splits, chunk, tail, stream);
 }
 
 }  // namespace
@@ -858,9 +1160,11 @@ int run_packed(const int8_t* lits, const uint8_t* bits, const float* levels,
 //             with R > 1, tr multiples of 16), or plain loads;
 //   vec_c:    1 for 16-byte copies of the cells (base 16-byte aligned,
 //             tc % 4 == 0);
-//   splits, chunk: the live rows of the fullest shard, min(tr, K), in
-//             `splits` chunks of `chunk` rows (a multiple of 16), the
-//             last one ragged and none empty;
+//   paired:   1 for the paired pass 1 (K even and at most tr; 16-byte
+//             literal copies then need K / 2 % 16 == 0), 0 for every row;
+//   splits, chunk: the live rows of the fullest shard, min(tr, K), or
+//             paired the K / 2 pairs, in `splits` chunks of `chunk` rows
+//             (a multiple of 16), the last one ragged and none empty;
 //   warps, lanes, tail_width: the tail's warps a lane and lanes a block
 //             (powers of two, at most 8 warps a block), and 4 for its
 //             16-byte loads of part (C*tc % 4 == 0, part 16-byte aligned)
@@ -873,12 +1177,12 @@ extern "C" int fused_impact_f32(const int8_t* lits, const float* clause_i,
                                 const float* class_i, float* part,
                                 float* scores, int B, int K, int R, int C,
                                 int tr, int tc, int Nc, int M, float thresh,
-                                int lit_width, int vec_c, int splits,
-                                int chunk, int warps, int lanes,
+                                int lit_width, int vec_c, int paired,
+                                int splits, int chunk, int warps, int lanes,
                                 int tail_width, cudaStream_t stream) {
   return run_f32<false>(lits, clause_i, nonempty, class_i, part, scores,
                         nullptr, nullptr, B, K, R, C, tr, tc, Nc, M, thresh,
-                        lit_width, vec_c, splits, chunk,
+                        lit_width, vec_c, paired, splits, chunk,
                         {warps, lanes, tail_width}, stream);
 }
 
@@ -886,11 +1190,11 @@ extern "C" int fused_impact_metered_f32(
     const int8_t* lits, const float* clause_i, const uint8_t* nonempty,
     const float* class_i, float* part, float* scores, float* meter_clause,
     float* meter_class, int B, int K, int R, int C, int tr, int tc, int Nc,
-    int M, float thresh, int lit_width, int vec_c, int splits, int chunk,
-    int warps, int lanes, int tail_width, cudaStream_t stream) {
+    int M, float thresh, int lit_width, int vec_c, int paired, int splits,
+    int chunk, int warps, int lanes, int tail_width, cudaStream_t stream) {
   return run_f32<true>(lits, clause_i, nonempty, class_i, part, scores,
                        meter_clause, meter_class, B, K, R, C, tr, tc, Nc, M,
-                       thresh, lit_width, vec_c, splits, chunk,
+                       thresh, lit_width, vec_c, paired, splits, chunk,
                        {warps, lanes, tail_width}, stream);
 }
 

@@ -16,12 +16,21 @@ the kernel (its two passes on the current stream), and the wrapper
 allocates the kernel's scratch.
 
 The launch is planned here, once per shape and SM count (``plan``): the
-pass-1 tile, the split of each shard's live rows into chunks of whole
+pass-1 tile, whether pass 1 runs paired (``pairs``: f32 cells, K even
+and every pair of rows (f, K/2 + f) in the first shard), the split of
+each shard's live rows (paired: of the K/2 pairs) into chunks of whole
 stages for about one wave of blocks, and the tail's warps a lane and
 lanes a block.  The copy widths of the literals, the f32 clause currents
 and the packed codes, and the tail's load width, are chosen per call from
 their pointers and strides (``copy_widths``, ``code_width``,
 ``tail_width``).
+
+The paired pass does one FFMA a pair of rows, exact for any int8
+literals: on the system's ``[bits, ~bits]`` literals (``with_negations``)
+exactly one row of each pair is driven, and a stage in which some lane's
+pair does not hold runs a second loop.  Each launch adds one to the
+program counter ``impact.paired_launches`` or ``impact.full_launches``
+(``repro_torch.tracing``), graph replays included.
 """
 from __future__ import annotations
 
@@ -40,14 +49,16 @@ SOURCE = "fused_impact.cu"
 _P, _I, _F = _build.PTR, _build.INT, _build.FLOAT
 # B, K, R, C, tr, tc, Nc, M, thresh
 _SHAPE_ARGS = [_I] * 8 + [_F]
-# lit_width, vec_c (code_width when packed), splits, chunk, the tail's warps
-# a lane, lanes a block and load width; then the stream
+# lit_width, code_width, splits, chunk, the tail's warps a lane, lanes a
+# block and load width; then the stream
 _PLAN = [_I] * 7 + [_P]
+# The f32 entries: vec_c in place of code_width, then paired
+_PLAN_F32 = [_I] * 8 + [_P]
 
 KERNEL = _build.CudaKernel(SOURCE, "fused_impact_f32",
-                           [_P] * 6 + _SHAPE_ARGS + _PLAN)
+                           [_P] * 6 + _SHAPE_ARGS + _PLAN_F32)
 KERNEL_METERED = _build.CudaKernel(
-    SOURCE, "fused_impact_metered_f32", [_P] * 8 + _SHAPE_ARGS + _PLAN)
+    SOURCE, "fused_impact_metered_f32", [_P] * 8 + _SHAPE_ARGS + _PLAN_F32)
 KERNEL_PACKED = _build.CudaKernel(
     SOURCE, "fused_impact_packed_f32", [_P] * 7 + _SHAPE_ARGS + _PLAN)
 KERNEL_PACKED_METERED = _build.CudaKernel(
@@ -57,7 +68,8 @@ KERNEL_PACKED_METERED = _build.CudaKernel(
 # Pass 1's tile (lanes, clause columns, rows a stage), of
 # ``impact_tiles`` on f32 cells and ``packed_tiles`` on 2-bit codes.
 F32_TILE = (64, 64, 16)
-# Chunks are at least this many stages deep, to fill the copy ring.
+# Chunks copy at least this many stages of rows, to fill the copy ring (a
+# paired stage copies two).
 MIN_SPLIT_STAGES = 4
 # Blocks an SM runs at once: a wave of the f32 pass 1 is this many per
 # SM ...
@@ -78,6 +90,9 @@ TAIL_CLASSES, TAIL_LIST = 32, 1024
 # Pass 1's block: threads (a 4 x 4 register tile a thread) and its copy
 # ring's depth.
 THREADS, STAGES = 256, 3
+# The program counters (``repro_torch.tracing``) of pass-1 launches.
+PAIRED_LAUNCHES, FULL_LAUNCHES = ("impact.paired_launches",
+                                  "impact.full_launches")
 
 
 @dataclass(frozen=True)
@@ -87,7 +102,8 @@ class Plan:
     of each shard in ``splits`` chunks of ``chunk`` rows (whole stages,
     the last one ragged), ``blocks`` pass-1 blocks; the tail in
     ``tail_blocks`` blocks of ``lanes`` lanes, each lane streamed by
-    ``tail_warps`` warps."""
+    ``tail_warps`` warps.  ``paired``: pass 1 is the paired pass, whose
+    chunks and stages count pairs of rows."""
     tile_b: int
     tile_n: int
     stage: int
@@ -97,6 +113,7 @@ class Plan:
     tail_warps: int
     lanes: int
     tail_blocks: int
+    paired: bool = False
 
     @property
     def tail_threads(self) -> int:
@@ -108,6 +125,13 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def pairs(K: int, tr: int, packed: bool = False) -> bool:
+    """Whether pass 1 runs paired on literals (B, K) over row shards of
+    ``tr`` rows: on f32 cells, with K even and every pair of rows
+    (f, K/2 + f) in the first shard (0 < K <= tr)."""
+    return not packed and 0 < K <= tr and K % 2 == 0
+
+
 @functools.lru_cache(maxsize=1024)
 def plan(B: int, K: int, R: int, C: int, tr: int, tc: int, sms: int,
          packed: bool = False) -> Plan:
@@ -116,20 +140,25 @@ def plan(B: int, K: int, R: int, C: int, tr: int, tc: int, sms: int,
 
     Pass 1 takes about one wave of blocks (``BLOCKS_PER_SM`` an SM on f32
     cells, ``PACKED_BLOCKS_PER_SM`` on packed ones), with chunks deep
-    enough to fill the copy ring.  The tail gives a lane as many warps as
-    a wave of ``TAIL_BLOCKS_PER_SM`` full blocks an SM holds for B lanes
-    (at most a block's, and no more threads than the lane has 16-byte
-    column groups), then puts as many lanes in a block as fit its
-    threads and fired words while the blocks still cover every SM.
+    enough to fill the copy ring; paired (``pairs``), it splits the K/2
+    pairs, each stage copying two stages' rows.  The tail gives a lane
+    as many warps as a wave of ``TAIL_BLOCKS_PER_SM`` full blocks an SM
+    holds for B lanes (at most a block's, and no more threads than the
+    lane has 16-byte column groups), then puts as many lanes in a block
+    as fit its threads and fired words while the blocks still cover
+    every SM.
     Raises ``ValueError`` past 65,536 clause columns."""
     tile_b, tile_n, stage = F32_TILE
-    live = max(0, min(tr, K))            # live rows of the fullest shard
+    paired = pairs(K, tr, packed)
+    # Pairs, or the live rows of the fullest shard.
+    live = K // 2 if paired else max(0, min(tr, K))
     stages = _cdiv(live, stage)
+    depth = MIN_SPLIT_STAGES // (2 if paired else 1)
     tiles = _cdiv(B, tile_b) * C * _cdiv(tc, tile_n) * R
     wave = (PACKED_BLOCKS_PER_SM if packed else BLOCKS_PER_SM) * sms
     want = 1
     if tiles and stages:
-        want = max(1, min(wave // tiles, stages // MIN_SPLIT_STAGES))
+        want = max(1, min(wave // tiles, stages // depth))
     chunk = max(1, _cdiv(stages, want)) * stage
     splits = max(1, _cdiv(live, chunk))
     words = _cdiv(C * tc, 32)
@@ -149,19 +178,21 @@ def plan(B: int, K: int, R: int, C: int, tr: int, tc: int, sms: int,
            and _cdiv(B, 2 * lanes) >= sms):
         lanes *= 2
     return Plan(tile_b, tile_n, stage, splits, chunk, tiles * splits, warps,
-                lanes, _cdiv(B, lanes))
+                lanes, _cdiv(B, lanes), paired)
 
 
 def copy_widths(literals: torch.Tensor, clause_i: torch.Tensor, R: int,
-                tr: int) -> tuple[int, int]:
+                tr: int, paired: bool = False) -> tuple[int, int]:
     """Bytes a copy of each contiguous operand may move at once: the
     literals 16 where their base pointer, row stride K and (with several
-    row shards) the shard start r*tr are multiples of 16, else 1 (plain
-    loads); the f32 clause currents 16 where their base pointer is
-    16-byte aligned and tc % 4 == 0, else 4."""
+    row shards) the shard start r*tr are multiples of 16 (``paired``: the
+    base pointer and K/2, where the second row of each pair starts), else
+    1 (plain loads); the f32 clause currents 16 where their base pointer
+    is 16-byte aligned and tc % 4 == 0, else 4."""
     K, ptr = literals.shape[1], literals.data_ptr()
-    lit = 16 if ptr % 16 == 0 and K % 16 == 0 and (R == 1 or tr % 16 == 0) \
-        else 1
+    strides = (K // 2 % 16 == 0 if paired
+               else K % 16 == 0 and (R == 1 or tr % 16 == 0))
+    lit = 16 if ptr % 16 == 0 and strides else 1
     vec = clause_i.data_ptr() % 16 == 0 and clause_i.shape[-1] % 4 == 0
     return lit, 16 if vec else 4
 
@@ -186,7 +217,8 @@ def describe(literals: torch.Tensor, cells: torch.Tensor,
              tr: int | None = None) -> str:
     """The path a CUDA call on these operands takes, in words:
     ``fused_impact``'s on clause_i (R, C, tr, tc), or with ``tr`` given,
-    ``fused_impact_packed``'s on the packed codes (R, C, tr4, tc)."""
+    ``fused_impact_packed``'s on the packed codes (R, C, tr4, tc); the
+    paired pass 1 is named as such, with its chunks in pairs."""
     B, K = literals.shape
     R, C = cells.shape[:2]
     tc = cells.shape[-1]
@@ -194,14 +226,16 @@ def describe(literals: torch.Tensor, cells: torch.Tensor,
     if not packed:
         tr = cells.shape[2]
     p = plan(B, K, R, C, tr, tc, sm_count(literals.device.index), packed)
-    lit, width = copy_widths(literals, cells, R, tr)
+    lit, width = copy_widths(literals, cells, R, tr, p.paired)
     if packed:
         width = code_width(cells)
     what = "codes" if packed else "cells"
     how = lambda w: f"{w}-byte copies" if w > 1 else "plain loads"
-    return (f"{p.tile_b}x{p.tile_n} tiles, literals by {how(lit)}, {what} "
-            f"by {how(width)}, {p.splits} chunk(s) of {p.chunk} rows a "
-            f"shard, {p.blocks} blocks; tail {p.tail_blocks} blocks of "
+    pass1, rows = ((f"paired pass over {K // 2} literal pairs, ", "pairs")
+                   if p.paired else ("", "rows a shard"))
+    return (f"{p.tile_b}x{p.tile_n} tiles, {pass1}literals by {how(lit)}, "
+            f"{what} by {how(width)}, {p.splits} chunk(s) of {p.chunk} "
+            f"{rows}, {p.blocks} blocks; tail {p.tail_blocks} blocks of "
             f"{p.lanes} lane(s), {p.tail_warps} warp(s) a lane")
 
 
@@ -251,16 +285,19 @@ def _launch(kernel, literals, cells, nonempty, class_i, grid, *,
     if B == 0:
         return tuple(outs) if metered else outs[0]
     p = plan(B, K, R, C, tr, tc, sm_count(dev.index), packed)
-    lit, cl = copy_widths(literals, cells[0], R, tr)
+    lit, cl = copy_widths(literals, cells[0], R, tr, p.paired)
     width = code_width(cells[0]) if packed else int(cl == 16)
     part = torch.empty((R * p.splits * B * C * tc,), dtype=torch.float32,
                        device=dev)
-    plan_args = (lit, width, p.splits, p.chunk, p.tail_warps, p.lanes,
-                 tail_width(part, C * tc))
+    plan_args = ((lit, width) + (() if packed else (int(p.paired),))
+                 + (p.splits, p.chunk, p.tail_warps, p.lanes,
+                    tail_width(part, C * tc)))
     kernel(literals.data_ptr(), *(t.data_ptr() for t in cells),
            ne.data_ptr(), class_i.data_ptr(), part.data_ptr(),
            *(t.data_ptr() for t in outs), *shape, thresh, *plan_args,
            torch.cuda.current_stream().cuda_stream)
+    if C * tc:
+        _build.tally(PAIRED_LAUNCHES if p.paired else FULL_LAUNCHES)
     return tuple(outs) if metered else outs[0]
 
 

@@ -23,8 +23,9 @@ from dataclasses import dataclass
 
 import torch
 
-# The module, not the wrapper function that ``kernels`` re-exports.
+# The modules, not the wrapper functions that ``kernels`` re-exports.
 _mvm = importlib.import_module(".crossbar_mvm", __package__)
+_fused = importlib.import_module(".fused_impact", __package__)
 
 # Published peaks of one NVIDIA H100 SXM at 700 W (NVIDIA's data sheet):
 # f32 outside the tensor cores (the analog kernels' FFMA), int8 on the
@@ -92,8 +93,9 @@ def fused_impact(B: int, K: int, R: int, tr: int, N: int, Nc: int, M: int,
     driven rows over the needed columns (f32 cells, or 2-bit codes four
     to a byte with their two f32 levels), the nonempty mask, the class
     rows of the nonempty columns, the scores and, metered, two f32 meters
-    a lane.  ``needed`` is ``needed_columns``' pair; None counts every
-    column."""
+    a lane.  The paired pass 1 (``fused_impact.pairs``) reads every live
+    row but multiplies K/2 a lane, one of each pair.  ``needed`` is
+    ``needed_columns``' pair; None counts every column."""
     n_ne, n_meter = needed if needed is not None else (N, N)
     cols = n_meter if metered else n_ne
     rows = live_rows(K, R, tr)
@@ -102,7 +104,8 @@ def fused_impact(B: int, K: int, R: int, tr: int, N: int, Nc: int, M: int,
     else:
         cells = sum(rows) * cols * F32
     class_rows = min(n_ne, Nc)
-    flops = 2.0 * B * sum(rows) * cols + 2.0 * B * class_rows * M
+    multiplied = K // 2 if _fused.pairs(K, tr, packed) else sum(rows)
+    flops = 2.0 * B * multiplied * cols + 2.0 * B * class_rows * M
     moved = (B * K + cells + N + class_rows * M * F32
              + (B * M + (2 * B if metered else 0)) * F32)
     return flops, float(moved)

@@ -306,7 +306,11 @@ def test_resource_report_parses(sample_tables):
     assert mvm["mvm_tiles<0,0>"] == _build.Resources(
         registers=80, smem=27648, stack=8, spill_stores=8, spill_loads=8)
     assert mvm["mvm_reduce"].smem == 0
-    assert len(sample_tables["fused_impact.cu"]) == 12
+    # impact_tiles<LIT,VC,PAIRED> x 8, packed_tiles x 4, impact_tail x 4
+    fused = sample_tables["fused_impact.cu"]
+    assert len(fused) == 16
+    assert fused["impact_tiles<16,1,1>"].smem == 46080
+    assert fused["impact_tiles<16,1,0>"].smem == 30720
     assert sample_tables["digital_cotm.cu"]["class_sum_kernel<4>"] \
         .registers == 48
     with pytest.raises(ValueError, match="registers"):
@@ -341,8 +345,8 @@ def test_sample_kernels_fit_their_plans(sample_tables, monkeypatch):
 
 def test_estimate_under_the_report_is_flagged(sample_tables):
     tables = {k: dict(v) for k, v in sample_tables.items()}
-    tables["fused_impact.cu"]["impact_tiles<1,1>"] = _build.Resources(
-        64, 40000, 0, 0, 0)
+    tables["fused_impact.cu"]["impact_tiles<1,1,1>"] = _build.Resources(
+        64, 50000, 0, 0, 0)
     bad = ir_audit.resource_findings(smem.all_working_sets(), tables)
     assert [f.check for f in bad] == ["smem"]
 
@@ -378,7 +382,9 @@ def test_working_sets_fit_the_card():
         assert ws.register_file <= smem.REGISTERS_PER_SM
     f32, tail = smem.fused_working_sets(packed=False)
     packed, tail_p = smem.fused_working_sets(packed=True)
-    assert packed.smem_bytes > f32.smem_bytes
+    # The f32 estimate is the paired ring's (both rows and both literals
+    # of 16 pairs a stage); the packed one is the full ring and its codes.
+    assert (f32.smem_bytes, packed.smem_bytes) == (46080, 31488)
     assert tail_p == tail and tail.smem_static == 34880
 
 

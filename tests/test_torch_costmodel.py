@@ -196,9 +196,11 @@ def test_staged_and_fused_flops_are_their_products(small_system):
     off = small_system.compile(_spec(metering="off"))
     n_ne, _ = off._needed()
     R, C, tr, tc = small_system.clause_i.shape
-    live = min(tr, K)
+    # K even and every pair in one shard: the paired pass multiplies K/2
+    # rows a lane.
+    assert K % 2 == 0 and K <= tr
     assert off.cost_analysis("predict", B)["flops"] == (
-        2.0 * B * live * n_ne + 2.0 * B * n_ne * M)
+        2.0 * B * (K // 2) * n_ne + 2.0 * B * n_ne * M)
     assert n_ne == int(small_system.nonempty.sum())
 
 
@@ -246,7 +248,9 @@ def test_bytes_per_sweep_sees_the_packed_operand(small_system):
         _spec(metering="fused", packing="2bit")), "infer_step", 32)
     assert packed["input_bytes"] < f32["input_bytes"]
     assert packed["bytes_accessed"] < f32["bytes_accessed"]
-    assert packed["flops"] == f32["flops"]
+    # The packed pass 1 multiplies every row, the f32 one (paired) half.
+    _, n_meter = small_system.compile(_spec(metering="fused"))._needed()
+    assert packed["flops"] == f32["flops"] + 2.0 * 32 * (K // 2) * n_meter
     staged = bytes_per_sweep(small_system.compile(
         _spec(metering="staged", packing="2bit")), "infer_step", 32)
     assert staged["bytes_accessed"] > packed["bytes_accessed"]

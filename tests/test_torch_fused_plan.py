@@ -1,8 +1,9 @@
 """The launch plan of ``fused_impact.cu``, computed on the host.
 
 ``repro_torch.kernels.fused_impact.plan`` picks pass 1's tile, splits each
-row shard's live rows (``min(tr, K - r*tr)``) into chunks of whole stages
-and sizes the tail's blocks; the CUDA side only checks the plan, so its
+row shard's live rows (``min(tr, K - r*tr)``; on the paired pass, the K/2
+pairs of the first shard) into chunks of whole stages and sizes the
+tail's blocks; the CUDA side only checks the plan, so its
 properties are held here on the CPU with the SM count as a parameter, at
 the shapes ``chip_smoke.py`` launches the kernels at and at edge cases:
 every shard's live rows are covered once, the paper shape fills about
@@ -56,17 +57,21 @@ def test_chunks_cover_each_shards_live_rows_once(B, K, R, C, tr, tc, sms,
                                                  packed):
     p = fi.plan(B, K, R, C, tr, tc, sms, packed)
     assert p.chunk > 0 and p.chunk % p.stage == 0       # whole stages
+    assert p.paired == fi.pairs(K, tr, packed)
     for r in range(R):
-        live = max(0, min(tr, K - r * tr))
+        # Paired, the chunks split the K/2 pairs, all in the first shard.
+        live = ((K // 2 if r == 0 else 0) if p.paired
+                else max(0, min(tr, K - r * tr)))
         rows = [k for s in range(p.splits)
                 for k in range(s * p.chunk, min(live, (s + 1) * p.chunk))]
         assert rows == list(range(live))                 # in order, once
-    fullest = max(0, min(tr, K))
+    fullest = K // 2 if p.paired else max(0, min(tr, K))
     assert p.splits == max(1, _cdiv(fullest, p.chunk))   # none empty
     tiles = _cdiv(B, p.tile_b) * C * _cdiv(tc, p.tile_n) * R
     assert p.blocks == tiles * p.splits
-    if p.splits > 1:                                     # fills the ring
-        assert p.chunk >= fi.MIN_SPLIT_STAGES * p.stage
+    if p.splits > 1:          # fills the ring: a paired stage copies two
+        assert (2 if p.paired else 1) * p.chunk >= (
+            fi.MIN_SPLIT_STAGES * p.stage)
 
 
 def _tail_columns(p, N, width):
@@ -140,12 +145,14 @@ def test_bulk_batch_fills_the_planned_blocks_an_sm(B, K, R, C, tr, tc, sms):
 
 @pytest.mark.parametrize("sms", SMS)
 def test_paper_shape_fills_about_one_wave(sms):
-    """16 tiles of 64 x 64 (lanes x columns) at B = 128, split into 14
-    chunks of 112 rows: 224 blocks, one wave at two blocks an SM."""
+    """16 tiles of 64 x 64 (lanes x columns) at B = 128, the paired pass
+    over 784 pairs split into 13 chunks of 64 pairs: 208 blocks, about
+    one wave at two blocks an SM."""
     p = fi.plan(128, 1568, 1, 1, 2048, 512, sms)
     wave = fi.BLOCKS_PER_SM * sms
     assert (p.tile_b, p.tile_n, p.stage) == fi.F32_TILE == (64, 64, 16)
-    assert (p.splits, p.chunk, p.blocks) == (14, 112, 224)
+    assert p.paired
+    assert (p.splits, p.chunk, p.blocks) == (13, 64, 208)
     assert 0.75 * wave <= p.blocks <= wave
     # The tail spreads each of the 128 lanes over 4 warps, one 16-byte
     # column group a thread.
@@ -195,8 +202,8 @@ def test_edge_cases_plan_without_error():
     assert fi.plan(0, 1568, 1, 1, 2048, 512, 132).tail_blocks == 0
     short = fi.plan(5, 210, 3, 1, 100, 40, 132)      # shard 2: 10 rows
     assert short.splits * short.chunk >= 100
-    p = fi.plan(5, 100, 1, 1, 2048, 512, 132)        # K < tr
-    assert p.splits * p.chunk >= 100 > (p.splits - 1) * p.chunk
+    p = fi.plan(5, 100, 1, 1, 2048, 512, 132)        # K < tr: 50 pairs
+    assert p.paired and p.splits * p.chunk >= 50 > (p.splits - 1) * p.chunk
 
 
 @pytest.mark.parametrize("packed", [False, True])
@@ -328,7 +335,7 @@ def test_code_copy_width_follows_pointer_and_tc(offset, tc, width):
 def test_describe_names_the_packed_path(monkeypatch):
     """``describe`` on the packed codes (``tr`` given) names the code
     path and the packed plan; on clause_i, the cell path and the f32
-    plan (132 SMs)."""
+    plan, here the paired pass (132 SMs)."""
     monkeypatch.setattr(fi, "sm_count", lambda index: 132)
     lit = _lits(128, 1568, 0)
     assert fi.describe(lit, _codes((1, 1, 512, 512), 1), 2048) == (
@@ -338,6 +345,6 @@ def test_describe_names_the_packed_path(monkeypatch):
     assert "codes by 4-byte copies" in fi.describe(
         lit, _codes((1, 1, 512, 512), 0), 2048)
     assert fi.describe(lit, torch.zeros((1, 1, 2048, 512))) == (
-        "64x64 tiles, literals by 16-byte copies, cells by 16-byte copies, "
-        "14 chunk(s) of 112 rows a shard, 224 blocks; tail 128 blocks of 1 "
-        "lane(s), 4 warp(s) a lane")
+        "64x64 tiles, paired pass over 784 literal pairs, literals by "
+        "16-byte copies, cells by 16-byte copies, 13 chunk(s) of 64 pairs, "
+        "208 blocks; tail 128 blocks of 1 lane(s), 4 warp(s) a lane")
